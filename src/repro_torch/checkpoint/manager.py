@@ -1,0 +1,310 @@
+"""Checkpointing: async, atomic, integrity-checked — the JAX package's
+``checkpoint/manager.py`` for tensors.
+
+This is the paper's Fig.1 step 2 ("save current state") and steps 5-7
+(move + assimilate + restart).  The on-disk layout is the JAX
+package's, so a checkpoint written by either package restores in the
+other:
+
+Layout: <dir>/step_<n>/
+          manifest.json        {step, leaf paths, shapes, dtypes, crcs,
+                                extra}
+          <leaf_key>.npy       one array per leaf
+Leaves are the tensors or arrays of a nested dict / list / tuple, keyed
+by their path as the JAX package keys pytree paths.  Writes go to
+step_<n>.tmp and are atomically swapped in (the previous generation is
+renamed aside to step_<n>.old for the instant of the swap); a torn
+write is never visible, and a crash mid-save can never leave a
+truncated latest checkpoint shadowing a good older one (DESIGN.md
+§19).  Async mode pushes the host-side serialization to a daemon
+thread (off the training critical path); save(wait=True) or close()
+joins it.
+
+Integrity (DESIGN.md §19): every leaf is stamped with a CRC-32 of its
+serialized bytes at save time.  ``restore()`` verifies before trusting:
+a generation whose bytes do not match its manifest is treated as
+corrupt, and the default restore falls back to the newest *intact*
+generation (``keep`` is floored to 2 so a fallback always has a
+candidate).  When no generation verifies, ``NoIntactCheckpointError``
+names every step tried.
+
+A SIGTERM handler can be installed for preemption-triggered snapshots
+(install_preemption_hook): save, then exit cleanly so the restart path
+resumes bit-consistently from the snapshot.
+"""
+from __future__ import annotations
+
+import json
+import os
+import queue
+import shutil
+import signal
+import threading
+import warnings
+import zlib
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+_SEP = "__"
+
+
+class NoIntactCheckpointError(RuntimeError):
+    """Every on-disk checkpoint generation failed integrity
+    verification (or none exists) — there is nothing safe to restore
+    (DESIGN.md §19)."""
+
+
+def _flatten(tree, prefix: tuple = ()) -> dict[str, Any]:
+    """Leaves of a nested dict / list / tuple keyed as the JAX package
+    keys its pytree paths: dict keys in sorted order, sequence indices,
+    joined by ``__`` (``root`` for a bare leaf); ``None`` holds no
+    leaf."""
+    out: dict[str, Any] = {}
+    if tree is None:
+        return out
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        out[_SEP.join(prefix) or "root"] = tree
+        return out
+    for key, sub in items:
+        out.update(_flatten(sub, prefix + (key,)))
+    return out
+
+
+def _unflatten(target, values: dict[str, Any], prefix: tuple = ()):
+    """Rebuild ``target``'s structure with the leaves from ``values``."""
+    if target is None:
+        return None
+    if isinstance(target, dict):
+        return {k: _unflatten(target[k], values, prefix + (str(k),))
+                for k in target}
+    if isinstance(target, (list, tuple)):
+        seq = [_unflatten(v, values, prefix + (str(i),))
+               for i, v in enumerate(target)]
+        return type(target)(seq) if isinstance(target, tuple) else seq
+    return values[_SEP.join(prefix) or "root"]
+
+
+def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | os.PathLike, *, async_save: bool = True,
+                 keep: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        # at least 2 generations: a corrupt latest must always leave an
+        # older candidate for the integrity fallback (DESIGN.md §19)
+        self.keep = max(keep, 2)
+        self.async_save = async_save
+        self._q: queue.Queue = queue.Queue()
+        self._worker: threading.Thread | None = None
+        self._pending = 0
+        self._lock = threading.Lock()
+        if async_save:
+            self._worker = threading.Thread(target=self._run, daemon=True)
+            self._worker.start()
+
+    # ------------------------------------------------------------------ save
+
+    def save(self, step: int, state, extra: dict | None = None,
+             wait: bool = False):
+        """Snapshot `state` (nested dict/list/tuple of tensors or
+        arrays) at `step`.
+
+        Device tensors are copied to the host here (cheap vs
+        serialization); file I/O happens on the worker thread in async
+        mode.
+        """
+        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        job = (step, host, dict(extra or {}))
+        if self.async_save and not wait:
+            with self._lock:
+                self._pending += 1
+            self._q.put(job)
+        else:
+            # a sync save may target the same step as a queued async one
+            # (periodic + final save); drain the worker first so both
+            # never race on the same step_*.tmp staging dir
+            self.wait()
+            self._write(job)
+
+    def wait(self):
+        if self.async_save:
+            self._q.join()
+
+    def close(self):
+        self.wait()
+
+    def _run(self):
+        while True:
+            job = self._q.get()
+            try:
+                self._write(job)
+            finally:
+                with self._lock:
+                    self._pending -= 1
+                self._q.task_done()
+
+    def _write(self, job):
+        step, host, extra = job
+        tmp = self.dir / f"step_{step:08d}.tmp"
+        final = self.dir / f"step_{step:08d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {"step": step, "extra": extra, "leaves": {}}
+        for key, arr in host.items():
+            fname = f"{key}.npy"
+            np.save(tmp / fname, arr, allow_pickle=False)
+            manifest["leaves"][key] = {
+                "file": fname,
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                # content checksum of the serialized bytes — what
+                # restore() verifies before trusting this generation
+                "crc32": zlib.crc32((tmp / fname).read_bytes()),
+            }
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        # atomic swap: never rmtree the live generation before the new
+        # one is in place — a crash between those two operations would
+        # otherwise lose BOTH (DESIGN.md §19).  Rename the old aside,
+        # move the new in (os.replace is atomic on one filesystem),
+        # then drop the old.
+        old = self.dir / f"step_{step:08d}.old"
+        if old.exists():
+            shutil.rmtree(old)
+        if final.exists():
+            os.replace(final, old)
+        os.replace(tmp, final)
+        if old.exists():
+            shutil.rmtree(old)
+        self._gc()
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: -self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # --------------------------------------------------------------- restore
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for p in self.dir.glob("step_*"):
+            if p.suffix in (".tmp", ".old") \
+                    or not (p / "manifest.json").exists():
+                continue
+            out.append(int(p.name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def verify(self, step: int) -> bool:
+        """True iff the generation at ``step`` passes integrity
+        verification: readable manifest and every leaf's bytes matching
+        its stamped CRC-32 (DESIGN.md §19).  Legacy manifests without
+        checksums are trusted (there is nothing to verify against)."""
+        d = self.dir / f"step_{step:08d}"
+        try:
+            manifest = json.loads((d / "manifest.json").read_text())
+            for meta in manifest["leaves"].values():
+                crc = meta.get("crc32")
+                if crc is None:
+                    continue
+                if zlib.crc32((d / meta["file"]).read_bytes()) != crc:
+                    return False
+        except (OSError, ValueError, KeyError):
+            return False
+        return True
+
+    def restore(self, target_state, step: int | None = None
+                ) -> tuple[Any, dict]:
+        """Load into the structure of `target_state` (nested dict/list/
+        tuple; only its keys matter).  Leaves come back as CPU tensors.
+
+        With ``step=None`` (the default), generations are verified
+        newest-first and the newest *intact* one is restored — a
+        corrupt latest falls back with a warning instead of silently
+        resuming from garbage (DESIGN.md §19).  An explicit ``step``
+        that fails verification raises instead: the caller asked for
+        that generation specifically.
+        """
+        if step is None:
+            steps = self.all_steps()
+            if not steps:
+                raise FileNotFoundError(f"no checkpoints in {self.dir}")
+            step = None
+            for s in reversed(steps):
+                if self.verify(s):
+                    step = s
+                    break
+                warnings.warn(
+                    f"checkpoint step {s} failed integrity verification;"
+                    f" falling back to an older generation",
+                    stacklevel=2,
+                )
+            if step is None:
+                raise NoIntactCheckpointError(
+                    f"no intact checkpoint in {self.dir}: every "
+                    f"generation failed integrity verification "
+                    f"(steps tried: {steps})"
+                )
+        elif not self.verify(step):
+            raise NoIntactCheckpointError(
+                f"checkpoint step {step} in {self.dir} failed "
+                f"integrity verification"
+            )
+        d = self.dir / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        flat_target = _flatten(target_state)
+        out = {}
+        for key, meta in manifest["leaves"].items():
+            if key not in flat_target:
+                continue
+            arr = np.load(d / meta["file"], allow_pickle=False)
+            if str(arr.dtype) != meta["dtype"]:
+                raise TypeError(
+                    f"leaf {key} is stored as {meta['dtype']}, which "
+                    f"has no numpy dtype here")
+            out[key] = torch.from_numpy(arr)
+        missing = set(flat_target) - set(out)
+        if missing:
+            raise KeyError(f"checkpoint at step {step} missing leaves: "
+                           f"{sorted(missing)[:5]}...")
+        return _unflatten(target_state, out), manifest["extra"]
+
+
+def install_preemption_hook(save_fn: Callable[[], None], *,
+                            exit_code: int | None = 143):
+    """SIGTERM -> snapshot -> clean exit (DESIGN.md §19).
+
+    The platform is reclaiming us: ``save_fn`` persists the snapshot,
+    then the process exits with ``exit_code`` (default 143 = 128 +
+    SIGTERM, the conventional "terminated" status) so the supervisor's
+    restart path restores from it and resumes bit-consistently.  Pass
+    ``exit_code=None`` to chain to Python's default KeyboardInterrupt
+    behavior instead of exiting.  Returns the previous SIGTERM handler
+    so callers (and tests) can restore it.
+    """
+
+    def handler(signum, frame):
+        try:
+            save_fn()
+        finally:
+            if exit_code is None:
+                signal.default_int_handler(signum, frame)
+            else:
+                raise SystemExit(exit_code)
+
+    return signal.signal(signal.SIGTERM, handler)

@@ -1,0 +1,145 @@
+"""Python wrapper of the Hopper stencil kernel (``csrc/wave_block.cu``).
+
+``wave_block_shots_cuda`` advances a shot batch k fused leapfrog steps
+in one launch.  It replaces the JAX package's four k-step Pallas
+kernels (``kernels/stencil/kernel.py``: ``wave_block_shots_pallas``,
+``wave_block_shots_stream_pallas`` and, as the S=1 batch,
+``wave_block_pallas`` and ``wave_block_stream_pallas``).  The kernel is
+memory-bound: its least traffic per block is
+``block_bytes(S, NZ, NX, k)``.
+
+The wrapper checks what the kernel takes and raises on anything else,
+allocates the outputs, launches on PyTorch's current stream without
+synchronising, raises if the launch is refused, and counts launches in
+``wave_block_shots_cuda.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.stencil import build
+
+HALO = 2
+#: owned output tile of one CTA (rows, columns)
+TILE_Z = 32
+TILE_X = 32
+#: shared memory one CTA may use on Hopper
+MAX_SMEM_BYTES = 232448
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signatures."""
+    lib = build.load("wave_block")
+    lib.wave_block_shots_launch.argtypes = (
+        [_VOIDP] * 5 + [_INT] + [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP]
+    )
+    lib.wave_block_shots_launch.restype = _INT
+    lib.wave_block_error_string.argtypes = [_INT]
+    lib.wave_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(k: int, tz: int = TILE_Z, tx: int = TILE_X) -> int:
+    """Dynamic shared memory of one CTA: five (tz+4k, tx+4k) f32
+    windows (v2dt2, sponge and three rotating field buffers)."""
+    return 5 * (tz + 2 * k * HALO) * (tx + 2 * k * HALO) * 4
+
+
+def block_bytes(ns: int, nz: int, nx: int, k: int) -> int:
+    """Least HBM traffic of one block: read p, p_prev, v2dt2, sponge
+    once, write p_k, prevd_k and the (S, k, NX) traces."""
+    return 4 * ((4 * ns + 2) * nz * nx + ns * k * nx)
+
+
+def block_flops(ns: int, nz: int, nx: int, k: int) -> int:
+    """f32 operations of one block: 17 per cell and step."""
+    return 17 * ns * k * nz * nx
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def wave_block_shots_cuda(
+    p: torch.Tensor,         # (S, NZ, NX) f32, CUDA
+    p_prev: torch.Tensor,    # (S, NZ, NX) f32, already sponge-damped
+    v2dt2: torch.Tensor,     # (NZ, NX) f32, shared by all shots
+    sponge: torch.Tensor,    # (NZ, NX) f32
+    src_vals: torch.Tensor,  # (k,) shared or (S, k) per-shot f32
+    src_z: torch.Tensor,     # (S,) int32 source rows
+    src_x: torch.Tensor,     # (S,) int32 source columns
+    *,
+    receiver_row: int,
+):
+    """k fused timesteps on the card; k is ``src_vals.shape[-1]``.
+    Returns (p_k, p_prev_damped_k, traces (S, k, NX)).  Sources outside
+    the field inject nothing."""
+    if p.device.type != "cuda":
+        raise ValueError(f"wave_block_shots_cuda needs CUDA tensors, "
+                         f"got {p.device}")
+    if p.ndim != 3:
+        raise ValueError(f"p must be (S, NZ, NX), got {tuple(p.shape)}")
+    ns, nz, nx = p.shape
+    dev = p.device
+    f32 = torch.float32
+    if src_vals.ndim not in (1, 2):
+        raise ValueError("src_vals must be (k,) or (S, k)")
+    k = src_vals.shape[-1]
+    if src_vals.ndim == 1:
+        src_vals = src_vals.expand(ns, k)
+    if src_vals.stride(-1) != 1 and k > 1:
+        raise ValueError("src_vals must be contiguous along k")
+    _check("p", p, f32, (ns, nz, nx), dev)
+    _check("p_prev", p_prev, f32, (ns, nz, nx), dev)
+    _check("v2dt2", v2dt2, f32, (nz, nx), dev)
+    _check("sponge", sponge, f32, (nz, nx), dev)
+    if src_vals.device != dev or src_vals.dtype != f32 \
+            or tuple(src_vals.shape) != (ns, k):
+        raise ValueError(f"src_vals must be f32 (k,) or ({ns}, k) on {dev}")
+    _check("src_z", src_z, torch.int32, (ns,), dev)
+    _check("src_x", src_x, torch.int32, (ns,), dev)
+    if k < 1:
+        raise ValueError("k must be at least 1")
+    if not 0 <= receiver_row < nz:
+        raise ValueError(f"receiver_row {receiver_row} outside [0, {nz})")
+    if smem_bytes(k) > MAX_SMEM_BYTES:
+        raise ValueError(f"k={k} needs {smem_bytes(k)} B of shared memory "
+                         f"per CTA, more than {MAX_SMEM_BYTES}")
+    p_out = torch.empty_like(p)
+    pp_out = torch.empty_like(p)
+    traces = torch.empty((ns, k, nx), dtype=f32, device=dev)
+    if ns == 0 or nz == 0 or nx == 0:
+        return p_out, pp_out, traces
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.wave_block_shots_launch(
+            p.data_ptr(), p_prev.data_ptr(), v2dt2.data_ptr(),
+            sponge.data_ptr(), src_vals.data_ptr(), src_vals.stride(0),
+            src_z.data_ptr(), src_x.data_ptr(),
+            p_out.data_ptr(), pp_out.data_ptr(), traces.data_ptr(),
+            ns, nz, nx, k, int(receiver_row), TILE_Z, TILE_X, stream,
+        )
+    if err != 0:
+        msg = lib.wave_block_error_string(err).decode()
+        raise RuntimeError(f"wave_block_shots launch failed: {msg} ({err})")
+    wave_block_shots_cuda.launches += 1
+    return p_out, pp_out, traces
+
+
+wave_block_shots_cuda.launches = 0

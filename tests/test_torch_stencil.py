@@ -1,0 +1,182 @@
+"""The port's stencil against the JAX package's.
+
+The plain PyTorch versions (``repro_torch.kernels.stencil.ref``) must be
+BITWISE equal to the JAX package's eager XLA references: same ops, same
+accumulation order, one f32 rounding each.  The port's dispatch on CPU
+tensors must stay within ``atol=1e-5`` of the JAX Pallas kernels in
+interpret mode on unit-normal inputs — the contract the JAX package
+holds its own Pallas kernels to (their z/x stencil order differs).  The
+CUDA kernel is held to the plain version on the card (marked ``gpu``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.stencil import ops as jops  # noqa: E402
+from repro.kernels.stencil import ref as jref  # noqa: E402
+from repro_torch.kernels.stencil import build, kernel, ops, ref  # noqa: E402
+
+
+def _inputs(seed, ns, nz, nx, k, per_shot=True):
+    """Unit-normal wavefields, positive model fields, sources at the
+    field's edges and corners."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((ns, nz, nx)).astype(np.float32)
+    pp = rng.standard_normal((ns, nz, nx)).astype(np.float32)
+    v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
+    sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
+    shape = (ns, k) if per_shot else (k,)
+    sv = rng.standard_normal(shape).astype(np.float32)
+    corners_z = np.array([0, nz - 1, nz // 2, 1], np.int32)
+    corners_x = np.array([nx - 1, 0, 1, nx // 2], np.int32)
+    sz = corners_z[np.arange(ns) % 4]
+    sx = corners_x[np.arange(ns) % 4]
+    return p, pp, v2, sp, sv, sz, sx
+
+
+def _jax(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _torch(arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _assert_bitwise(jax_outs, torch_outs):
+    for a, b in zip(jax_outs, torch_outs):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("ns", [1, 3])
+@pytest.mark.parametrize("per_shot", [False, True])
+@pytest.mark.parametrize("receiver_row", [0, 2])
+def test_shots_ref_bitwise(k, ns, per_shot, receiver_row):
+    args = _inputs(k * 10 + ns, ns, 21, 34, k, per_shot)
+    a = jref.wave_block_shots_ref(*_jax(args), receiver_row=receiver_row)
+    b = ref.wave_block_shots_ref(*_torch(args), receiver_row=receiver_row)
+    _assert_bitwise(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("receiver_row", [0, 2])
+def test_single_shot_ref_bitwise(k, receiver_row):
+    p, pp, v2, sp, sv, sz, sx = _inputs(k, 1, 19, 27, k, per_shot=False)
+    a = jref.wave_block_ref(*_jax([p[0], pp[0], v2, sp, sv]),
+                            int(sz[0]), int(sx[0]),
+                            receiver_row=receiver_row)
+    b = ref.wave_block_ref(*_torch([p[0], pp[0], v2, sp, sv]),
+                           int(sz[0]), int(sx[0]),
+                           receiver_row=receiver_row)
+    _assert_bitwise(a, b)
+
+
+def test_wave_step_and_laplacian_bitwise():
+    p, pp, v2, sp, *_ = _inputs(5, 2, 23, 31, 1)
+    _assert_bitwise(jref.wave_step_ref(*_jax([p, pp, v2, sp])),
+                    ref.wave_step_ref(*_torch([p, pp, v2, sp])))
+    _assert_bitwise([jref.laplacian(jnp.asarray(p), 0.25)],
+                    [ref.laplacian(torch.from_numpy(p), 0.25)])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_dispatch_cpu_matches_pallas_shots(stream):
+    """CPU dispatch vs the JAX shot-batched Pallas kernels (resident and
+    streamed) in interpret mode: atol 1e-5 on unit-normal inputs."""
+    args = _inputs(7, 2, 64, 128, 4)
+    a = jops.wave_block(*_jax(args), receiver_row=2, use_pallas=True,
+                        interpret=True, stream=stream,
+                        bz=16 if stream else None)
+    b = ops.wave_block(*_torch(args), receiver_row=2)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_dispatch_cpu_matches_pallas_single_shot(stream):
+    p, pp, v2, sp, sv, sz, sx = _inputs(8, 1, 64, 128, 3, per_shot=False)
+    two_d = [p[0], pp[0], v2, sp, sv]
+    a = jops.wave_block(*_jax(two_d), int(sz[0]), int(sx[0]),
+                        receiver_row=0, use_pallas=True, interpret=True,
+                        stream=stream, bz=16 if stream else None)
+    b = ops.wave_block(*_torch(two_d), int(sz[0]), int(sx[0]),
+                       receiver_row=0)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=0,
+                                   atol=1e-5)
+
+
+def test_two_d_entry_equals_s1_batch():
+    p, pp, v2, sp, sv, sz, sx = _inputs(9, 1, 30, 41, 4, per_shot=False)
+    t = _torch([p, pp, v2, sp, sv])
+    two = ops.wave_block(t[0][0], t[1][0], t[2], t[3], t[4],
+                         int(sz[0]), int(sx[0]), receiver_row=2)
+    bat = ops.wave_block(t[0], t[1], t[2], t[3], t[4],
+                         torch.from_numpy(sz), torch.from_numpy(sx),
+                         receiver_row=2)
+    for x, y in zip(two, bat):
+        assert torch.equal(x, y[0])
+
+
+def test_cpu_dispatch_never_launches():
+    before = kernel.wave_block_shots_cuda.launches
+    ops.wave_block(*_torch(_inputs(1, 2, 16, 16, 2)), receiver_row=0)
+    assert kernel.wave_block_shots_cuda.launches == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.wave_block_shots_cuda(*_torch(_inputs(2, 1, 8, 8, 1)),
+                                     receiver_row=0)
+
+
+def test_dispatch_rejects_receiver_outside_field():
+    with pytest.raises(ValueError, match="receiver_row"):
+        ops.wave_block(*_torch(_inputs(3, 1, 8, 8, 1)), receiver_row=8)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(build.BuildError, match="nvcc"):
+        build.nvcc_path()
+
+
+def test_bound_and_shared_memory_model():
+    # least traffic of one block (600², S=4, k=4 and 4096², S=4, k=8)
+    assert kernel.block_bytes(4, 600, 600, 4) == 25_958_400
+    assert kernel.block_bytes(4, 4096, 4096, 8) == 1_208_483_840
+    assert kernel.smem_bytes(8) == 5 * 64 * 64 * 4
+    assert kernel.smem_bytes(8) <= kernel.MAX_SMEM_BYTES
+    assert ops.pick_k(600) == 8 and ops.pick_k(4096) == 8
+
+
+def test_pick_k_matches_jax():
+    for nz in (16, 32, 48, 64, 251, 600):
+        assert ops.pick_k(nz) == jops.pick_k(nz)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 37, 53, 1), (3, 64, 96, 3),
+                                   (2, 70, 70, 8)])
+def test_kernel_matches_plain_on_card(cuda_device, shape):
+    ns, nz, nx, k = shape
+    args = [t.to(cuda_device) for t in _torch(_inputs(11, ns, nz, nx, k))]
+    before = kernel.wave_block_shots_cuda.launches
+    got = ops.wave_block(*args, receiver_row=2)
+    assert kernel.wave_block_shots_cuda.launches == before + 1
+    want = ref.wave_block_shots_ref(*args, receiver_row=2)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= 1e-5
