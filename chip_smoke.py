@@ -8,10 +8,12 @@ Phases, each printing one JSON line:
 1. ``device``: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions.
 2. ``build``: nvcc builds ``csrc/*.cu`` for sm_90a from this checkout.
-3. ``kernel_vs_plain``: the CUDA stencil kernel against its plain
+3. ``kernel_vs_plain``: the CUDA block kernel against its plain
    PyTorch version on the same card tensors, unit-normal inputs from a
    fixed seed; fails above 1e-5 max abs diff.
-4. ``session``: the main path at the paper's size (``FWIConfig()``:
+4. ``step_vs_plain``: the CUDA step kernel likewise (ragged 37 x 53,
+   64 x 96, 600 x 600 and 4096 x 4096).
+5. ``session``: the main path at the paper's size (``FWIConfig()``:
    600 x 600, 4 shots, 600 steps) — ``ElasticOrchestrator`` drives
    ``fwi_session_factory(device="cuda")`` through a scripted GROW and
    RETIRE (checkpoint -> new session -> restore), a ``PreemptionGuard``
@@ -19,11 +21,23 @@ Phases, each printing one JSON line:
    kernel's launch count must equal the blocks dispatched, and the
    final field must match the plain version on the CPU within
    1e-5 * max|ref|.
-5. ``production``: ``run_forward`` at 4096 x 4096, 4 shots, 200 steps
+6. ``scan_vs_block``: the step-at-a-time engine (``make_scan_runner``,
+   one step-kernel launch per step) against the block engine over all
+   600 steps at the paper's size: bitwise, traces included.
+7. ``calibration``: the paper's pre-processing phase on the card — the
+   gamma sweep and its linear fit at the paper's height (nz=600) and a
+   production height (nz=4096), then capacity models fitted from a
+   measured step time drive ``BurstPlanner`` and
+   ``ElasticOrchestrator`` through a congested 600-step run that must
+   burst.
+8. ``production``: ``run_forward`` at 4096 x 4096, 4 shots, 200 steps
    (k = 8): ms per block against the card's bound, one block held to
    the plain version on the card.
-6. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
-   kernel with its time, launches, error, bound and plain-version time.
+9. ``autotune``: the tile sweeps of both kernels at 600 x 600 and
+   4096 x 4096 (S=4), every candidate held bitwise to the plain version
+   at 600 x 600, and a short ``FWISession(autotune=True)`` run.
+10. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
+    kernel with its time, launches, error, bound and plain-version time.
 
 Then the card's ``nvidia-smi`` line, and last the contract line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -33,6 +47,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -86,7 +101,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.stencil import build, kernel, ops, ref
+    from repro_torch.kernels.stencil import build, kernel, ops, ref, tune
 
     dev = torch.device("cuda", 0)
 
@@ -170,31 +185,100 @@ def main() -> int:
     check(err <= TOL, f"kernel vs plain 2-D entry: {err} > {TOL}")
     emit({"phase": "kernel_vs_plain", "tolerance": TOL, "cases": cases})
 
-    # 4. session: the main path
+    def step_inputs(ns, nz, nx):
+        p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+        pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+        v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
+        sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
+        return [torch.from_numpy(a).to(dev) for a in (p, pp, v2, sp)]
+
+    # 4. step_vs_plain
+    cases, step_err = [], 0.0
+    for label, (ns, nz, nx) in [("ragged tiny", (1, 37, 53)),
+                                ("small batch", (3, 64, 96)),
+                                ("paper size", (4, 600, 600)),
+                                ("production size", (4, 4096, 4096))]:
+        args = step_inputs(ns, nz, nx)
+        got = ops.wave_step(*args)
+        want = ref.wave_step_ref(*args)
+        torch.cuda.synchronize()
+        err = max_diff(got, want)
+        step_err = max(step_err, err)
+        cases.append({"case": label, "S": ns, "nz": nz, "nx": nx,
+                      "max_abs_diff": err, "bitwise": all(
+                          torch.equal(g, w) for g, w in zip(got, want))})
+        check(err <= TOL, f"step kernel vs plain {label}: {err} > {TOL}")
+        if ns == 1:                                  # the 2-D entry
+            got2 = ops.wave_step(args[0][0], args[1][0], *args[2:])
+            check(all(torch.equal(g[None], w) for g, w in zip(got2, got)),
+                  "2-D wave_step differs from the S=1 batch")
+        del args, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "step_vs_plain", "tolerance": TOL, "cases": cases})
+
+    # 5. session: the main path
     session_launches, session = run_session(dev)
     emit(session)
 
-    # 5. production
+    # 6. scan_vs_block
+    scan = run_scan_vs_block(dev)
+    emit(scan)
+
+    # 7. calibration: the paper's pre-processing phase
+    calib = run_calibration(dev)
+    emit(calib)
+
+    # 8. production
     production = run_production(dev, bw, f32)
     emit(production)
 
-    # 6. kernels
+    # 9. autotune
+    emit(run_autotune(dev, step_inputs, inputs))
+
+    # 10. kernels
     timings = {}
     for label, (ns, nz, nx, k) in (("600", (4, 600, 600, 4)),
-                                   ("4096", (4, 4096, 4096, 8))):
+                                   ("4096", (4, 4096, 4096, 8)),
+                                   ("600 S=1", (1, 600, 600, 4)),
+                                   ("4096 S=1", (1, 4096, 4096, 8))):
         args = inputs(ns, nz, nx, k)
         err, _ = compare(args, 2)
         check(err <= TOL, f"kernel vs plain at {label}: {err} > {TOL}")
-        ms = time_ms(lambda: kernel.wave_block_shots_cuda(
-            *args, receiver_row=2), reps=50 if label == "600" else 10)
-        plain_ms = time_ms(lambda: ref.wave_block_shots_ref(
-            *args, receiver_row=2), reps=5 if label == "600" else 2)
-        bound = bound_ms(kernel, ns, nz, nx, k, bw, f32)
+        small = label.startswith("600")
+        ms = tune.device_time_ms(lambda: kernel.wave_block_shots_cuda(
+            *args, receiver_row=2), reps=50 if small else 10)
+        plain_ms = tune.device_time_ms(lambda: ref.wave_block_shots_ref(
+            *args, receiver_row=2), reps=5 if small else 2)
+        bound = bound_ms(kernel.block_bytes(ns, nz, nx, k),
+                         kernel.block_flops(ns, nz, nx, k), bw, f32)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               max_abs_err=err)
         del args
         torch.cuda.empty_cache()
+    steps_t = {}
+    for label, (ns, nz, nx) in (("600", (4, 600, 600)),
+                                ("4096", (4, 4096, 4096))):
+        args = step_inputs(ns, nz, nx)
+        got = kernel.wave_step_cuda(*args)
+        want = ref.wave_step_ref(*args)
+        torch.cuda.synchronize()
+        err = max_diff(got, want)
+        check(err <= TOL, f"step kernel vs plain at {label}: {err} > {TOL}")
+        del got, want
+        small = label == "600"
+        ms = tune.device_time_ms(lambda: kernel.wave_step_cuda(*args),
+                                 reps=200 if small else 20)
+        plain_ms = tune.device_time_ms(lambda: ref.wave_step_ref(*args),
+                                       reps=20 if small else 3)
+        bound = bound_ms(kernel.step_bytes(ns, nz, nx),
+                         kernel.step_flops(ns, nz, nx), bw, f32)
+        steps_t[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              max_abs_err=err)
+        del args
+        torch.cuda.empty_cache()
     t6, t4k = timings["600"], timings["4096"]
+    s6, s4k = timings["600 S=1"], timings["4096 S=1"]
+    w6, w4k = steps_t["600"], steps_t["4096"]
     entry = {
         "name": "wave_block_shots",
         "route": "cuda",
@@ -206,7 +290,8 @@ def main() -> int:
             "src/repro/kernels/stencil/kernel.py:375",
         ],
         "launches": session_launches,
-        "max_abs_err": max(t6["max_abs_err"], t4k["max_abs_err"]),
+        "launches_calibration": calib["wave_block_launches"],
+        "max_abs_err": max(t["max_abs_err"] for t in timings.values()),
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"],
@@ -217,39 +302,49 @@ def main() -> int:
         "plain_ms_4096": t4k["plain_ms"],
         "bound_ms_4096": t4k["bound_ms"],
         "shape_4096": "S=4, 4096x4096, k=8",
+        "ms_s1": s6["ms"], "plain_ms_s1": s6["plain_ms"],
+        "bound_ms_s1": s6["bound_ms"],
+        "ms_s1_4096": s4k["ms"], "plain_ms_s1_4096": s4k["plain_ms"],
+        "bound_ms_s1_4096": s4k["bound_ms"],
+        "shape_s1": "S=1, 600x600, k=4 / S=1, 4096x4096, k=8 (the "
+                    "single-shot entries)",
         "library": "none: no single PyTorch call computes the k-step block",
     }
+    step_entry = {
+        "name": "wave_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/stencil/csrc/wave_step.cu",
+        "replaces": "src/repro/kernels/stencil/kernel.py:157",
+        "launches": calib["wave_step_launches"],
+        "max_abs_err": max(step_err, w6["max_abs_err"], w4k["max_abs_err"]),
+        "ms": w6["ms"],
+        "plain_ms": w6["plain_ms"],
+        "bound_ms": w6["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": "S=4, 600x600 (the calibration sweep's paper height)",
+        "ms_4096": w4k["ms"],
+        "plain_ms_4096": w4k["plain_ms"],
+        "bound_ms_4096": w4k["bound_ms"],
+        "shape_4096": "S=4, 4096x4096",
+        "library": "none: no single PyTorch call computes the damped "
+                   "leapfrog step with its 4th-order Laplacian",
+    }
     print(smi, flush=True)
-    emit({"kernels": [entry]})
+    emit({"kernels": [entry, step_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def bound_ms(kernel, ns, nz, nx, k, bw, f32) -> float:
-    """Least time of one block: the larger of its bytes over the card's
+def bound_ms(nbytes, flops, bw, f32) -> float:
+    """Least time of one launch: the larger of its bytes over the card's
     memory rate and its f32 operations over the card's peak."""
-    by_bytes = kernel.block_bytes(ns, nz, nx, k) / bw
-    by_ops = kernel.block_flops(ns, nz, nx, k) / f32
+    by_bytes = nbytes / bw
+    by_ops = flops / f32
     if by_ops > by_bytes:
-        raise SmokeFailure("the stencil block is not bound by bytes")
+        raise SmokeFailure("the stencil is not bound by bytes")
     return by_bytes * 1e3
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 class ScriptedPolicy:
@@ -418,7 +513,8 @@ def run_production(dev, bw, f32):
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(err <= TOL, f"production block vs plain: {err} > {TOL}")
     ms_block = wall / blocks * 1e3
-    bound = bound_ms(kernel, 4, cfg.nz, cfg.nx, k, bw, f32)
+    bound = bound_ms(kernel.block_bytes(4, cfg.nz, cfg.nx, k),
+                     kernel.block_flops(4, cfg.nz, cfg.nx, k), bw, f32)
     return {
         "phase": "production", "nz": cfg.nz, "nx": cfg.nx, "shots": 4,
         "steps": cfg.timesteps, "k": k, "blocks": blocks,
@@ -430,6 +526,311 @@ def run_production(dev, bw, f32):
             torch.equal(g, w) for g, w in zip(got, want)),
         "max_abs_p": float(st.p.abs().max()),
     }
+
+
+def run_scan_vs_block(dev):
+    """All 600 steps at the paper's size through the step engine and
+    the block engine: one answer, bitwise, traces included."""
+    from repro_torch.fwi.solver import (
+        FWIConfig,
+        ShotState,
+        make_block_runner,
+        make_scan_runner,
+    )
+    from repro_torch.kernels.stencil.kernel import (
+        wave_block_shots_cuda,
+        wave_step_cuda,
+    )
+
+    cfg = FWIConfig()
+    steps, k = cfg.timesteps, 4
+    st = ShotState.init(cfg, dev)
+    scan = make_scan_runner(cfg, collect_traces=True, device=dev)
+    bare = make_scan_runner(cfg, device=dev)     # as the gamma sweep runs
+    block = make_block_runner(cfg, k=k, device=dev)
+
+    def timed(run):
+        """(output, seconds, (step launches, block launches)) of one
+        run of all the steps, after a warm-up."""
+        run(st.p, st.p_prev, 0, 8)
+        torch.cuda.synchronize()
+        wave_step_cuda.launches = 0
+        wave_block_shots_cuda.launches = 0
+        t0 = time.monotonic()
+        out = run(st.p, st.p_prev, 0, steps)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0, (
+            wave_step_cuda.launches, wave_block_shots_cuda.launches)
+
+    a, scan_s, (step_launches, _) = timed(scan)
+    b, block_s, (_, block_launches) = timed(block)
+    _, bare_s, _ = timed(bare)
+    check(step_launches == steps,
+          f"{step_launches} step-kernel launches for {steps} steps")
+    check(block_launches == steps // k,
+          f"{block_launches} block-kernel launches for {steps // k} blocks")
+    check(tuple(a[2].shape) == (cfg.n_shots, steps, cfg.nx),
+          f"traces shape {tuple(a[2].shape)}")
+    check(all(bool(torch.isfinite(x).all()) for x in a),
+          "non-finite scan-runner output")
+    check(float(a[0].abs().max()) > 0, "the scan runner's field is zero")
+    same = [torch.equal(x, y) for x, y in zip(a, b)]
+    check(all(same), f"scan runner vs block runner not bitwise: {same}")
+    busy = profile_device(lambda: bare(st.p, st.p_prev, 0, 100), 100)
+    busy_block = profile_device(lambda: block(st.p, st.p_prev, 0, 100),
+                                100 // k)
+    idx_s = time_index_put_scan(cfg, dev, steps, b[:2])
+    return {
+        "phase": "scan_vs_block", "nz": cfg.nz, "nx": cfg.nx,
+        "shots": cfg.n_shots, "steps": steps, "block_k": k,
+        "wave_step_launches": step_launches,
+        "wave_block_launches": block_launches,
+        "bitwise_p_pprev_traces": same,
+        "scan_ms_per_step": scan_s / steps * 1e3,
+        "scan_no_traces_ms_per_step": bare_s / steps * 1e3,
+        "block_ms_per_step": block_s / steps * 1e3,
+        "scan_profile_100_steps": busy,
+        "block_profile_25_blocks": busy_block,
+        "scan_index_put_ms_per_step": idx_s / steps * 1e3,
+        "max_abs_p": float(a[0].abs().max()),
+    }
+
+
+def profile_device(fn, calls: int) -> dict:
+    """``torch.profiler`` over one synchronised call of ``fn`` (warmed
+    up first): wall ms, the kernels' device ms and launches per call
+    (``calls`` steps or blocks), and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(device_ms > 0, "the profiler saw no device time")
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy_share": device_ms / (wall * 1e3),
+            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "by_kernel_ms": {e.key[:48]: e.self_device_time_total / 1e3
+                             for e in kernels}}
+
+
+def time_index_put_scan(cfg, dev, steps, want) -> float:
+    """Seconds for ``steps`` scan steps with the source added by an
+    accumulating ``index_put_`` (the form the solver avoids); the
+    result must equal the engine's bitwise."""
+    from repro_torch.fwi.solver import model_fields
+    from repro_torch.kernels.stencil.ops import wave_step
+
+    mf = model_fields(cfg, dev)
+    idx = (torch.arange(cfg.n_shots, device=dev), mf.src_z.long(),
+           mf.src_x.long())
+
+    def run(n):
+        p = torch.zeros((cfg.n_shots, cfg.nz, cfg.nx), device=dev)
+        pp = torch.zeros_like(p)
+        for t in range(n):
+            p, pp = wave_step(p, pp, mf.v2dt2, mf.sponge)
+            p.index_put_(idx, mf.amps[min(t, cfg.timesteps - 1)].expand(
+                cfg.n_shots), accumulate=True)
+        return p, pp
+
+    run(8)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = run(steps)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    check(all(torch.equal(x, y) for x, y in zip(out, want)),
+          "index_put_ injection differs from the engine")
+    return secs
+
+
+def run_calibration(dev):
+    """The paper's pre-processing phase (§3.2) on the card: t(γ) at two
+    heights, then fitted capacity models drive a congested adaptive
+    run that must burst."""
+    from repro_torch.core import (
+        BurstPlanner,
+        DeadlinePredictor,
+        ElasticOrchestrator,
+        GammaModel,
+        OverheadModel,
+        PodSpec,
+        Resources,
+    )
+    from repro_torch.fwi.calibrate import (
+        fit_capacity_models,
+        measure_gamma_sweep,
+    )
+    from repro_torch.fwi.driver import TimeModel, fwi_session_factory
+    from repro_torch.fwi.solver import FWIConfig
+    from repro_torch.kernels.stencil.kernel import (
+        wave_block_shots_cuda,
+        wave_step_cuda,
+    )
+
+    heights, expected = {}, 0
+    wave_step_cuda.launches = 0
+    wave_block_shots_cuda.launches = 0
+    for label, base, widths, steps in (
+        ("paper", FWIConfig(), [128, 192, 256, 384, 512, 600], 30),
+        ("production", FWIConfig(nz=4096, nx=4096, n_shots=4),
+         [512, 1024, 2048, 4096], 20),
+    ):
+        # fit_gamma_model's two steps, kept apart so the samples print
+        g, t = measure_gamma_sweep(base, widths, steps=steps, device=dev)
+        model = GammaModel.fit(g, t, name="fwi-width")
+        check(all(math.isfinite(x) and x > 0 for x in t),
+              f"gamma sweep at {label} height: times {t}")
+        if label == "production":
+            check(model.a > 0, f"t(gamma) does not grow with width at "
+                               f"nz={base.nz}: a = {model.a}")
+        expected += len(widths) * 3 * steps       # warm-up + 2 repeats
+        heights[label] = {"nz": base.nz, "shots": base.n_shots,
+                          "steps": steps, "widths": g, "s_per_step": t,
+                          "a": model.a, "b": model.b,
+                          "r2": model.r2(g, t)}
+    step_launches = wave_step_cuda.launches
+    check(step_launches == expected,
+          f"gamma sweep: {step_launches} step launches, not {expected}")
+    check(wave_block_shots_cuda.launches == 0,
+          "the gamma sweep ran the block kernel")
+
+    # the calibrated adaptive run (tests/test_system.py, at full width)
+    cfg = FWIConfig()
+    wave_block_shots_cuda.launches = 0
+    t0 = time.monotonic()
+    cluster, cloud, samples = fit_capacity_models(
+        cfg, cloud_slowdown=1.4, chip_counts=(8, 16, 32, 64, 128),
+        device=dev)
+    r2 = cluster.r2(samples["chips"], samples["t_cluster"])
+    check(r2 > 0.99, f"capacity fit r2 {r2}")
+    work = samples["t1_measured"]
+    check(math.isfinite(work) and work > 0, f"measured step {work}")
+    tm = TimeModel(chip_seconds_per_step=work, congestion_from=30,
+                   congestion_factor=2.0, jitter=0.01)
+    deadline = work / 64 * cfg.timesteps * 1.35
+    planner = BurstPlanner(
+        cluster_model=cluster, cloud_model=cloud, chips_cluster=64,
+        legal_slices=[8, 16, 32, 64, 128],
+        overheads=OverheadModel(ckpt_s=work / 64 * 2,
+                                provision_s=work / 64 * 6,
+                                restart_s=work / 64 * 2),
+    )
+    orch = ElasticOrchestrator(
+        planner=planner, predictor=DeadlinePredictor(deadline),
+        check_every=6, ckpt_every=40,
+    )
+    rec = orch.run(
+        session_factory=fwi_session_factory(cfg, tm, seed=SEED, device=dev),
+        initial=Resources(pods=[PodSpec(chips=64, name="cluster")],
+                          shares=[1.0]),
+        steps_total=cfg.timesteps,
+    )
+    torch.cuda.synchronize()
+    adaptive_s = time.monotonic() - t0
+    block_launches = wave_block_shots_cuda.launches
+    bursts = [e for e in rec.events if e.kind == "burst"]
+    check(rec.completed, "calibrated adaptive run did not complete")
+    check(bursts, "calibrated adaptive run never burst")
+    check(block_launches > 0, "the adaptive run launched no block kernel")
+    return {
+        "phase": "calibration", "gamma": heights,
+        "wave_step_launches": step_launches,
+        "capacity": {"t1_measured_s": work, "cluster_A": cluster.A,
+                     "cluster_B": cluster.B, "cloud_A": cloud.A,
+                     "cloud_B": cloud.B, "cluster_r2": r2},
+        "adaptive": {"steps": cfg.timesteps, "deadline_s": deadline,
+                     "met_deadline": bool(rec.met_deadline),
+                     "bursts": len(bursts),
+                     "events": [e.kind for e in rec.events],
+                     "wall_s": adaptive_s},
+        "wave_block_launches": block_launches,
+    }
+
+
+def run_autotune(dev, step_inputs, block_inputs):
+    """Both tile sweeps at 600² and 4096² (S=4); every candidate held
+    bitwise to the plain version at 600²; a short tuned session."""
+    from repro_torch.core import PodSpec, Resources
+    from repro_torch.fwi.driver import FWISession, TimeModel
+    from repro_torch.fwi.solver import FWIConfig, run_forward
+    from repro_torch.kernels.stencil import kernel, ref, tune
+
+    default = (kernel.TILE_Z, kernel.TILE_X)
+    out = {"phase": "autotune", "default_tile": list(default)}
+    for label, n, kdef in (("600", 600, 4), ("4096", 4096, 8)):
+        t0 = time.monotonic()
+        blk = tune.sweep_block(n, n, 4, device=dev)
+        bt, bk = tune.autotune_block(n, n, 4, device=dev)
+        stp = tune.sweep_step_tile(n, n, 4, device=dev)
+        st = tune.autotune_step_tile(n, n, 4, device=dev)
+        sweep_s = time.monotonic() - t0
+        check(all(math.isfinite(v) and v > 0
+                  for v in [*blk.values(), *stp.values()]),
+              f"non-positive sweep time at {label}")
+        out[label] = {
+            "shots": 4, "sweep_s": sweep_s,
+            "block_candidates": len(blk),
+            "block_winner": {"tile": list(bt), "k": bk,
+                             "ms_per_step": blk[(bt, bk)]},
+            "block_default": {"tile": list(default), "k": kdef,
+                              "ms_per_step": blk[(default, kdef)]},
+            "step_candidates": len(stp),
+            "step_winner": {"tile": list(st), "ms": stp[st]},
+            "step_default": {"tile": list(default), "ms": stp[default]},
+        }
+
+    args = step_inputs(4, 600, 600)
+    want = ref.wave_step_ref(*args)
+    for t in tune.step_candidates():
+        got = kernel.wave_step_cuda(*args, tile=t)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"step kernel at tile {t} is not bitwise")
+    bargs = block_inputs(4, 600, 600, 8,
+                         src=([32, 31, 0, 599], [64, 0, 599, 33]))
+    for t, k in tune.block_candidates():
+        a = bargs[:4] + [bargs[4][:, :k].contiguous()] + bargs[5:]
+        got = kernel.wave_block_shots_cuda(*a, receiver_row=32, tile=t)
+        want = ref.wave_block_shots_ref(*a, receiver_row=32)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"block kernel at tile {t}, k={k} is not bitwise")
+    torch.cuda.synchronize()
+    out["bitwise_600"] = {"step_tiles": len(tune.step_candidates()),
+                          "block_pairs": len(tune.block_candidates())}
+
+    cfg = FWIConfig()
+    res = Resources(pods=[PodSpec(1, name="cluster")], shares=[1.0])
+    sess = FWISession(cfg, res, 0, None, time_model=TimeModel(jitter=0.0),
+                      rng=np.random.default_rng(SEED), autotune=True,
+                      device=dev)
+    tile, k = tune.autotune_block(cfg.nz, cfg.nx, cfg.n_shots, device=dev)
+    check(sess.tile == tile and sess.k == max(1, min(k, cfg.nx // 4)),
+          f"session runs tile {sess.tile}, k={sess.k}; tuned {tile}, k={k}")
+    kernel.wave_block_shots_cuda.launches = 0
+    for step in range(64):
+        sess.run_step(step)
+    torch.cuda.synchronize()
+    launches = kernel.wave_block_shots_cuda.launches
+    check(launches == sess.blocks and launches > 0,
+          f"tuned session: {launches} launches, {sess.blocks} blocks")
+    want, _ = run_forward(cfg, steps=sess.t, k=sess.k, device="cpu")
+    scale = float(want.p.abs().max())
+    err = float((sess.p.cpu() - want.p).abs().max())
+    check(scale > 0 and err <= TOL * scale,
+          f"tuned session vs CPU plain run: {err} > {TOL} * {scale}")
+    out["session"] = {"tile": list(sess.tile), "k": sess.k, "t": sess.t,
+                      "launches": launches, "max_abs_diff_vs_cpu": err,
+                      "bitwise_vs_cpu": bool(torch.equal(sess.p.cpu(),
+                                                         want.p))}
+    return out
 
 
 if __name__ == "__main__":

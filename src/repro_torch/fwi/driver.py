@@ -12,8 +12,11 @@ Measurement is amortized over a dispatch of ``scan_block`` timesteps
 to ``torch.cuda.synchronize()``, so on the card the amortized step time
 is the card's, and reports wall/steps for each logical step inside it.
 
-Striping the domain over several devices, and the TPU autotuner, are
-not in this port yet: asking for either raises.
+``autotune=True`` tunes the session's own kernel on the card: the
+shot-batched block kernel's (tile, k) at the session's shot count
+(``kernels/stencil/tune.py::autotune_block``); on the CPU it raises, as
+the plain version has no tiles.  Striping the domain over several
+devices is not in this port yet: asking for it raises.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fwi.solver import FWIConfig, ShotState, make_block_runner
 from repro_torch.kernels.stencil.kernel import HALO
 from repro_torch.kernels.stencil.ops import pick_k
+from repro_torch.kernels.stencil.tune import autotune_block
 
 _STRIPES_TODO = ("striping the domain over several devices is ROADMAP "
                  "Queue 1 item 7 (multi-device), not yet in the port")
@@ -85,21 +89,30 @@ class FWISession(Session):
         if n_stripes is not None and n_stripes > 1:
             raise NotImplementedError(
                 f"n_stripes={n_stripes}: {_STRIPES_TODO}")
-        if autotune:
-            raise NotImplementedError(
-                "autotune: the JAX package's tuner times a TPU VMEM "
-                "tiling; the Hopper tile sweep is not in the port yet")
         self.cfg = cfg
         self.res = res
         self.tm = time_model
         self.rng = rng
         self.device = resolve_device(device)
-        k = exchange_interval if exchange_interval is not None \
-            else pick_k(cfg.nz)
+        #: the block kernel's CTA tile (None: the kernel's default)
+        self.tile = None
+        if autotune:
+            if self.device.type != "cuda":
+                raise ValueError(
+                    f"autotune times the CUDA kernel's tiles; the plain "
+                    f"version on {self.device} has none")
+            # tuned at the session's own shot count, on the kernel it
+            # runs; memoized, so a rebuild after a resize does not re-time
+            self.tile, k = autotune_block(cfg.nz, cfg.nx, cfg.n_shots,
+                                          device=self.device)
+        else:
+            k = exchange_interval if exchange_interval is not None \
+                else pick_k(cfg.nz)
         # the JAX package clamps k to the stripe width (effective_block)
         self.k = max(1, min(k, cfg.nx // (2 * HALO)))
         self.runner = make_block_runner(
-            cfg, k=self.k, collect_traces=False, device=self.device)
+            cfg, k=self.k, collect_traces=False, tile=self.tile,
+            device=self.device)
         # timesteps per measured dispatch (a multiple of k)
         self.block = max(scan_block // self.k, 1) * self.k
         #: k-step blocks this session has dispatched (kernel launches)

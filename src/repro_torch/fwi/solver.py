@@ -6,11 +6,22 @@ sampled near the surface.  The counterpart of the JAX package's
 ``fwi/solver.py``: the model fields are built in numpy exactly as there
 (so they are bitwise equal), then moved to the device.
 
-``make_block_runner`` advances the shot batch through k-step fused
-blocks, one ``kernels.stencil.ops.wave_block`` per block: a Python loop
-of block launches where the JAX package has a ``lax.scan``, with a
-tail block of ``steps % k`` steps.  On CUDA tensors every block is one
-launch of the Hopper kernel; on CPU tensors it is the plain version.
+Two engines, both Python loops where the JAX package has a
+``lax.scan``:
+
+* ``make_scan_runner`` advances the shot batch one step at a time, one
+  ``kernels.stencil.ops.wave_step`` per step, with the source injected
+  after the kernel (``make_step_fn`` is its single step).  It is the
+  step-at-a-time oracle, and the engine the calibration sweep times
+  (``fwi/calibrate.py``).
+* ``make_block_runner`` advances it through k-step fused blocks, one
+  ``kernels.stencil.ops.wave_block`` per block, with a tail block of
+  ``steps % k`` steps.  It is what ``run_forward`` and the session use.
+
+On CUDA tensors every step or block is one launch of a Hopper kernel;
+on CPU tensors it is the plain version.  Both do the same arithmetic in
+the same order, so the two engines are bitwise equal.  The factories
+are memoized on their full argument set, the device included.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.stencil.ops import pick_k, wave_block
+from repro_torch.kernels.stencil.ops import pick_k, wave_block, wave_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,14 +162,83 @@ def _block_amps(mf: ModelFields, t0: int, kk: int,
 
 
 @functools.lru_cache(maxsize=32)
+def _raw_step_fn(cfg: FWIConfig, device: torch.device):
+    """step(p, p_prev, t) -> (p_next, p_damped, trace (S, NX)) advancing
+    all shots one timestep: one ``wave_step`` on the batch, then the
+    source ``amps[clip(t, 0, T-1)]`` added at each shot's position (the
+    JAX package's ``.at[].add``).  ``trace`` is a view of ``p_next``'s
+    receiver row.
+
+    The add is an accumulating ``put_`` on the flat index of each
+    shot's source cell: one rounding, as in the block kernel.  On the
+    card ``index_put_(accumulate=True)`` would cost ~30 launches per
+    step (its index range check runs as reductions and asserts on the
+    device); ``put_`` checks inside its one kernel."""
+    mf = model_fields(cfg, device)
+    shots = torch.arange(cfg.n_shots, device=device)
+    flat = (shots * cfg.nz + mf.src_z.long()) * cfg.nx + mf.src_x.long()
+
+    def step(p, p_prev, t: int):
+        p_next, p_damped = wave_step(p, p_prev, mf.v2dt2, mf.sponge)
+        amp = mf.amps[min(max(int(t), 0), cfg.timesteps - 1)]
+        p_next.view(-1).put_(flat, amp.expand(cfg.n_shots),
+                             accumulate=True)
+        return p_next, p_damped, p_next[:, cfg.receiver_depth, :]
+
+    return step
+
+
+@functools.lru_cache(maxsize=32)
+def make_step_fn(cfg: FWIConfig, *, device="cuda"):
+    """step(p, p_prev, t) -> (p_next, p_damped, trace (S, NX)): one
+    timestep of the whole shot batch; the trace is its own tensor."""
+    raw = _raw_step_fn(cfg, resolve_device(device))
+
+    def step(p, p_prev, t: int):
+        p_next, p_damped, trace = raw(p, p_prev, t)
+        return p_next, p_damped, trace.clone()
+
+    return step
+
+
+@functools.lru_cache(maxsize=32)
+def make_scan_runner(cfg: FWIConfig, *, collect_traces: bool = False,
+                     device="cuda"):
+    """Step-at-a-time multi-step propagator: one ``wave_step`` launch
+    per step.
+
+    run(p, p_prev, t0, steps) -> (p, p_prev)                   [default]
+                             -> (p, p_prev, traces (S, steps, NX)) [collect]
+
+    The JAX package's ``unroll`` has no meaning for a Python loop and
+    is not taken."""
+    step = _raw_step_fn(cfg, resolve_device(device))
+
+    def run(p, p_prev, t0: int, steps: int):
+        traces = (p.new_empty((p.shape[0], steps, cfg.nx))
+                  if collect_traces else None)
+        for i in range(steps):
+            p, p_prev, tr = step(p, p_prev, t0 + i)
+            if collect_traces:
+                traces[:, i] = tr
+        if collect_traces:
+            return p, p_prev, traces
+        return p, p_prev
+
+    return run
+
+
+@functools.lru_cache(maxsize=32)
 def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
-                      collect_traces: bool = True, device="cuda"):
+                      collect_traces: bool = True, tile=None,
+                      device="cuda"):
     """Fused multi-step propagator over k-step blocks.
 
     run(p, p_prev, t0, steps) -> (p, p_prev, traces (S, steps, NX)),
     or (p, p_prev) with ``collect_traces=False``.  A step count that is
     not a multiple of k ends with a tail block of ``steps % k`` steps.
-    ``run.k`` is the block length."""
+    ``run.k`` is the block length; ``tile`` the kernel's CTA tile (CUDA
+    only; default ``kernel.TILE_Z, kernel.TILE_X``)."""
     dev = resolve_device(device)
     if k is None:
         k = pick_k(cfg.nz)
@@ -168,7 +248,7 @@ def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
         return wave_block(
             p, p_prev, mf.v2dt2, mf.sponge,
             _block_amps(mf, t0, kk, cfg.timesteps), mf.src_z, mf.src_x,
-            receiver_row=cfg.receiver_depth,
+            receiver_row=cfg.receiver_depth, tile=tile,
         )
 
     def run(p, p_prev, t0: int, steps: int):

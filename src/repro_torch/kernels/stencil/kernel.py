@@ -1,17 +1,23 @@
-"""Python wrapper of the Hopper stencil kernel (``csrc/wave_block.cu``).
+"""Python wrappers of the Hopper stencil kernels (``csrc/*.cu``).
 
-``wave_block_shots_cuda`` advances a shot batch k fused leapfrog steps
-in one launch.  It replaces the JAX package's four k-step Pallas
-kernels (``kernels/stencil/kernel.py``: ``wave_block_shots_pallas``,
-``wave_block_shots_stream_pallas`` and, as the S=1 batch,
-``wave_block_pallas`` and ``wave_block_stream_pallas``).  The kernel is
-memory-bound: its least traffic per block is
-``block_bytes(S, NZ, NX, k)``.
+``wave_block_shots_cuda`` (``csrc/wave_block.cu``) advances a shot
+batch k fused leapfrog steps in one launch.  It replaces the JAX
+package's four k-step Pallas kernels (``kernels/stencil/kernel.py``:
+``wave_block_shots_pallas``, ``wave_block_shots_stream_pallas`` and, as
+the S=1 batch, ``wave_block_pallas`` and ``wave_block_stream_pallas``).
+Its least traffic per block is ``block_bytes(S, NZ, NX, k)``.
 
-The wrapper checks what the kernel takes and raises on anything else,
+``wave_step_cuda`` (``csrc/wave_step.cu``) advances a shot batch one
+step with no source and no receiver.  It replaces ``wave_step_pallas``
+(``kernel.py:157``), which the JAX package vmaps over shots.  Its least
+traffic per step is ``step_bytes(S, NZ, NX)``.  Both kernels are bound
+by memory.
+
+Each wrapper checks what its kernel takes and raises on anything else,
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
-``wave_block_shots_cuda.launches``.
+its ``launches`` attribute.  The owned tile of one CTA, ``tile=(TZ,
+TX)``, is a launch argument (``kernels/stencil/tune.py`` sweeps it).
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ _INT = ctypes.c_int
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
+    """The block kernel's library, built at first use, with its C
+    signatures."""
     lib = build.load("wave_block")
     lib.wave_block_shots_launch.argtypes = (
         [_VOIDP] * 5 + [_INT] + [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP]
@@ -46,10 +53,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _step_lib() -> ctypes.CDLL:
+    """The step kernel's library, built at first use, with its C
+    signatures."""
+    lib = build.load("wave_step")
+    lib.wave_step_shots_launch.argtypes = [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP]
+    lib.wave_step_shots_launch.restype = _INT
+    lib.wave_step_error_string.argtypes = [_INT]
+    lib.wave_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def smem_bytes(k: int, tz: int = TILE_Z, tx: int = TILE_X) -> int:
-    """Dynamic shared memory of one CTA: five (tz+4k, tx+4k) f32
-    windows (v2dt2, sponge and three rotating field buffers)."""
+    """Dynamic shared memory of one block-kernel CTA: five
+    (tz+4k, tx+4k) f32 windows (v2dt2, sponge and three rotating field
+    buffers)."""
     return 5 * (tz + 2 * k * HALO) * (tx + 2 * k * HALO) * 4
+
+
+def step_smem_bytes(tz: int = TILE_Z, tx: int = TILE_X) -> int:
+    """Dynamic shared memory of one step-kernel CTA: the (tz+4, tx+4)
+    window of p and the (tz, tx) v2dt2 and sponge tiles, f32."""
+    return ((tz + 2 * HALO) * (tx + 2 * HALO) + 2 * tz * tx) * 4
 
 
 def block_bytes(ns: int, nz: int, nx: int, k: int) -> int:
@@ -61,6 +87,17 @@ def block_bytes(ns: int, nz: int, nx: int, k: int) -> int:
 def block_flops(ns: int, nz: int, nx: int, k: int) -> int:
     """f32 operations of one block: 17 per cell and step."""
     return 17 * ns * k * nz * nx
+
+
+def step_bytes(ns: int, nz: int, nx: int) -> int:
+    """Least HBM traffic of one step: read p and p_prev per shot and
+    v2dt2, sponge once, write p_next and p_damped per shot."""
+    return 4 * (4 * ns + 2) * nz * nx
+
+
+def step_flops(ns: int, nz: int, nx: int) -> int:
+    """f32 operations of one step: 17 per cell."""
+    return 17 * ns * nz * nx
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -75,6 +112,16 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_tile(tile, smem: int) -> tuple[int, int]:
+    tz, tx = (int(v) for v in tile)
+    if tz < 1 or tx < 1:
+        raise ValueError(f"tile {tile} must be positive")
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"tile {tile} needs {smem} B of shared memory "
+                         f"per CTA, more than {MAX_SMEM_BYTES}")
+    return tz, tx
+
+
 def wave_block_shots_cuda(
     p: torch.Tensor,         # (S, NZ, NX) f32, CUDA
     p_prev: torch.Tensor,    # (S, NZ, NX) f32, already sponge-damped
@@ -85,6 +132,7 @@ def wave_block_shots_cuda(
     src_x: torch.Tensor,     # (S,) int32 source columns
     *,
     receiver_row: int,
+    tile: tuple[int, int] = (TILE_Z, TILE_X),
 ):
     """k fused timesteps on the card; k is ``src_vals.shape[-1]``.
     Returns (p_k, p_prev_damped_k, traces (S, k, NX)).  Sources outside
@@ -117,9 +165,7 @@ def wave_block_shots_cuda(
         raise ValueError("k must be at least 1")
     if not 0 <= receiver_row < nz:
         raise ValueError(f"receiver_row {receiver_row} outside [0, {nz})")
-    if smem_bytes(k) > MAX_SMEM_BYTES:
-        raise ValueError(f"k={k} needs {smem_bytes(k)} B of shared memory "
-                         f"per CTA, more than {MAX_SMEM_BYTES}")
+    tz, tx = _check_tile(tile, smem_bytes(k, *tile))
     p_out = torch.empty_like(p)
     pp_out = torch.empty_like(p)
     traces = torch.empty((ns, k, nx), dtype=f32, device=dev)
@@ -133,7 +179,7 @@ def wave_block_shots_cuda(
             sponge.data_ptr(), src_vals.data_ptr(), src_vals.stride(0),
             src_z.data_ptr(), src_x.data_ptr(),
             p_out.data_ptr(), pp_out.data_ptr(), traces.data_ptr(),
-            ns, nz, nx, k, int(receiver_row), TILE_Z, TILE_X, stream,
+            ns, nz, nx, k, int(receiver_row), tz, tx, stream,
         )
     if err != 0:
         msg = lib.wave_block_error_string(err).decode()
@@ -143,3 +189,47 @@ def wave_block_shots_cuda(
 
 
 wave_block_shots_cuda.launches = 0
+
+
+def wave_step_cuda(
+    p: torch.Tensor,         # (S, NZ, NX) f32, CUDA
+    p_prev: torch.Tensor,    # (S, NZ, NX) f32
+    v2dt2: torch.Tensor,     # (NZ, NX) f32, shared by all shots
+    sponge: torch.Tensor,    # (NZ, NX) f32
+    *,
+    tile: tuple[int, int] = (TILE_Z, TILE_X),
+):
+    """One timestep on the card, no source and no receiver.  Returns
+    (p_next, p_damped), both (S, NZ, NX) and sponge-damped."""
+    if p.device.type != "cuda":
+        raise ValueError(f"wave_step_cuda needs CUDA tensors, got {p.device}")
+    if p.ndim != 3:
+        raise ValueError(f"p must be (S, NZ, NX), got {tuple(p.shape)}")
+    ns, nz, nx = p.shape
+    dev = p.device
+    f32 = torch.float32
+    _check("p", p, f32, (ns, nz, nx), dev)
+    _check("p_prev", p_prev, f32, (ns, nz, nx), dev)
+    _check("v2dt2", v2dt2, f32, (nz, nx), dev)
+    _check("sponge", sponge, f32, (nz, nx), dev)
+    tz, tx = _check_tile(tile, step_smem_bytes(*tile))
+    p_next = torch.empty_like(p)
+    p_damped = torch.empty_like(p)
+    if ns == 0 or nz == 0 or nx == 0:
+        return p_next, p_damped
+    lib = _step_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.wave_step_shots_launch(
+            p.data_ptr(), p_prev.data_ptr(), v2dt2.data_ptr(),
+            sponge.data_ptr(), p_next.data_ptr(), p_damped.data_ptr(),
+            ns, nz, nx, tz, tx, stream,
+        )
+    if err != 0:
+        msg = lib.wave_step_error_string(err).decode()
+        raise RuntimeError(f"wave_step_shots launch failed: {msg} ({err})")
+    wave_step_cuda.launches += 1
+    return p_next, p_damped
+
+
+wave_step_cuda.launches = 0

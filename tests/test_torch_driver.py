@@ -267,7 +267,8 @@ def test_manager_nested_layout_matches_jax(tmp_path):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         _port_session(n_stripes=2)
-    with pytest.raises(NotImplementedError, match="autotune"):
+    # the tile sweep times the CUDA kernel; the plain version has no tiles
+    with pytest.raises(ValueError, match="autotune"):
         _port_session(autotune=True)
     grown = ElasticOrchestrator.apply_scale(
         _res(chips=64), ScaleAction("grow", chips=32, slowdown=1.4))
