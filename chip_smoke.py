@@ -36,7 +36,31 @@ Phases, each printing one JSON line:
 9. ``autotune``: the tile sweeps of both kernels at 600 x 600 and
    4096 x 4096 (S=4), every candidate held bitwise to the plain version
    at 600 x 600, and a short ``FWISession(autotune=True)`` run.
-10. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
+10. ``rmsnorm_vs_plain``: the fused residual-add + RMSNorm kernel
+    against its plain version (the shapes of ``tests/test_kernels.py``,
+    Yi-6B's prefill and decode rows, a ragged row count; f32 and bf16):
+    |got - want| <= atol + rtol·|want| with (1e-6, 1e-6) in f32 and
+    (2e-2, 2^-8) in bf16 on both outputs.
+11. ``attention_vs_plain``: the flash-attention kernel against its
+    plain version (the shapes of ``tests/test_kernels.py``, non-causal,
+    Yi-6B's prefill in the model's layout, ragged S=300): atol 2e-5 in
+    f32, 3e-2 in bf16.
+12. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
+    the same weights serve on the card (kernels) and on the CPU (plain
+    versions), B=2, prompt 128, 4 greedy steps: logits within
+    1e-3·max|logit|, identical tokens, the predicted launch counts.
+13. ``serve``: Yi-6B at full width and depth in bf16 through
+    ``launch/serve.py``'s functions: 4 requests of 512 prompt tokens and
+    32 greedy tokens each, with prefill and decode times, peak memory,
+    the kernels' launches per prefill and per decode step (equal to
+    ``launches_per_pass``) and a profile of each phase.  Every kernel
+    call of one prefill and one decode step of the served model is held
+    to its plain version on the same activations, and the serving
+    invariant (full prefill against prefill(S-1) + one decode step) is
+    held at all 32 layers in bf16 within 5e-2·max|logit|, with the
+    attention projections drawn at the fan-in of their contraction
+    (``well_conditioned``).
+14. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time.
 
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -63,13 +87,35 @@ SEED = 0
 TOL = 1e-5
 
 #: published peaks (NVIDIA data sheets): HBM bytes/s, f32 FLOP/s without
-#: tensor cores.  Matched against the name nvidia-smi reports.
+#: tensor cores, dense bf16 tensor-core FLOP/s.  Matched against the name
+#: nvidia-smi reports.
 PEAKS = [
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 989e12),
 ]
+#: rmsnorm (atol, rtol) by dtype: f32 sums in another order round an ulp
+#: or two apart; a bf16 output may round to its neighbour (2^-8)
+RMS_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2e-2, 2.0 ** -8)}
+#: attention atol by dtype (tests/test_kernels.py)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: serve_vs_cpu: f32 logits on the card within this share of max|logit|
+SERVE_F32_TOL = 1e-3
+#: flash attention on the served model's activations: |got - want| <=
+#: this share of max|v|.  The kernel rounds its probabilities to bf16
+#: before it divides by their sum, the plain version after; each
+#: rounding is within 2^-9 and each output is rounded once more, so the
+#: two part by up to 2^-7·max|v|, and max|v| is ~150 under the init rule
+#: (v's std is 32).  The limit is twice that bound.
+ATTN_ACT_SHARE = 2.0 ** -6
+#: serve: full prefill vs prefill(S-1) + decode at full depth in bf16,
+#: as a share of max|logit|, with ``well_conditioned`` weights.  Under
+#: the init rule itself the attention is one-hot (scores with a std in
+#: the hundreds) and each layer multiplies a rounding difference at the
+#: new position by ~5-10, in f32 as in bf16 and in the JAX package as in
+#: the port (tools/serve_depth_witness.py).
+SERVE_INV_TOL = 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -85,10 +131,10 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def peaks_for(name: str) -> tuple[float, float]:
-    for key, bw, flops in PEAKS:
+def peaks_for(name: str) -> tuple[float, float, float]:
+    for key, bw, flops, bf16 in PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, bf16
     raise SmokeFailure(f"no peak rates known for card {name!r}")
 
 
@@ -101,7 +147,8 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.stencil import build, kernel, ops, ref, tune
+    from repro_torch.kernels import build
+    from repro_torch.kernels.stencil import kernel, ops, ref, tune
 
     dev = torch.device("cuda", 0)
 
@@ -112,11 +159,11 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, f32 = peaks_for(name)
+    bw, f32, bf16 = peaks_for(name)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peak_bytes_per_s": bw,
-          "peak_f32_flops": f32})
+          "peak_f32_flops": f32, "peak_bf16_tensor_flops": bf16})
 
     # 2. build
     t0 = time.monotonic()
@@ -235,7 +282,18 @@ def main() -> int:
     # 9. autotune
     emit(run_autotune(dev, step_inputs, inputs))
 
-    # 10. kernels
+    # 10.-13. the LM serving slice
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rms = run_rmsnorm_vs_plain(dev, rng)
+    emit(rms)
+    att = run_attention_vs_plain(dev, rng)
+    emit(att)
+    emit(run_serve_vs_cpu(dev))
+    served = run_serve(dev)
+    emit(served)
+    lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
+
+    # 14. kernels
     timings = {}
     for label, (ns, nz, nx, k) in (("600", (4, 600, 600, 4)),
                                    ("4096", (4, 4096, 4096, 8)),
@@ -249,10 +307,10 @@ def main() -> int:
             *args, receiver_row=2), reps=50 if small else 10)
         plain_ms = tune.device_time_ms(lambda: ref.wave_block_shots_ref(
             *args, receiver_row=2), reps=5 if small else 2)
-        bound = bound_ms(kernel.block_bytes(ns, nz, nx, k),
-                         kernel.block_flops(ns, nz, nx, k), bw, f32)
+        bound, by = bound_ms(kernel.block_bytes(ns, nz, nx, k),
+                             kernel.block_flops(ns, nz, nx, k), bw, f32)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              max_abs_err=err)
+                              bound_by=by, max_abs_err=err)
         del args
         torch.cuda.empty_cache()
     steps_t = {}
@@ -270,10 +328,10 @@ def main() -> int:
                                  reps=200 if small else 20)
         plain_ms = tune.device_time_ms(lambda: ref.wave_step_ref(*args),
                                        reps=20 if small else 3)
-        bound = bound_ms(kernel.step_bytes(ns, nz, nx),
-                         kernel.step_flops(ns, nz, nx), bw, f32)
+        bound, by = bound_ms(kernel.step_bytes(ns, nz, nx),
+                             kernel.step_flops(ns, nz, nx), bw, f32)
         steps_t[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              max_abs_err=err)
+                              bound_by=by, max_abs_err=err)
         del args
         torch.cuda.empty_cache()
     t6, t4k = timings["600"], timings["4096"]
@@ -295,7 +353,7 @@ def main() -> int:
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": t6["bound_by"],
         "library_ms": None,
         "shape": "S=4, 600x600, k=4 (the session's block)",
         "ms_4096": t4k["ms"],
@@ -320,7 +378,7 @@ def main() -> int:
         "ms": w6["ms"],
         "plain_ms": w6["plain_ms"],
         "bound_ms": w6["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": w6["bound_by"],
         "library_ms": None,
         "shape": "S=4, 600x600 (the calibration sweep's paper height)",
         "ms_4096": w4k["ms"],
@@ -331,20 +389,21 @@ def main() -> int:
                    "leapfrog step with its 4th-order Laplacian",
     }
     print(smi, flush=True)
-    emit({"kernels": [entry, step_entry]})
+    emit({"kernels": [entry, step_entry, *lm_entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def bound_ms(nbytes, flops, bw, f32) -> float:
-    """Least time of one launch: the larger of its bytes over the card's
-    memory rate and its f32 operations over the card's peak."""
+def bound_ms(nbytes, flops, bw, peak) -> tuple[float, str]:
+    """Least time of one launch and what sets it: the larger of its
+    bytes over the card's memory rate and its operations over the card's
+    peak for their type."""
     by_bytes = nbytes / bw
-    by_ops = flops / f32
+    by_ops = flops / peak
     if by_ops > by_bytes:
-        raise SmokeFailure("the stencil is not bound by bytes")
-    return by_bytes * 1e3
+        return by_ops * 1e3, "operations"
+    return by_bytes * 1e3, "bytes"
 
 
 class ScriptedPolicy:
@@ -513,8 +572,8 @@ def run_production(dev, bw, f32):
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(err <= TOL, f"production block vs plain: {err} > {TOL}")
     ms_block = wall / blocks * 1e3
-    bound = bound_ms(kernel.block_bytes(4, cfg.nz, cfg.nx, k),
-                     kernel.block_flops(4, cfg.nz, cfg.nx, k), bw, f32)
+    bound, _ = bound_ms(kernel.block_bytes(4, cfg.nz, cfg.nx, k),
+                        kernel.block_flops(4, cfg.nz, cfg.nx, k), bw, f32)
     return {
         "phase": "production", "nz": cfg.nz, "nx": cfg.nx, "shots": 4,
         "steps": cfg.timesteps, "k": k, "blocks": blocks,
@@ -831,6 +890,466 @@ def run_autotune(dev, step_inputs, block_inputs):
                       "bitwise_vs_cpu": bool(torch.equal(sess.p.cpu(),
                                                          want.p))}
     return out
+
+
+def _close(got, want, atol, rtol=0.0) -> tuple[float, bool]:
+    """(max |got - want| over the pairs, every element within
+    atol + rtol·|want|)."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= atol + rtol * w.float().abs()).all())
+    return err, ok
+
+
+def run_rmsnorm_vs_plain(dev, rng):
+    """The fused residual-add + RMSNorm kernel against its plain version
+    on card tensors from the seed.  The shapes of tests/test_kernels.py
+    take a unit-normal scale as there; the Yi-6B rows a scale of
+    1 + 0.1·N(0, 1), as the model's scales start at 1."""
+    from repro_torch.kernels.rmsnorm import kernel, ref
+
+    cases, worst = [], 0.0
+    for label, (n, d), near_one in (
+        ("test_kernels 512x256", (512, 256), False),
+        ("test_kernels 64x640", (64, 640), False),
+        ("test_kernels 256x1024", (256, 1024), False),
+        ("Yi-6B prefill rows", (2048, 4096), True),
+        ("Yi-6B decode rows", (4, 4096), True),
+        ("ragged rows", (37, 4096), True),
+    ):
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        r = rng.standard_normal((n, d), dtype=np.float32)
+        sc = rng.standard_normal(d, dtype=np.float32)
+        if near_one:
+            sc = (1.0 + 0.1 * sc).astype(np.float32)
+        st = torch.from_numpy(sc).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = torch.from_numpy(x).to(dev, dtype)
+            rt = torch.from_numpy(r).to(dev, dtype)
+            got = kernel.rmsnorm_residual_cuda(xt, rt, st)
+            want = ref.rmsnorm_residual_ref(xt, rt, st)
+            torch.cuda.synchronize()
+            atol, rtol = RMS_TOL[dtype]
+            err, ok = _close(got, want, atol, rtol)
+            worst = max(worst, err)
+            cases.append({"case": label, "N": n, "d": d,
+                          "dtype": str(dtype).split(".")[-1],
+                          "max_abs_diff": err,
+                          "h_bitwise": bool(torch.equal(got[1], want[1]))})
+            check(ok, f"rmsnorm kernel vs plain {label} {dtype}: {err} "
+                      f"outside atol {atol} + rtol {rtol}")
+    return {"phase": "rmsnorm_vs_plain", "tolerance": {
+        "float32": RMS_TOL[torch.float32],
+        "bfloat16": RMS_TOL[torch.bfloat16]},
+        "max_abs_err": worst, "cases": cases}
+
+
+def _attn_inputs(rng, dev, dtype, b, h, kh, s, d, model_layout=False):
+    """q, k, v from the seed; with ``model_layout`` they are (B, S, H, D)
+    tensors seen as (B, H, S, D), as the model hands them over."""
+    out = []
+    for heads in (h, kh, kh):
+        a = rng.standard_normal((b, s, heads, d) if model_layout
+                                else (b, heads, s, d), dtype=np.float32)
+        t = torch.from_numpy(a).to(dev, dtype)
+        out.append(t.transpose(1, 2) if model_layout else t)
+    return out
+
+
+def run_attention_vs_plain(dev, rng):
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    cases, worst = [], 0.0
+    f32, bf16 = torch.float32, torch.bfloat16
+    plan = [(f"test_kernels {shape}", shape, dt, True, False)
+            for shape in ((2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
+                          (2, 4, 1, 64, 32), (1, 2, 2, 512, 64))
+            for dt in (f32, bf16)]
+    plan += [("non-causal", (1, 2, 2, 128, 64), dt, False, False)
+             for dt in (f32, bf16)]
+    plan += [("Yi-6B prefill, model layout", (4, 32, 4, 512, 128), bf16,
+              True, True)]
+    plan += [("ragged S=300", (1, 8, 2, 300, 128), dt, True, False)
+             for dt in (f32, bf16)]
+    for label, (b, h, kh, s, d), dtype, causal, layout in plan:
+        q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        got = kernel.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = _close([got], [want], ATTN_TOL[dtype])
+        worst = max(worst, err)
+        cases.append({"case": label, "B": b, "H": h, "KH": kh, "S": s,
+                      "D": d, "dtype": str(dtype).split(".")[-1],
+                      "causal": causal, "max_abs_diff": err})
+        check(ok, f"attention kernel vs plain {label} {dtype}: {err} > "
+                  f"{ATTN_TOL[dtype]}")
+        del q, k, v, want, got
+    return {"phase": "attention_vs_plain", "tolerance": {
+        "float32": ATTN_TOL[f32], "bfloat16": ATTN_TOL[bf16]},
+        "max_abs_err": worst, "cases": cases}
+
+
+def _counts_zero():
+    from repro_torch.launch.serve import KERNELS
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _counts():
+    from repro_torch.launch.serve import KERNELS
+
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def run_serve_vs_cpu(dev):
+    """Yi-6B at full width cut to 2 layers, f32: one set of weights from
+    one generator serves on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import dense_blocks, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                              blocks=dense_blocks(2),
+                              compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(M.schema(cfg), gen, dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 128)))
+    steps = 4
+    _counts_zero()
+    got = serve.serve(cfg, params, prompts.to(dev), steps + 1)
+    launches = _counts()
+    t0 = time.monotonic()
+    want = serve.serve(cfg, cpu_params, prompts, steps + 1)
+    cpu_s = time.monotonic() - t0
+    scale = float(want.first_logits.abs().max())
+    errs = [float((g.cpu() - w).abs().max()) for g, w in (
+        (got.first_logits, want.first_logits),
+        (got.last_logits, want.last_logits))]
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = {k: steps * v for k, v in M.launches_per_pass(cfg, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)), "non-finite logits on the card")
+    check(max(errs) <= SERVE_F32_TOL * scale,
+          f"card vs CPU logits: {errs} > {SERVE_F32_TOL} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"launches {got.launches}, predicted prefill {pre} decode {dec}")
+    check(launches == {k: pre[k] + dec[k] for k in pre},
+          f"counted launches {launches}")
+    return {"phase": "serve_vs_cpu", "arch": cfg.name, "layers": 2,
+            "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+            "batch": 2, "prompt": 128, "decode_steps": steps,
+            "max_abs_logit": scale, "logit_max_abs_diff": errs,
+            "tolerance": SERVE_F32_TOL * scale,
+            "tokens_equal": True, "launches": got.launches,
+            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s}
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    if "flash" in low:
+        return "flash_attention"
+    if "rmsnorm" in low:
+        return "rmsnorm_residual"
+    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv",
+                              "splitk")):
+        return "matmul"
+    return "other"
+
+
+def by_kind(profile: dict, calls: int) -> dict:
+    """``profile_device``'s device ms (totals over ``calls`` calls) per
+    call, summed by kind of kernel: the two LM kernels, cuBLAS matmuls,
+    everything else."""
+    kinds: dict = {}
+    for name, ms in profile["by_kernel_ms"].items():
+        kind = _category(name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms / calls
+    return dict(profile, by_kind_ms_per_call=kinds,
+                wall_ms_per_call=profile["wall_ms"] / calls,
+                device_ms_per_call=profile["device_ms"] / calls)
+
+
+def run_serve(dev):
+    """Yi-6B, full width and depth, bf16: 4 requests of 512 prompt tokens
+    and 32 greedy tokens through launch/serve.py's functions."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime import serve_step
+
+    cfg = get_config("yi-6b")
+    B, P, G = 4, 512, 32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated(dev)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    serve.serve(cfg, params, prompts, 2)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    _counts_zero()
+    res = serve.serve(cfg, params, prompts, G)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = M.launches_per_pass(cfg, "decode")
+    steps = res.decode_steps
+    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
+    check(res.launches["prefill"] == pre,
+          f"prefill launches {res.launches['prefill']}, predicted {pre}")
+    check(per_step == dec, f"decode launches per step {per_step}, "
+                           f"predicted {dec}")
+    check(launches == {k: pre[k] + steps * dec[k] for k in pre},
+          f"counted launches {launches}")
+    V = cfg.vocab_size
+    check(tuple(res.first_logits.shape) == (B, V)
+          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
+    check(bool(torch.isfinite(res.first_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()),
+          "non-finite serve logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          "token ids out of range")
+
+    on_acts = kernels_on_activations(cfg, params, prompts)
+
+    # the serving invariant: full prefill vs prefill(S-1) + one decode
+    # step, all 32 layers, bf16, well-conditioned attention weights
+    wc = well_conditioned(cfg, params)
+    lf, cf = serve_step.build_prefill(cfg)(wc, {"tokens": prompts})
+    _, cache = serve_step.build_prefill(cfg, max_seq=P)(
+        wc, {"tokens": prompts[:, :P - 1]})
+    ld, cache = serve_step.build_decode(cfg)(
+        wc, cache, {"token": prompts[:, P - 1], "pos": P - 1})
+    kf = cf["b0"]["l0"]["mixer"]["k"].float()
+    kd = cache["b0"]["l0"]["mixer"]["k"].float()
+    inv = {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
+           "max_abs_diff": float((lf - ld).abs().max()),
+           "max_abs_logit": float(lf.abs().max()),
+           "tolerance_share": SERVE_INV_TOL,
+           "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
+                                     .float().mean()),
+           "cache_prefix_max_abs_diff": float(
+               (kf[:, :, :P - 1] - kd[:, :, :P - 1]).abs().max()),
+           "k_new_max_abs_diff_by_layer": (
+               kf[:, :, P - 1] - kd[:, :, P - 1]).abs().amax(
+                   dim=(1, 2, 3)).tolist()}
+    del wc, cf, cache, kf, kd
+    torch.cuda.empty_cache()
+    check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
+          f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
+          f"{inv}")
+    decode = serve_step.build_decode(cfg)
+
+    # where the time goes
+    full = serve_step.build_prefill(cfg, max_seq=P + G)
+    _, cache = full(params, {"tokens": prompts})
+    tok = res.tokens[:, 0]
+    prof_prefill = by_kind(profile_device(
+        lambda: full(params, {"tokens": prompts}), 1), 1)
+    prof_decode = by_kind(profile_device(
+        lambda: [decode(params, cache, {"token": tok, "pos": P})
+                 for _ in range(4)], 4), 4)
+    del cache
+    total_s = res.prefill_s + res.decode_s
+    return {
+        "phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+        "params": count_params(M.schema(cfg)),
+        "weights_bytes": weights_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms_per_step": res.decode_s / steps * 1e3,
+        "decode_tokens_per_s": steps * B / res.decode_s,
+        "end_to_end_tokens_per_s": G * B / total_s,
+        "prefill_tokens_per_s": P * B / res.prefill_s,
+        "peak_memory_bytes": peak,
+        "launches_per_prefill": res.launches["prefill"],
+        "launches_per_decode_step": per_step,
+        "launches": launches,
+        "kernels_on_activations": on_acts,
+        "invariant": inv,
+        "profile_prefill": prof_prefill,
+        "profile_decode_step": prof_decode,
+        "sample_ids": res.tokens[0, :12].tolist(),
+    }
+
+
+def well_conditioned(cfg, params):
+    """``params`` with the attention projections rescaled to the fan-in
+    of their contraction: d for wq, wk and wv, heads·head_dim for wo.
+    The init rule takes axis -2, the head count or head_dim."""
+    H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    gain = {"wq": (H / d) ** 0.5, "wk": (KH / d) ** 0.5,
+            "wv": (KH / d) ** 0.5, "wo": H ** -0.5}
+    b0 = params["b0"]
+    l0 = dict(b0["l0"], mixer={k: w * gain[k]
+                               for k, w in b0["l0"]["mixer"].items()})
+    return dict(params, b0=dict(b0, l0=l0))
+
+
+def kernels_on_activations(cfg, params, prompts):
+    """One prefill and one decode step of the served model, each kernel
+    call also run through its plain version on the same inputs: the
+    worst error and the number of calls per kernel."""
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.models import attention as am
+    from repro_torch.models import transformer as tm
+    from repro_torch.runtime import serve_step
+
+    attn0, norm0 = am.attention, tm.rmsnorm_residual
+    seen = {"flash_attention": [], "rmsnorm_residual": []}
+
+    def attention(q, k, v, *, causal=True):
+        out = attn0(q, k, v, causal=causal)
+        want = fr.attention_ref(q, k, v, causal=causal)
+        vmax = float(v.abs().max())
+        err, ok = _close([out], [want], ATTN_ACT_SHARE * vmax)
+        seen["flash_attention"].append((err, ok, vmax))
+        return out
+
+    def rmsnorm_residual(x, res, scale, eps=1e-5):
+        out = norm0(x, res, scale, eps)
+        want = rr.rmsnorm_residual_ref(x, res, scale, eps)
+        err, ok = _close(out, want, *RMS_TOL[x.dtype])
+        seen["rmsnorm_residual"].append((err, ok, None))
+        return out
+
+    P = prompts.shape[1]
+    am.attention, tm.rmsnorm_residual = attention, rmsnorm_residual
+    try:
+        _, cache = serve_step.build_prefill(cfg, max_seq=P + 1)(
+            params, {"tokens": prompts})
+        serve_step.build_decode(cfg)(params, cache,
+                                     {"token": prompts[:, -1], "pos": P})
+        torch.cuda.synchronize()
+    finally:
+        am.attention, tm.rmsnorm_residual = attn0, norm0
+    want = {"flash_attention": cfg.num_layers,
+            "rmsnorm_residual": 2 * (2 * cfg.num_layers + 1)}
+    out = {"tolerance": {"flash_attention_share_of_max_abs_v":
+                         ATTN_ACT_SHARE,
+                         "rmsnorm_residual": RMS_TOL[cfg.cdtype]}}
+    for name, calls in seen.items():
+        out[name] = {"calls": len(calls),
+                     "max_abs_diff": [e for e, _, _ in calls],
+                     "bad_calls": [i for i, c in enumerate(calls)
+                                   if not c[1]]}
+        if name == "flash_attention":
+            out[name]["max_abs_v"] = [m for _, _, m in calls]
+    emit({"phase": "kernels_on_activations", **out})
+    for name, calls in seen.items():
+        check(len(calls) == want[name],
+              f"{name}: {len(calls)} calls checked, expected {want[name]}")
+        check(not out[name]["bad_calls"], f"{name} vs plain on the served "
+                                         f"activations: {out[name]}")
+    return {name: {"calls": len(calls),
+                   "max_abs_diff": max(e for e, _, _ in calls)}
+            for name, calls in seen.items()} | {"tolerance": out["tolerance"]}
+
+
+def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
+    """The kernels-line entries of the two LM kernels, timed at Yi-6B's
+    shapes; launches from the serve phase's run."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, H, KH, S, D = 4, 32, 4, 512, 128
+    bt = torch.bfloat16
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(bt)
+    k = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt)
+    v = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # the model's views
+    err, _ = _close([fk.flash_attention_cuda(q, k, v)],
+                    [fr.attention_ref(q, k, v)], ATTN_TOL[bt])
+    check(err <= ATTN_TOL[bt], f"flash at Yi-6B shape: {err}")
+    ms = device_time_ms(lambda: fk.flash_attention_cuda(q, k, v), 50)
+    plain_ms = device_time_ms(lambda: fr.attention_ref(q, k, v), 10)
+    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50)
+    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2),
+                       fk.attention_flops(B, H, S, D, True), bw, bf16)
+    flash = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+        "launches": served["launches"]["flash_attention"],
+        "max_abs_err": max(att["max_abs_err"], err),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": fb, "bound_by": fby,
+        "library_ms": lib_ms,
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "shape": "B=4, H=32, KH=4, S=512, D=128, bf16, causal (Yi-6B "
+                 "prefill, the model's strided views)",
+        "launches_per_prefill": served["launches_per_prefill"][
+            "flash_attention"],
+        "max_abs_err_served": served["kernels_on_activations"][
+            "flash_attention"]["max_abs_diff"],
+    }
+    del q, k, v
+
+    N, d = B * S, 4096
+    x = torch.randn((N, d), generator=g, device=dev).to(bt)
+    r = torch.randn((N, d), generator=g, device=dev).to(bt)
+    sc = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+    err, ok = _close(rk.rmsnorm_residual_cuda(x, r, sc),
+                     rr.rmsnorm_residual_ref(x, r, sc), *RMS_TOL[bt])
+    check(ok, f"rmsnorm at Yi-6B shape: {err}")
+    r_ms = device_time_ms(lambda: rk.rmsnorm_residual_cuda(x, r, sc), 100)
+    r_plain = device_time_ms(lambda: rr.rmsnorm_residual_ref(x, r, sc), 20)
+    rb, rby = bound_ms(rk.rmsnorm_bytes(N, d, 2), rk.rmsnorm_flops(N, d),
+                       bw, f32)
+    xd, rd = x[:B].contiguous(), r[:B].contiguous()
+    d_ms = device_time_ms(lambda: rk.rmsnorm_residual_cuda(xd, rd, sc), 200)
+    d_plain = device_time_ms(lambda: rr.rmsnorm_residual_ref(xd, rd, sc), 50)
+    db, _ = bound_ms(rk.rmsnorm_bytes(B, d, 2), rk.rmsnorm_flops(B, d),
+                     bw, f32)
+    norm = {
+        "name": "rmsnorm_residual", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/"
+                  "rmsnorm_residual.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
+        "launches": served["launches"]["rmsnorm_residual"],
+        "max_abs_err": max(rms["max_abs_err"], err),
+        "ms": r_ms, "plain_ms": r_plain, "bound_ms": rb, "bound_by": rby,
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes residual-add + "
+                   "RMSNorm with both outputs",
+        "shape": "N=2048, d=4096, bf16 (Yi-6B prefill rows)",
+        "ms_decode": d_ms, "plain_ms_decode": d_plain,
+        "bound_ms_decode": db,
+        "shape_decode": "N=4, d=4096, bf16 (Yi-6B decode rows)",
+        "launches_per_pass": served["launches_per_prefill"][
+            "rmsnorm_residual"],
+        "max_abs_err_served": served["kernels_on_activations"][
+            "rmsnorm_residual"]["max_abs_diff"],
+    }
+    return [flash, norm]
 
 
 if __name__ == "__main__":

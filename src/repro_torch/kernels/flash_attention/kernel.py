@@ -1,0 +1,121 @@
+"""Python wrapper of the Hopper flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+``flash_attention_cuda`` replaces the JAX package's ``flash_attention``
+(``kernels/flash_attention/kernel.py:86``): one CTA per (b, h, 64-row
+query tile), an online softmax in f32 over 64-row key tiles, tiles
+above the diagonal skipped, any S ≥ 1, D ∈ {32, 64, 128}.  bf16 runs on
+the tensor cores
+(``mma.sync``), f32 on the CUDA cores.  ``attention_flops`` and
+``attention_bytes`` give its least work and traffic.
+
+The wrapper checks what the kernel takes and raises on anything else,
+allocates the output, launches on PyTorch's current stream without
+synchronising, raises if the launch is refused, and counts launches in
+its ``launches`` attribute.  Inputs may carry any strides with a
+contiguous last axis, so the model's (B, S, H, D) projections go in as
+transposed views; the output is (B, H, S, D) laid out as (B, S, H, D)
+in memory, so the model's transpose back is free.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (32, 64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signatures."""
+    lib = build.load("flash_attention")
+    lib.flash_attention_launch.argtypes = (
+        [_VOIDP] * 4 + [_INT] * 5 + [_LL] * 12
+        + [ctypes.c_float, _INT, _INT, _VOIDP])
+    lib.flash_attention_launch.restype = _INT
+    lib.flash_attention_error_string.argtypes = [_INT]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def attention_flops(b: int, h: int, s: int, d: int, causal: bool) -> int:
+    """Multiply-adds ×2 of q·kᵀ and p·v over the (query, key) pairs the
+    mask keeps: S(S+1)/2 per head when causal, S² otherwise."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * d * pairs
+
+
+def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
+                    itemsize: int) -> int:
+    """Least HBM traffic: read q, k, v and write o once."""
+    return itemsize * s * d * b * (2 * h + 2 * kh)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,   # (B, H, S, D) f32 or bf16, CUDA
+    k: torch.Tensor,   # (B, KH, S, D) same dtype
+    v: torch.Tensor,   # (B, KH, S, D)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention on the card; returns (B, H, S, D) in q's dtype."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
+                         f"got {q.device}")
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, H, S, D), got {tuple(q.shape)}")
+    B, H, S, D = q.shape
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
+                        f"{sorted(map(str, DTYPE_CODES))}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if k.ndim != 4 or k.shape[1] == 0 or H % k.shape[1]:
+        raise ValueError(f"k must be (B, KH, S, D) with H % KH == 0, got "
+                         f"{tuple(k.shape)} for H={H}")
+    KH = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {q.dtype}")
+        if tuple(t.shape) != (B, KH, S, D):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, KH, S, D)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along its last axis")
+        # the bf16 kernel moves bf16 pairs as 32-bit words
+        if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3]):
+            raise ValueError(f"{name} must be 4-byte aligned with even "
+                             f"strides")
+    out = torch.empty((B, S, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if B == 0 or S == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KH, S, D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], D ** -0.5, int(causal),
+            DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -1,0 +1,35 @@
+"""Plain PyTorch version of causal GQA attention (full softmax).
+
+A copy of the JAX package's ``kernels/flash_attention/ref.py``: scores
+in f32, probabilities cast to q's dtype before the product with v.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(
+    q: torch.Tensor,   # (B, H, S, D)
+    k: torch.Tensor,   # (B, KH, S, D)
+    v: torch.Tensor,   # (B, KH, S, D)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    rep = H // KH
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    s = torch.einsum(
+        "bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32)
+    ) * (D ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.exp(s - torch.amax(s, -1, keepdim=True))
+    p = p / torch.sum(p, -1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)

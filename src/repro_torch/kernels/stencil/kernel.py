@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.stencil import build
+from repro_torch.kernels import build
 
 HALO = 2
 #: owned output tile of one CTA (rows, columns)

@@ -1,0 +1,135 @@
+"""GQA attention: the flash kernel in prefill, a cached decode step.
+
+The JAX package's ``models/attention.py`` for the dense path:
+
+* prefill: q, k and v are projected in the model's (B, S, H, D) layout
+  and handed to the attention kernel as (B, H, S, D) views
+  (``kernels/flash_attention/ops.py``: the Hopper flash kernel on the
+  card, the plain version on the CPU) where the JAX package calls its
+  XLA ``chunked_attention``.  Both compute exact softmax attention.
+* decode: one new token against the cache, a composition of torch ops
+  that mirrors the JAX package's — q·Kᵀ over the whole cache in f32,
+  the ``pos`` mask, softmax, probs·V.  The JAX package computes decode
+  attention outside any Pallas kernel too (its kernel needs Sq == Sk).
+
+The decode cache is updated in place (``cache[:, pos] = ...``), where
+the JAX package donates the buffer for the same effect.  A logit
+soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.params import param, zeros_param
+
+NEG_INF = -1e30
+
+
+def attn_schema(cfg: ModelConfig):
+    d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": param((d, H, Dh), ("embed", "heads", "head_dim"), cfg.cdtype),
+        "wk": param((d, KH, Dh), ("embed", "kv_heads", "head_dim"),
+                    cfg.cdtype),
+        "wv": param((d, KH, Dh), ("embed", "kv_heads", "head_dim"),
+                    cfg.cdtype),
+        "wo": param((H, Dh, d), ("heads", "head_dim", "embed"), cfg.cdtype),
+    }
+
+
+def attn_cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
+    KH, Dh = cfg.num_kv_heads, cfg.head_dim
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": zeros_param((batch, max_seq, KH, Dh), axes, cfg.cdtype),
+        "v": zeros_param((batch, max_seq, KH, Dh), axes, cfg.cdtype),
+    }
+
+
+def _no_softcap(cfg: ModelConfig) -> None:
+    if cfg.attn_logit_softcap and cfg.attn_logit_softcap > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_logit_softcap has no kernel in the port")
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, heads, Dh) -> (..., heads, Dh)."""
+    d, nh, dh = w.shape
+    return (x @ w.reshape(d, nh * dh)).unflatten(-1, (nh, dh))
+
+
+def _out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """ctx (..., H, Dh) @ wo (H, Dh, d) -> (..., d)."""
+    nh, dh, d = w.shape
+    return ctx.flatten(-2) @ w.reshape(nh * dh, d)
+
+
+def apply_attn_full(
+    cfg: ModelConfig,
+    p,
+    x: torch.Tensor,              # (B, S, d)
+    *,
+    rope_cs=None,                 # (cos, sin) broadcastable to (B?,S,1,D/2)
+    causal: bool = True,
+    cache=None,                   # {"k","v"}: (B, Smax, KH, Dh) to fill
+):
+    """Prefill attention over a full sequence.  When ``cache`` is given,
+    this layer's k and v are written to its first S positions."""
+    _no_softcap(cfg)
+    x = x.to(cfg.cdtype)
+    q = _project(x, p["wq"])
+    kk = _project(x, p["wk"])
+    vv = _project(x, p["wv"])
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = apply_rope(q, cos, sin)
+        kk = apply_rope(kk, cos, sin)
+    out = attention(q.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), causal=causal).transpose(1, 2)
+    y = _out(out, p["wo"])
+    if cache is not None:
+        S = x.shape[1]
+        cache["k"][:, :S] = kk
+        cache["v"][:, :S] = vv
+    return y
+
+
+def apply_attn_decode(
+    cfg: ModelConfig,
+    p,
+    x: torch.Tensor,              # (B, d) single new token
+    cache,                        # {"k","v"}: (B, Smax, KH, Dh), updated
+    pos: int,                     # current position
+    *,
+    rope_cs=None,                 # cos/sin for the single position
+):
+    _no_softcap(cfg)
+    dt = cfg.cdtype
+    B = x.shape[0]
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = H // KH
+    x = x.to(dt)
+    q = _project(x, p["wq"])                      # (B, H, Dh)
+    k_new = _project(x, p["wk"])
+    v_new = _project(x, p["wv"])
+    if rope_cs is not None:
+        cos, sin = rope_cs                            # (1, 1, D/2)
+        q = apply_rope(q[:, None], cos, sin)[:, 0]
+        k_new = apply_rope(k_new[:, None], cos, sin)[:, 0]
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new
+    v[:, pos] = v_new
+    Smax = k.shape[1]
+    # factored GQA decode: q (B, KH, rep, Dh) against the whole cache
+    qf = q.reshape(B, KH, rep, Dh)
+    scores = torch.einsum(
+        "bgrd,bsgd->bgrs", qf.to(torch.float32), k.to(torch.float32)
+    ) * (Dh ** -0.5)
+    valid = torch.arange(Smax, device=x.device) <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bgrs,bsgd->bgrd", probs, v).reshape(B, H, Dh)
+    return _out(ctx, p["wo"])

@@ -1,0 +1,54 @@
+"""Carry a JAX parameter pytree across to the port.
+
+``params_from_numpy(cfg, tree, device)`` takes the JAX package's
+parameters as numpy arrays — ``jax.tree.map(np.asarray,
+init_params(M.schema(cfg), key))``, layers stacked on a leading axis
+under ``b0`` — and returns the port's parameter dict, leaf for leaf, so
+both packages compute the same logits.  Each leaf is checked against
+the port's schema (keys, shape) and stored in the schema's dtype: the
+compute dtype for matrices and embeddings, which the JAX package keeps
+in the parameter dtype and casts at every use to the same values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models.params import map_specs
+
+
+def _leaf(tree, path):
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            raise KeyError(f"parameter {'/'.join(path)} missing")
+        tree = tree[key]
+    return tree
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device):
+    sch = M.schema(cfg)
+    n_spec = 0
+
+    def take(path, spec):
+        nonlocal n_spec
+        n_spec += 1
+        a = np.asarray(_leaf(tree, path))
+        if tuple(a.shape) != spec.shape:
+            raise ValueError(f"parameter {'/'.join(path)} has shape "
+                             f"{tuple(a.shape)}, schema says {spec.shape}")
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        return t.to(device=device, dtype=spec.dtype)
+
+    out = map_specs(take, sch)
+    if _count_leaves(tree) != n_spec:
+        raise ValueError(f"tree has {_count_leaves(tree)} leaves, the "
+                         f"schema {n_spec}")
+    return out

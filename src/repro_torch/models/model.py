@@ -1,0 +1,166 @@
+"""Public model API of the port: schema, prefill and decode for the
+dense GQA decoder.
+
+The JAX package's ``models/model.py`` for the serving path, as plain
+functions on a parameter dict laid out as the JAX pytree.  prefill runs
+the flash-attention kernel once per layer and the fused residual-norm
+kernel ``2·layers + 1`` times (``launches_per_pass``); a decode step
+runs the norm kernel as often and attention as torch ops.
+
+Matrices and embeddings are declared in the compute dtype, norm scales
+in the parameter dtype.  The JAX package keeps every leaf in the
+parameter dtype and casts each use (``w.astype(dt)``); the values the
+matmuls see are the same.
+
+Configs that need MoE, MLA, Mamba-2, an encoder, M-RoPE, sinusoidal
+positions, embedding inputs or the MTP head raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    embed_schema,
+    embed_tokens,
+    norm_schema,
+    rope_cos_sin,
+    unembed,
+)
+from repro_torch.models.params import count_params, zeros_like_schema
+from repro_torch.models.transformer import (
+    apply_block_decode,
+    apply_block_full,
+    block_cache_schema,
+    block_schema,
+    fused_norm,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot
+    serve."""
+    missing = [name for name, on in (
+        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
+        ("mla", cfg.mla is not None), ("cross_attention", cfg.cross_attention),
+        ("encoder_layers", cfg.encoder_layers > 0), ("mtp", cfg.mtp),
+        ("rope_type=mrope", cfg.rope_type == "mrope"),
+        ("pos_embed=sinusoidal", cfg.pos_embed == "sinusoidal"),
+        ("input_mode=embeds", cfg.input_mode == "embeds"),
+    ) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port has no {', '.join(missing)}")
+
+
+# ---------------------------------------------------------------------------
+# Schemas
+# ---------------------------------------------------------------------------
+
+
+def schema(cfg: ModelConfig):
+    check_supported(cfg)
+    s: dict[str, Any] = dict(embed_schema(cfg))
+    for i, bdef in enumerate(cfg.blocks):
+        s[f"b{i}"] = block_schema(cfg, bdef)
+    s["final_norm"] = norm_schema(cfg)
+    return s
+
+
+def cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
+    check_supported(cfg)
+    return {
+        f"b{i}": block_cache_schema(cfg, bdef, batch, max_seq)
+        for i, bdef in enumerate(cfg.blocks)
+    }
+
+
+def param_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(total, active) parameter counts; equal for a dense model."""
+    total = count_params(schema(cfg))
+    return total, total
+
+
+def launches_per_pass(cfg: ModelConfig, phase: str) -> dict[str, int]:
+    """Kernel launches of one prefill or one decode step: flash
+    attention once per layer in prefill, the fused residual-norm at
+    every seam (two per layer and the final norm) in both."""
+    layers = cfg.block_layers()
+    if phase not in ("prefill", "decode"):
+        raise ValueError(f"phase {phase!r}")
+    return {"flash_attention": layers if phase == "prefill" else 0,
+            "rmsnorm_residual": 2 * layers + 1}
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+
+def rope_full(cfg: ModelConfig, S: int, device):
+    """cos/sin for a full sequence, shaped to broadcast with (B,S,H,D)."""
+    if cfg.rope_type == "none":
+        return None
+    cos, sin = rope_cos_sin(torch.arange(S, device=device), cfg.head_dim,
+                            cfg.rope_theta)                  # (S,D2)
+    return cos[None, :, None, :], sin[None, :, None, :]
+
+
+def rope_decode(cfg: ModelConfig, pos: int, device):
+    if cfg.rope_type == "none":
+        return None
+    # arange, not tensor([pos]): a host-to-device copy would wait for the
+    # card at every step
+    cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=device),
+                            cfg.head_dim, cfg.rope_theta)    # (1,D2)
+    return cos[None], sin[None]                              # (1,1,D2)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params, inputs, max_seq: int | None = None):
+    """inputs: {"tokens": (B, S) int}.  Returns (last_token_logits
+    (B,V) fp32, cache).  The cache is allocated at ``max_seq``
+    positions (default S) and zero past S, the layout the JAX package's
+    ``pad_cache_to`` produces."""
+    check_supported(cfg)
+    tokens = inputs["tokens"]
+    B, S = tokens.shape
+    max_seq = S if max_seq is None else max_seq
+    if max_seq < S:
+        raise ValueError(f"max_seq {max_seq} < prompt length {S}")
+    dev = tokens.device
+    x = embed_tokens(cfg, params, tokens)
+    rope_cs = rope_full(cfg, S, dev)
+    cache = zeros_like_schema(cache_schema(cfg, B, max_seq), dev)
+    res = torch.zeros_like(x)
+    for i, bdef in enumerate(cfg.blocks):
+        x, res = apply_block_full(
+            cfg, bdef, params[f"b{i}"], x, res, rope_cs=rope_cs,
+            causal=True, cache=cache[f"b{i}"],
+        )
+    h_last, _ = fused_norm(cfg, params["final_norm"], x[:, -1], res[:, -1])
+    return unembed(cfg, params, h_last), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, inputs):
+    """inputs: {"token": (B,) int, "pos": int}.  Returns (logits (B,V)
+    fp32, cache); the cache is updated in place and returned."""
+    check_supported(cfg)
+    token, pos = inputs["token"], int(inputs["pos"])
+    x = embed_tokens(cfg, params, token)
+    rope_cs = rope_decode(cfg, pos, token.device)
+    res = torch.zeros_like(x)
+    for i, bdef in enumerate(cfg.blocks):
+        x, res = apply_block_decode(
+            cfg, bdef, params[f"b{i}"], x, res, cache[f"b{i}"], pos,
+            rope_cs=rope_cs,
+        )
+    h, _ = fused_norm(cfg, params["final_norm"], x, res)
+    return unembed(cfg, params, h), cache

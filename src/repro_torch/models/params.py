@@ -1,0 +1,130 @@
+"""Parameter schemas: declare once, materialize on a device.
+
+The parameter-schema half of the JAX package's ``sharding/rules.py``.
+A schema is a nested dict whose leaves are ``ParamSpec``s; parameters
+are the same nested dict with tensors at the leaves, so a JAX parameter
+pytree and the port's have one layout (``models/convert.py``).  Each
+leaf is drawn with the JAX package's rule: a fan-in normal over axis -2
+of the unstacked shape (the last axis for a vector), ones for scales,
+zeros for caches, and a fixed-std normal for the embeddings.  Values
+come from an explicit ``torch.Generator`` on an explicit device; they
+do not equal JAX's draws.
+
+Sharding (``AxisRules``, ``shard``) has no meaning on one card and is
+not ported; a spec keeps its axis names only so the schemas read the
+same.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+#: init kinds
+FAN_IN, ZEROS, ONES, NORMAL = "fan_in", "zeros", "ones", "normal"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Metadata-only description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = FAN_IN
+    std: float = 0.0          # NORMAL only
+    stacked: int = 0          # leading stacked-layer axes (fan-in skips them)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+
+def param(shape, axes, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, FAN_IN)
+
+
+def zeros_param(shape, axes, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, ZEROS)
+
+
+def scale_param(shape, axes, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, ONES)
+
+
+def normal_param(shape, axes, std, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, NORMAL, float(std))
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def map_specs(fn: Callable[[tuple[str, ...], ParamSpec], Any], schema,
+              path: tuple[str, ...] = ()):
+    """``fn(path, spec)`` at every leaf of a schema, keys in sorted
+    order (the order ``jax.tree`` flattens a dict in)."""
+    if is_spec(schema):
+        return fn(path, schema)
+    return {k: map_specs(fn, schema[k], path + (k,)) for k in sorted(schema)}
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_schema(schema, n: int, axis_name: str | None = "layers"):
+    """Add a leading stacked-layers dim to every spec in a schema."""
+    return map_specs(lambda _, s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=(axis_name,) + s.axes,
+        stacked=s.stacked + 1), schema)
+
+
+def fan_in_std(spec: ParamSpec) -> float:
+    inner = spec.shape[spec.stacked:]
+    fan_in = inner[-2] if len(inner) >= 2 else inner[-1]
+    return 1.0 / (fan_in ** 0.5)
+
+
+def init_leaf(spec: ParamSpec, gen: torch.Generator,
+              device) -> torch.Tensor:
+    """One parameter: drawn in f32 from ``gen``, cast to its dtype."""
+    if spec.init == ZEROS:
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == ONES:
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    std = fan_in_std(spec) if spec.init == FAN_IN else spec.std
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(spec.dtype)
+
+
+def init_params(schema, gen: torch.Generator, device):
+    """Materialize parameter values from a schema on ``device``."""
+    return map_specs(lambda _, s: init_leaf(s, gen, device), schema)
+
+
+def zeros_like_schema(schema, device):
+    return map_specs(lambda _, s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=device), schema)
+
+
+def count_params(schema) -> int:
+    return sum(s.size for s in tree_leaves(schema))

@@ -1,0 +1,164 @@
+"""Decoder stack for the dense ``("attn", "dense")`` layer.
+
+The JAX package's ``models/transformer.py``, with a Python loop over the
+stacked layers in place of ``lax.scan`` / ``fori_loop``.  Parameters
+keep the JAX layout: each block's layer params are stacked on a
+leading axis, and layer ``i`` is the view ``a[i]`` of every leaf.
+
+The residual → norm seams are fused.  Where the JAX layer computes
+``x = x + y; h = apply_norm(norm, x)``, the port makes one
+``rmsnorm_residual(x, y, scale)`` call (the Hopper kernel on the card)
+that returns ``(h, x)``.  A layer therefore returns its MLP output
+un-added, and the next layer's ``norm1`` adds it; the last layer's is
+added by the model's ``final_norm``.  Layer 0's ``norm1`` calls the
+kernel with a zero residual: ``x + 0`` is ``x`` exactly, so that norm
+equals ``apply_norm``, and every norm of the path runs on the one
+kernel — ``2·layers + 1`` launches per pass — for one extra read of a
+zero tensor.
+
+Other mixers (MLA, Mamba-2), MoE and cross-attention raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import BlockDef, ModelConfig
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_residual
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_mlp, mlp_schema, norm_schema
+from repro_torch.models.params import stack_schema, tree_map
+
+
+def _dense_only(mixer: str, mlp: str) -> None:
+    if (mixer, mlp) != ("attn", "dense"):
+        raise NotImplementedError(
+            f"layer ({mixer!r}, {mlp!r}): the port serves ('attn', "
+            f"'dense') layers only")
+
+
+def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
+    """``(apply_norm(x + res), x + res)`` in one fused call over the
+    last axis; the sum is kept in f32 for the norm and returned in x's
+    dtype."""
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"{cfg.name}: norm {cfg.norm!r}; the port has rmsnorm only")
+    shape, d = x.shape, x.shape[-1]
+    h, s = rmsnorm_residual(x.reshape(-1, d).contiguous(),
+                            res.to(x.dtype).reshape(-1, d).contiguous(),
+                            p["scale"], cfg.norm_eps)
+    return h.reshape(shape), s.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+
+
+def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
+    _dense_only(mixer, mlp)
+    return {
+        "norm1": norm_schema(cfg),
+        "mixer": attn.attn_schema(cfg),
+        "norm2": norm_schema(cfg),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def layer_cache_schema(cfg: ModelConfig, mixer: str, batch: int,
+                       max_seq: int):
+    if mixer != "attn":
+        raise NotImplementedError(f"mixer {mixer!r}: the port has attn only")
+    return {"mixer": attn.attn_cache_schema(cfg, batch, max_seq)}
+
+
+def apply_layer_full(
+    cfg: ModelConfig, p, x, res, mixer: str, mlp: str, *,
+    rope_cs, causal=True, cache=None,
+):
+    """Prefill layer.  ``x`` (B,S,d) is the residual stream before the
+    previous layer's MLP output ``res`` is added.  Returns ``(x, y)``:
+    the stream after this layer's attention residual, and this layer's
+    MLP output, which the next fused norm adds."""
+    _dense_only(mixer, mlp)
+    h, x = fused_norm(cfg, p["norm1"], x, res)
+    y = attn.apply_attn_full(
+        cfg, p["mixer"], h, rope_cs=rope_cs, causal=causal,
+        cache=None if cache is None else cache["mixer"],
+    )
+    h2, x = fused_norm(cfg, p["norm2"], x, y)
+    return x, apply_mlp(cfg, p["mlp"], h2)
+
+
+def apply_layer_decode(
+    cfg: ModelConfig, p, x, res, cache, pos: int, mixer: str, mlp: str, *,
+    rope_cs,
+):
+    """Decode layer.  x and res (B,d), as in ``apply_layer_full``; the
+    layer's cache is updated in place."""
+    _dense_only(mixer, mlp)
+    h, x = fused_norm(cfg, p["norm1"], x, res)
+    y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
+                               rope_cs=rope_cs)
+    h2, x = fused_norm(cfg, p["norm2"], x, y)
+    return x, apply_mlp(cfg, p["mlp"], h2)
+
+
+# ---------------------------------------------------------------------------
+# Block groups (a loop over stacked layers)
+# ---------------------------------------------------------------------------
+
+
+def block_schema(cfg: ModelConfig, bdef: BlockDef):
+    unit = {
+        f"l{i}": layer_schema(cfg, mixer, mlp)
+        for i, (mixer, mlp) in enumerate(bdef.pattern)
+    }
+    return stack_schema(unit, bdef.repeat)
+
+
+def block_cache_schema(cfg: ModelConfig, bdef: BlockDef, batch: int,
+                       max_seq: int):
+    unit = {
+        f"l{i}": layer_cache_schema(cfg, mixer, batch, max_seq)
+        for i, (mixer, _) in enumerate(bdef.pattern)
+    }
+    return stack_schema(unit, bdef.repeat)
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def apply_block_full(
+    cfg: ModelConfig, bdef: BlockDef, params, x, res, *,
+    rope_cs, causal=True, cache=None,
+):
+    """x, res (B,S,d) -> (x, res) after the block's layers; ``cache``
+    (stacked) is filled in place."""
+    for r in range(bdef.repeat):
+        lp = _layer(params, r)
+        lc = None if cache is None else _layer(cache, r)
+        for i, (mixer, mlp) in enumerate(bdef.pattern):
+            x, res = apply_layer_full(
+                cfg, lp[f"l{i}"], x, res, mixer, mlp, rope_cs=rope_cs,
+                causal=causal, cache=None if lc is None else lc[f"l{i}"],
+            )
+    return x, res
+
+
+def apply_block_decode(
+    cfg: ModelConfig, bdef: BlockDef, params, x, res, cache, pos: int, *,
+    rope_cs,
+):
+    """x, res (B,d) -> (x, res); the stacked cache is updated in place
+    (the JAX package's fori_loop carry, without the copy)."""
+    for r in range(bdef.repeat):
+        lp, lc = _layer(params, r), _layer(cache, r)
+        for i, (mixer, mlp) in enumerate(bdef.pattern):
+            x, res = apply_layer_decode(
+                cfg, lp[f"l{i}"], x, res, lc[f"l{i}"], pos, mixer, mlp,
+                rope_cs=rope_cs,
+            )
+    return x, res

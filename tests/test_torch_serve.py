@@ -1,0 +1,310 @@
+"""The port's serving path (Yi-6B, prefill + decode) against the JAX
+package's model.
+
+The same JAX parameters go through ``params_from_numpy``; the same
+prompts go into ``repro.models.model.prefill`` / ``decode_step`` and
+the port's.  On the CPU the port runs the plain versions of its two
+kernels, so this holds the port's model code (projections, RoPE, the
+fused residual-norm seams, the KV cache) to the JAX package's:
+
+* f32: logits within 1e-4 (measured 1.3e-6 at max|logit| 0.6) and
+  identical greedy tokens over 4 decode steps;
+* bf16: each step fed the same tokens, logits within 0.1·max|logit|
+  (measured up to 0.037·max).  The fused norm normalises the f32 sum
+  x + y where the JAX layer normalises bf16(x + y), and the two
+  libraries round bf16 products differently; the random model's peaked
+  attention amplifies those roundings, and greedy tokens may part where
+  the top two logits are that close.  A wrong cache or position gives
+  differences of the order of the logits themselves.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import smoke_config as jsmoke_config  # noqa: E402
+from repro.configs.base import dense_blocks as jdense_blocks  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.sharding.rules import init_params as jinit_params  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import MoEConfig, dense_blocks  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    init_params,
+    map_specs,
+    tree_map,
+)
+from repro_torch.runtime import serve_step  # noqa: E402
+
+LAYERS = 2
+B, S, STEPS = 2, 24, 4
+
+
+def _cfgs(dtype):
+    """The smoke Yi-6B widened to LAYERS layers, in both packages."""
+    j = dataclasses.replace(jsmoke_config(jget_config("yi-6b")),
+                            num_layers=LAYERS, blocks=jdense_blocks(LAYERS),
+                            compute_dtype=dtype)
+    t = dataclasses.replace(smoke_config(get_config("yi-6b")),
+                            num_layers=LAYERS, blocks=dense_blocks(LAYERS),
+                            compute_dtype=dtype)
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def models():
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        jc, tc = _cfgs(dtype)
+        jp = jinit_params(JM.schema(jc), jax.random.key(0))
+        tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), "cpu")
+        out[dtype] = (jc, jp, tc, tp)
+    return out
+
+
+def _prompts(vocab, s=S):
+    return np.random.default_rng(7).integers(0, vocab, (B, s))
+
+
+def _run_both(models, dtype, teacher_forced):
+    """Prefill (S - 1 tokens, cache of S + STEPS) and STEPS decode
+    steps in both packages; returns the JAX and port logits per step
+    and their greedy tokens."""
+    jc, jp, tc, tp = models[dtype]
+    toks = _prompts(tc.vocab_size, S - 1)
+    jl, jcache = JM.prefill(jc, jp, {"tokens": jnp.asarray(toks)},
+                            max_seq=S + STEPS)
+    tl, tcache = serve_step.build_prefill(tc, max_seq=S + STEPS)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    decode = serve_step.build_decode(tc)
+    logits, tokens = [(np.asarray(jl, np.float32), tl.numpy())], []
+    for i in range(STEPS):
+        jt = np.argmax(logits[-1][0], -1)
+        tt = jt if teacher_forced else np.argmax(logits[-1][1], -1)
+        tokens.append((jt, tt))
+        jl, jcache = JM.decode_step(
+            jc, jp, jcache, {"token": jnp.asarray(jt, jnp.int32),
+                             "pos": jnp.asarray(S - 1 + i, jnp.int32)})
+        tl, tcache = decode(tp, tcache, {"token": torch.from_numpy(tt),
+                                         "pos": S - 1 + i})
+        logits.append((np.asarray(jl, np.float32), tl.numpy()))
+    return logits, tokens
+
+
+def test_f32_logits_and_greedy_tokens_match_jax(models):
+    logits, tokens = _run_both(models, "float32", teacher_forced=False)
+    for jl, tl in logits:
+        assert tl.dtype == np.float32 and tl.shape == jl.shape
+        np.testing.assert_allclose(tl, jl, atol=1e-4)
+    for jt, tt in tokens:
+        np.testing.assert_array_equal(tt, jt)
+
+
+def test_bf16_logits_match_jax(models):
+    logits, _ = _run_both(models, "bfloat16", teacher_forced=True)
+    for jl, tl in logits:
+        scale = float(np.abs(jl).max())
+        assert scale > 0 and np.isfinite(tl).all()
+        assert float(np.abs(tl - jl).max()) <= 0.1 * scale
+
+
+def test_prefill_cache_matches_jax(models):
+    jc, jp, tc, tp = models["float32"]
+    toks = _prompts(tc.vocab_size)
+    _, jcache = JM.prefill(jc, jp, {"tokens": jnp.asarray(toks)},
+                           max_seq=S + 3)
+    _, tcache = M.prefill(tc, tp, {"tokens": torch.from_numpy(toks)},
+                          max_seq=S + 3)
+    for name in ("k", "v"):
+        j = np.asarray(jcache["b0"]["l0"]["mixer"][name])
+        t = tcache["b0"]["l0"]["mixer"][name].numpy()
+        assert t.shape == j.shape == (LAYERS, B, S + 3, 2, 16)
+        np.testing.assert_allclose(t, j, atol=1e-4)
+        assert not t[:, :, S:].any()
+
+
+def test_prefill_decode_consistency(models):
+    """The serving invariant (``tests/test_archs_smoke.py``): the full
+    prompt's logits equal prefill(S - 1) + one decode step."""
+    _, _, tc, tp = models["float32"]
+    toks = torch.from_numpy(_prompts(tc.vocab_size))
+    full, _ = M.prefill(tc, tp, {"tokens": toks})
+    _, cache = M.prefill(tc, tp, {"tokens": toks[:, :S - 1]}, max_seq=S)
+    dec, new = M.decode_step(tc, tp, cache,
+                             {"token": toks[:, S - 1], "pos": S - 1})
+    assert float((full - dec).abs().max()) < 2e-4
+    assert new is cache
+
+
+def test_kernel_calls_per_pass(models, monkeypatch):
+    """One attention call per layer in prefill, none in decode; the fused
+    norm at 2·layers + 1 seams in both (``launches_per_pass``)."""
+    _, _, tc, tp = models["float32"]
+    calls = {"flash_attention": 0, "rmsnorm_residual": 0}
+
+    def counted(name, fn):
+        def wrap(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrap
+
+    monkeypatch.setattr(attn_mod, "attention",
+                        counted("flash_attention", attn_mod.attention))
+    monkeypatch.setattr(transformer, "rmsnorm_residual",
+                        counted("rmsnorm_residual",
+                                transformer.rmsnorm_residual))
+    toks = torch.from_numpy(_prompts(tc.vocab_size))
+    _, cache = M.prefill(tc, tp, {"tokens": toks}, max_seq=S + 1)
+    assert calls == M.launches_per_pass(tc, "prefill")
+    calls.update({k: 0 for k in calls})
+    M.decode_step(tc, tp, cache, {"token": toks[:, 0], "pos": S})
+    assert calls == M.launches_per_pass(tc, "decode")
+    assert M.launches_per_pass(get_config("yi-6b"), "prefill") == {
+        "flash_attention": 32, "rmsnorm_residual": 65}
+
+
+def test_layers_match_jax(models):
+    """The unfused norm, RoPE and the SwiGLU MLP against the JAX
+    package's layers on the same inputs, f32."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    jc, jp, tc, tp = models["float32"]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 24, 64), dtype=np.float32)
+    lp_j = jax.tree.map(lambda a: a[0], jp["b0"]["l0"])
+    lp_t = tree_map(lambda a: a[0], tp["b0"]["l0"])
+    xt = torch.from_numpy(x)
+    np.testing.assert_allclose(
+        TL.apply_norm(tc, lp_t["norm1"], xt).numpy(),
+        np.asarray(JL.apply_norm(jc, lp_j["norm1"], jnp.asarray(x))),
+        atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(
+        TL.apply_mlp(tc, lp_t["mlp"], xt).numpy(),
+        np.asarray(JL.apply_mlp(jc, lp_j["mlp"], jnp.asarray(x))),
+        atol=1e-5, rtol=1e-5)
+    q = rng.standard_normal((2, 24, 4, 16), dtype=np.float32)
+    jcs = JL.rope_cos_sin(jnp.arange(24), 16, jc.rope_theta)
+    tcs = TL.rope_cos_sin(torch.arange(24), 16, tc.rope_theta)
+    for a, b in zip(tcs, jcs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    np.testing.assert_allclose(
+        TL.apply_rope(torch.from_numpy(q), tcs[0][:, None], tcs[1][:, None])
+        .numpy(),
+        np.asarray(JL.apply_rope(jnp.asarray(q), jcs[0][:, None],
+                                 jcs[1][:, None])), atol=1e-5)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_matches_jax_field_for_field(smoke):
+    j, t = jget_config("yi-6b"), get_config("yi-6b")
+    if smoke:
+        j, t = jsmoke_config(j), smoke_config(t)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert str(t.cdtype).split(".")[-1] == str(j.cdtype)
+    assert str(t.pdtype).split(".")[-1] == str(j.pdtype)
+
+
+def test_schema_and_param_counts_match_jax():
+    j, t = jget_config("yi-6b"), get_config("yi-6b")
+    assert M.param_counts(t) == JM.param_counts(j)
+    jshapes = jax.tree.map(lambda s: s.shape, JM.schema(jsmoke_config(j)),
+                           is_leaf=lambda x: hasattr(x, "init"))
+    tshapes = map_specs(lambda _, s: s.shape, M.schema(smoke_config(t)))
+    assert tshapes == jshapes
+    total, _ = M.param_counts(t)
+    assert 6.0e9 < total < 6.1e9
+
+
+def test_weights_in_compute_dtype_equal_jax_casts(models):
+    """Matrices and embeddings are stored in the compute dtype, scales in
+    the parameter dtype; the stored bf16 weights are JAX's cast at use."""
+    jc, jp, tc, tp = models["bfloat16"]
+    dtypes = map_specs(lambda _, s: s.dtype, M.schema(tc))
+    assert dtypes["embed"] == dtypes["b0"]["l0"]["mixer"]["wq"] \
+        == dtypes["b0"]["l0"]["mlp"]["down"] == torch.bfloat16
+    assert dtypes["final_norm"]["scale"] == torch.float32
+    for got, want in ((tp["b0"]["l0"]["mixer"]["wk"],
+                       jp["b0"]["l0"]["mixer"]["wk"]),
+                      (tp["embed"], jp["embed"])):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got.float().numpy(),
+            np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32)))
+    sp = serve.make_params(tc, "cpu")
+    assert sp["b0"]["l0"]["mlp"]["up"].dtype == torch.bfloat16
+    assert sp["b0"]["l0"]["norm1"]["scale"].dtype == torch.float32
+
+
+def test_unported_configs_raise():
+    t = smoke_config(get_config("yi-6b"))
+    for change in (dict(moe=MoEConfig(num_experts=2)), dict(mtp=True),
+                   dict(rope_type="mrope"), dict(norm="layernorm")):
+        with pytest.raises(NotImplementedError):
+            M.schema(dataclasses.replace(t, **change))
+    with pytest.raises(KeyError):
+        get_config("deepseek-v3-671b")
+
+
+def test_serve_cli_on_the_cpu(capsys):
+    res = serve.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and all(ln.startswith("[serve]") for ln in lines)
+    assert "prefill 8 tok × 2" in lines[0]
+    assert "decode 3 steps" in lines[1] and "tok/s" in lines[1]
+    assert tuple(res.tokens.shape) == (2, 4)
+    assert res.launches == {"prefill": {"flash_attention": 0,
+                                        "rmsnorm_residual": 0},
+                            "decode": {"flash_attention": 0,
+                                       "rmsnorm_residual": 0}}
+
+
+def test_serve_cli_sampling_is_seeded(capsys):
+    argv = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen", "5", "--temperature", "0.8"]
+    a, b = serve.main(argv), serve.main(argv)
+    assert torch.equal(a.tokens, b.tokens)
+
+
+def test_serve_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "yi-6b", "--smoke"])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+def test_serve_on_card_matches_cpu(cuda_device, models):
+    """Kernels on the card against the plain versions on the CPU, same
+    weights, f32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, tc, _ = models["float32"]
+    tc = dataclasses.replace(tc, head_dim=32)      # a head dim the kernel takes
+    tp = init_params(M.schema(tc), torch.Generator().manual_seed(0), "cpu")
+    gp = tree_map(lambda t: t.to(cuda_device), tp)
+    toks = _prompts(tc.vocab_size)
+    want = serve.serve(tc, tp, torch.from_numpy(toks), STEPS)
+    got = serve.serve(tc, gp, torch.from_numpy(toks).to(cuda_device),
+                      STEPS)
+    np.testing.assert_allclose(got.first_logits.cpu().numpy(),
+                               want.first_logits.numpy(), atol=1e-4)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+    assert got.launches["prefill"] == M.launches_per_pass(tc, "prefill")

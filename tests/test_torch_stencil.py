@@ -17,7 +17,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.stencil import ops as jops  # noqa: E402
 from repro.kernels.stencil import ref as jref  # noqa: E402
-from repro_torch.kernels.stencil import build, kernel, ops, ref  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.stencil import kernel, ops, ref  # noqa: E402
 
 
 def _inputs(seed, ns, nz, nx, k, per_shot=True):
