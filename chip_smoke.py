@@ -60,7 +60,26 @@ Phases, each printing one JSON line:
     held at all 32 layers in bf16 within 5e-2·max|logit|, with the
     attention projections drawn at the fan-in of their contraction
     (``well_conditioned``).
-14. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
+14. ``ssd_vs_plain``: the SSD chunk kernel against its plain version
+    (the shapes of ``tests/test_kernels.py`` in f32 and bf16, mamba2-370m's
+    served prefill in bf16 with B and C as stride-0 head broadcasts and
+    xdt as the model's permuted view, a ragged Q=96): atol 1e-5 in f32;
+    in bf16 y within 2^-8·max|y| + 2^-7·|y| and the state within 1e-5;
+    device ms against the bound and the plain version's ms.
+15. ``mamba_vs_cpu``: mamba2-370m at full width and all 48 layers, f32
+    (no TF32): the same weights serve on the card (kernels) and on the
+    CPU (plain versions), B=2, prompt 300 (one full chunk, one padded),
+    4 greedy steps: logits within 1e-3·max|logit|, identical tokens, the
+    launch counts of ``launches_per_pass``, and the card's prefill vs
+    prefill(S-1) + decode within 1e-4·max|logit|.
+16. ``mamba_serve``: mamba2-370m at full size in bf16 through
+    ``launch/serve.py``'s functions: 4 requests of 2048 prompt tokens
+    and 32 greedy tokens, with prefill and decode times, peak memory,
+    launches per prefill and per step and a profile of each phase.
+    Every SSD and norm call of one prefill and decode step is held to
+    its plain version on the served activations, and the 48-layer bf16
+    invariant within 0.1·max|logit| under the init rule itself.
+17. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time.
 
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -116,6 +135,28 @@ ATTN_ACT_SHARE = 2.0 ** -6
 #: new position by ~5-10, in f32 as in bf16 and in the JAX package as in
 #: the port (tools/serve_depth_witness.py).
 SERVE_INV_TOL = 5e-2
+#: ssd_vs_plain: f32 atol (tests/test_kernels.py); bf16 y within
+#: (share of max|y|, rtol): both versions round (C·Bᵀ)∘L to bf16 after f32
+#: sums in other orders (a flipped rounding moves a term by one bf16
+#: step) and round y once (one step, 2^-7·|y| at most); the state is f32
+#: in both (the kernel carries B·to_end as three bf16 parts, ~2^-24)
+SSD_TOL = 1e-5
+SSD_BF16_Y = (2.0 ** -8, 2.0 ** -7)
+#: the SSD kernel on the served activations, against bounds computed
+#: from the same inputs: y within 2^-7·|y| + 2^-7·(|(C·Bᵀ)∘L|·|xdt|) (the
+#: bf16 roundings above, term by term: one bf16 step is at most 2^-7 of
+#: a value); the state within
+#: 2^-15·(|B·to_end|ᵀ·|xdt|): two f32 sums of Q ≤ 256 products in other
+#: orders each err by at most Q·2^-24 of the sum of |terms|
+SSD_ACT_Y = (2.0 ** -7, 2.0 ** -7)
+SSD_ACT_STATE = 2.0 ** -15
+#: mamba_vs_cpu: f32 logits on the card within this share of max|logit|
+#: of the CPU's, and the card's own prefill-vs-decode invariant
+MAMBA_F32_TOL = 1e-3
+MAMBA_F32_INV = 1e-4
+#: mamba_serve: the 48-layer bf16 invariant as a share of max|logit|
+#: (the JAX package: 3.5 % at B=2, S=300 under the same init rule)
+MAMBA_INV_TOL = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -291,9 +332,18 @@ def main() -> int:
     emit(run_serve_vs_cpu(dev))
     served = run_serve(dev)
     emit(served)
-    lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
 
-    # 14. kernels
+    # 14.-16. the Mamba-2 serving slice
+    ssd = run_ssd_vs_plain(dev, rng, bw, bf16)
+    emit(ssd)
+    emit(run_mamba_vs_cpu(dev))
+    mserved = run_mamba_serve(dev)
+    emit(mserved)
+    lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
+    lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
+    lm_entries.append(ssd_kernel_entry(ssd, mserved))
+
+    # 17. kernels
     timings = {}
     for label, (ns, nz, nx, k) in (("600", (4, 600, 600, 4)),
                                    ("4096", (4, 4096, 4096, 8)),
@@ -673,11 +723,16 @@ def profile_device(fn, calls: int) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(device_ms > 0, "the profiler saw no device time")
+    # names cut to 48 characters: kernels that share a prefix are summed
+    by_kernel: dict = {}
+    for e in kernels:
+        key = e.key[:48]
+        by_kernel[key] = by_kernel.get(key, 0.0) \
+            + e.self_device_time_total / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3),
             "kernels_per_call": sum(e.count for e in kernels) / calls,
-            "by_kernel_ms": {e.key[:48]: e.self_device_time_total / 1e3
-                             for e in kernels}}
+            "by_kernel_ms": by_kernel}
 
 
 def time_index_put_scan(cfg, dev, steps, want) -> float:
@@ -1044,7 +1099,7 @@ def run_serve_vs_cpu(dev):
           f"{want.tokens.tolist()}")
     check(got.launches == {"prefill": pre, "decode": dec},
           f"launches {got.launches}, predicted prefill {pre} decode {dec}")
-    check(launches == {k: pre[k] + dec[k] for k in pre},
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
           f"counted launches {launches}")
     return {"phase": "serve_vs_cpu", "arch": cfg.name, "layers": 2,
             "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
@@ -1061,6 +1116,8 @@ def _category(name: str) -> str:
         return "flash_attention"
     if "rmsnorm" in low:
         return "rmsnorm_residual"
+    if "ssd" in low:
+        return "ssd_chunk"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv",
                               "splitk")):
         return "matmul"
@@ -1069,7 +1126,7 @@ def _category(name: str) -> str:
 
 def by_kind(profile: dict, calls: int) -> dict:
     """``profile_device``'s device ms (totals over ``calls`` calls) per
-    call, summed by kind of kernel: the two LM kernels, cuBLAS matmuls,
+    call, summed by kind of kernel: the LM kernels, cuBLAS matmuls,
     everything else."""
     kinds: dict = {}
     for name, ms in profile["by_kernel_ms"].items():
@@ -1117,7 +1174,8 @@ def run_serve(dev):
           f"prefill launches {res.launches['prefill']}, predicted {pre}")
     check(per_step == dec, f"decode launches per step {per_step}, "
                            f"predicted {dec}")
-    check(launches == {k: pre[k] + steps * dec[k] for k in pre},
+    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
+                       for k in launches},
           f"counted launches {launches}")
     V = cfg.vocab_size
     check(tuple(res.first_logits.shape) == (B, V)
@@ -1350,6 +1408,379 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
             "rmsnorm_residual"]["max_abs_diff"],
     }
     return [flash, norm]
+
+
+def _ssd_inputs(rng, dev, dtype, bc, h, q, n, p, model_layout=False):
+    """xdt, B, C and csum from the seed as tests/test_kernels.py builds
+    them (unit normals, csum = -cumsum(uniform)).  With ``model_layout``
+    xdt is a (BC, H, Q, P) view of a (BC, Q, H, P) tensor and B and C
+    are one group seen by every head (stride 0), as ssd_chunked hands
+    them over."""
+    def dev_t(a, dt=dtype):
+        return torch.from_numpy(a).to(dev, dt)
+
+    if model_layout:
+        x = dev_t(rng.standard_normal((bc, q, h, p), dtype=np.float32)
+                  ).transpose(1, 2)
+        b, c = (dev_t(rng.standard_normal((bc, 1, q, n), dtype=np.float32)
+                      ).expand(bc, h, q, n) for _ in range(2))
+    else:
+        x = dev_t(rng.standard_normal((bc, h, q, p), dtype=np.float32))
+        b, c = (dev_t(rng.standard_normal((bc, h, q, n), dtype=np.float32))
+                for _ in range(2))
+    cs = -np.cumsum(rng.uniform(size=(bc, h, q)).astype(np.float32), -1)
+    return x, b, c, dev_t(cs, torch.float32)
+
+
+def _ssd_ok(dtype, got, want, rtol=0.0) -> tuple[float, bool]:
+    """``ssd_vs_plain``'s tolerances on (y, state)."""
+    ey, oky = _close([got[0]], [want[0]], SSD_TOL, rtol) \
+        if dtype == torch.float32 else _close(
+            [got[0]], [want[0]],
+            SSD_BF16_Y[0] * float(want[0].float().abs().max()), SSD_BF16_Y[1])
+    es, oks = _close([got[1]], [want[1]], SSD_TOL, rtol)
+    return max(ey, es), oky and oks
+
+
+def run_ssd_vs_plain(dev, rng, bw, bf16):
+    """The SSD chunk kernel against its plain version on card tensors
+    from the seed; times the served shape."""
+    from repro_torch.kernels.ssd import kernel, ref
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    cases, worst = [], 0.0
+    f32, bt = torch.float32, torch.bfloat16
+    plan = [(f"test_kernels {shape}", shape, dt, False)
+            for shape in ((4, 2, 64, 32, 64), (2, 4, 128, 128, 64),
+                          (3, 1, 32, 16, 16)) for dt in (f32, bt)]
+    plan += [("ragged Q=96", (2, 4, 96, 128, 64), dt, False)
+             for dt in (f32, bt)]
+    plan += [("mamba2-370m prefill, model views", (32, 32, 256, 128, 64),
+              bt, True)]
+    for label, shape, dtype, layout in plan:
+        args = _ssd_inputs(rng, dev, dtype, *shape, model_layout=layout)
+        got = kernel.ssd_chunk_cuda(*args)
+        want = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        rtol = 1e-6 if label.startswith(("ragged", "mamba")) else 0.0
+        err, ok = _ssd_ok(dtype, got, want, rtol)
+        worst = max(worst, err)
+        cases.append({"case": label, "BC_H_Q_N_P": list(shape),
+                      "dtype": str(dtype).split(".")[-1],
+                      "max_abs_diff_y_state": [
+                          float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want)],
+                      "max_abs_y": float(want[0].float().abs().max())})
+        check(ok, f"ssd kernel vs plain {label} {dtype}: {cases[-1]}")
+        if layout:
+            timed = args
+        else:
+            del args
+        del got, want
+    BC, H, Q, N, P = 32, 32, 256, 128, 64
+    ms = device_time_ms(lambda: kernel.ssd_chunk_cuda(*timed), 50)
+    plain_ms = device_time_ms(lambda: ref.ssd_chunk_ref(*timed), 5)
+    bound, by = bound_ms(kernel.ssd_bytes(BC, H, Q, N, P, 2, 1),
+                         kernel.ssd_flops(BC, H, Q, N, P), bw, bf16)
+    del timed
+    torch.cuda.empty_cache()
+    return {"phase": "ssd_vs_plain",
+            "tolerance": {"float32": SSD_TOL, "bfloat16_y": SSD_BF16_Y,
+                          "bfloat16_state": SSD_TOL},
+            "max_abs_err": worst, "cases": cases,
+            "timed": {"shape": "BC=32, H=32, Q=256, N=128, P=64, bf16, "
+                               "B/C stride-0 over heads, xdt the model's "
+                               "view (mamba2-370m, 4 x 2048 tokens)",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by,
+                      "bytes": kernel.ssd_bytes(BC, H, Q, N, P, 2, 1),
+                      "flops": kernel.ssd_flops(BC, H, Q, N, P)}}
+
+
+def _mamba_invariant(cfg, params, prompts):
+    """Full prefill against prefill(S-1) + one decode step: logits and
+    the last layer's SSD state."""
+    from repro_torch.runtime import serve_step
+
+    P = prompts.shape[1]
+    lf, cf = serve_step.build_prefill(cfg)(params, {"tokens": prompts})
+    _, cache = serve_step.build_prefill(cfg, max_seq=P)(
+        params, {"tokens": prompts[:, :P - 1]})
+    ld, cache = serve_step.build_decode(cfg)(
+        params, cache, {"token": prompts[:, P - 1], "pos": P - 1})
+    sf = cf["b0"]["l0"]["mixer"]["state"][-1]
+    sd = cache["b0"]["l0"]["mixer"]["state"][-1]
+    return {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
+            "batch": prompts.shape[0], "prompt": P,
+            "max_abs_diff": float((lf - ld).abs().max()),
+            "max_abs_logit": float(lf.abs().max()),
+            "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
+                                      .float().mean()),
+            "last_layer_state_max_abs_diff": float((sf - sd).abs().max()),
+            "last_layer_state_max_abs": float(sf.abs().max())}
+
+
+def run_mamba_vs_cpu(dev):
+    """mamba2-370m at full width and depth, f32: one set of weights from
+    one generator serves on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(M.schema(cfg), gen, dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 300)))
+    steps = 4
+    _counts_zero()
+    got = serve.serve(cfg, params, prompts.to(dev), steps + 1)
+    launches = _counts()
+    t0 = time.monotonic()
+    want = serve.serve(cfg, cpu_params, prompts, steps + 1)
+    cpu_s = time.monotonic() - t0
+    del cpu_params
+    scale = float(want.first_logits.abs().max())
+    errs = [float((g.cpu() - w).abs().max()) for g, w in (
+        (got.first_logits, want.first_logits),
+        (got.last_logits, want.last_logits))]
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = {k: steps * v for k, v in M.launches_per_pass(cfg, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)), "non-finite logits on the card")
+    check(max(errs) <= MAMBA_F32_TOL * scale,
+          f"card vs CPU logits: {errs} > {MAMBA_F32_TOL} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(pre == {"rmsnorm_residual": cfg.num_layers + 1,
+                  "ssd_chunk": cfg.num_layers}, f"launches_per_pass {pre}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"launches {got.launches}, predicted prefill {pre} decode {dec}")
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
+          f"counted launches {launches}")
+    inv = _mamba_invariant(cfg, params, prompts.to(dev))
+    check(inv["max_abs_diff"] <= MAMBA_F32_INV * inv["max_abs_logit"],
+          f"f32 prefill vs prefill+decode at 48 layers: {inv}")
+    return {"phase": "mamba_vs_cpu", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.compute_dtype, "batch": 2, "prompt": 300,
+            "decode_steps": steps, "max_abs_logit": scale,
+            "logit_max_abs_diff": errs,
+            "tolerance": MAMBA_F32_TOL * scale, "tokens_equal": True,
+            "launches": got.launches, "invariant": inv,
+            "invariant_tolerance_share": MAMBA_F32_INV,
+            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s}
+
+
+def run_mamba_serve(dev):
+    """mamba2-370m, full width and depth, bf16: 4 requests of 2048
+    prompt tokens and 32 greedy tokens through launch/serve.py's
+    functions."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime import serve_step
+
+    cfg = get_config("mamba2-370m")
+    B, P, G = 4, 2048, 32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated(dev) - base
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    serve.serve(cfg, params, prompts, 2)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    _counts_zero()
+    res = serve.serve(cfg, params, prompts, G)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = M.launches_per_pass(cfg, "decode")
+    steps = res.decode_steps
+    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
+    check(res.launches["prefill"] == pre,
+          f"prefill launches {res.launches['prefill']}, predicted {pre}")
+    check(per_step == dec, f"decode launches per step {per_step}, "
+                           f"predicted {dec}")
+    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
+                       for k in launches},
+          f"counted launches {launches}")
+    V = cfg.vocab_size
+    check(tuple(res.first_logits.shape) == (B, V)
+          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
+    check(bool(torch.isfinite(res.first_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()),
+          "non-finite serve logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          "token ids out of range")
+
+    on_acts = mamba_kernels_on_activations(cfg, params, prompts)
+
+    inv = _mamba_invariant(cfg, params, prompts)
+    inv["tolerance_share"] = MAMBA_INV_TOL
+    torch.cuda.empty_cache()
+    check(inv["max_abs_diff"] <= MAMBA_INV_TOL * inv["max_abs_logit"],
+          f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
+          f"{inv}")
+
+    # where the time goes
+    full = serve_step.build_prefill(cfg, max_seq=P + G)
+    decode = serve_step.build_decode(cfg)
+    _, cache = full(params, {"tokens": prompts})
+    tok = res.tokens[:, 0]
+    prof_prefill = by_kind(profile_device(
+        lambda: full(params, {"tokens": prompts}), 1), 1)
+    prof_decode = by_kind(profile_device(
+        lambda: [decode(params, cache, {"token": tok, "pos": P})
+                 for _ in range(4)], 4), 4)
+    del cache
+    total_s = res.prefill_s + res.decode_s
+    return {
+        "phase": "mamba_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+        "params": count_params(M.schema(cfg)),
+        "weights_bytes": weights_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms_per_step": res.decode_s / steps * 1e3,
+        "decode_tokens_per_s": steps * B / res.decode_s,
+        "end_to_end_tokens_per_s": G * B / total_s,
+        "prefill_tokens_per_s": P * B / res.prefill_s,
+        "peak_memory_bytes": peak,
+        "launches_per_prefill": res.launches["prefill"],
+        "launches_per_decode_step": per_step,
+        "launches": launches,
+        "kernels_on_activations": on_acts,
+        "invariant": inv,
+        "profile_prefill": prof_prefill,
+        "profile_decode_step": prof_decode,
+        "sample_ids": res.tokens[0, :12].tolist(),
+    }
+
+
+def _ssd_bounds(xdt, b, c, csum):
+    """The plain version's arithmetic on absolute values: |(C·Bᵀ)∘L|·|xdt|
+    and |B·to_end|ᵀ·|xdt| in f32, the scales of ``SSD_ACT_*``."""
+    f32 = torch.float32
+    cb = torch.einsum("...qn,...tn->...qt", c.to(f32), b.to(f32)).abs_()
+    Q = xdt.shape[-2]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=xdt.device))
+    decay = torch.where(mask, torch.exp(csum[..., :, None]
+                                        - csum[..., None, :]), 0.0)
+    xa = xdt.to(f32).abs()
+    ya = torch.einsum("...qt,...tp->...qp", cb.mul_(decay), xa)
+    to_end = torch.exp(csum[..., -1:] - csum)
+    sa = torch.einsum("...tn,...tp->...np",
+                      (b.to(f32) * to_end[..., None]).abs(), xa)
+    return ya, sa
+
+
+def mamba_kernels_on_activations(cfg, params, prompts):
+    """One prefill and one decode step of the served model, each SSD and
+    norm call also run through its plain version on the same inputs:
+    the worst error, its bound and the number of calls per kernel."""
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.ssd import ref as sr
+    from repro_torch.models import mamba2 as mm
+    from repro_torch.models import transformer as tm
+    from repro_torch.runtime import serve_step
+
+    ssd0, norm0 = mm.ssd_chunk, tm.rmsnorm_residual
+    seen = {"ssd_chunk": [], "rmsnorm_residual": []}
+
+    def ssd_chunk(xdt, b, c, csum):
+        out = ssd0(xdt, b, c, csum)
+        want = sr.ssd_chunk_ref(xdt, b, c, csum)
+        ya, sa = _ssd_bounds(xdt, b, c, csum)
+        dy = (out[0].float() - want[0].float()).abs()
+        ds = (out[1] - want[1]).abs()
+        ok_y = bool((dy <= SSD_ACT_Y[0] * want[0].float().abs()
+                     + SSD_ACT_Y[1] * ya).all())
+        ok_s = bool((ds <= SSD_ACT_STATE * sa).all())
+        seen["ssd_chunk"].append(
+            ([float(dy.max()), float(ds.max())], ok_y and ok_s,
+             [float(want[0].float().abs().max()), float(want[1].abs().max())]))
+        del want, ya, sa, dy, ds
+        return out
+
+    def rmsnorm_residual(x, res, scale, eps=1e-5):
+        out = norm0(x, res, scale, eps)
+        want = rr.rmsnorm_residual_ref(x, res, scale, eps)
+        err, ok = _close(out, want, *RMS_TOL[x.dtype])
+        seen["rmsnorm_residual"].append((err, ok, None))
+        return out
+
+    P = prompts.shape[1]
+    mm.ssd_chunk, tm.rmsnorm_residual = ssd_chunk, rmsnorm_residual
+    try:
+        _, cache = serve_step.build_prefill(cfg, max_seq=P + 1)(
+            params, {"tokens": prompts})
+        serve_step.build_decode(cfg)(params, cache,
+                                     {"token": prompts[:, -1], "pos": P})
+        torch.cuda.synchronize()
+    finally:
+        mm.ssd_chunk, tm.rmsnorm_residual = ssd0, norm0
+    want = {"ssd_chunk": cfg.num_layers,
+            "rmsnorm_residual": 2 * (cfg.num_layers + 1)}
+    out = {"tolerance": {"ssd_chunk_y": SSD_ACT_Y,
+                         "ssd_chunk_state": SSD_ACT_STATE,
+                         "rmsnorm_residual": RMS_TOL[cfg.cdtype]}}
+    for name, calls in seen.items():
+        out[name] = {"calls": len(calls),
+                     "max_abs_diff": [e for e, _, _ in calls],
+                     "bad_calls": [i for i, c in enumerate(calls)
+                                   if not c[1]]}
+        if name == "ssd_chunk":
+            out[name]["max_abs_y_state"] = [m for _, _, m in calls]
+    emit({"phase": "mamba_kernels_on_activations", **out})
+    for name, calls in seen.items():
+        check(len(calls) == want[name],
+              f"{name}: {len(calls)} calls checked, expected {want[name]}")
+        check(not out[name]["bad_calls"], f"{name} vs plain on the served "
+                                         f"activations: {out[name]}")
+    worst = {"ssd_chunk": max(max(e) for e, _, _ in seen["ssd_chunk"]),
+             "rmsnorm_residual": max(e for e, _, _ in
+                                     seen["rmsnorm_residual"])}
+    return {name: {"calls": len(seen[name]), "max_abs_diff": worst[name]}
+            for name in seen} | {"tolerance": out["tolerance"]}
+
+
+def ssd_kernel_entry(ssd, mserved):
+    """The kernels-line entry of the SSD chunk kernel, timed at
+    mamba2-370m's served prefill shape in ``ssd_vs_plain``; launches from
+    the mamba_serve phase's run."""
+    t = ssd["timed"]
+    return {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:51",
+        "launches": mserved["launches"]["ssd_chunk"],
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes the masked-decay "
+                   "chunk and its state",
+        "shape": t["shape"],
+        "launches_per_prefill": mserved["launches_per_prefill"]["ssd_chunk"],
+        "max_abs_err_served": mserved["kernels_on_activations"][
+            "ssd_chunk"]["max_abs_diff"],
+    }
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ One ``ModelConfig`` describes an architecture.  The fields and their
 defaults are the JAX package's (``repro/configs/base.py``), so a config
 reads the same in both packages; only ``pdtype`` / ``cdtype`` map the
 dtype strings to ``torch`` dtypes here.  ``MoEConfig``, ``SSMConfig``
-and ``MLAConfig`` are plain copies: the port's model raises
-``NotImplementedError`` for a config that needs them.
+and ``MLAConfig`` are plain copies; the port's model serves Mamba-2
+(``SSMConfig``) and raises ``NotImplementedError`` for a config that
+needs MoE or MLA.
 """
 from __future__ import annotations
 

@@ -1,0 +1,142 @@
+"""Python wrapper of the Hopper SSD intra-chunk kernel
+(``csrc/ssd_chunk.cu``).
+
+``ssd_chunk_cuda`` replaces the JAX package's ``ssd_chunk_pallas``
+(``kernels/ssd/kernel.py:51``): per (chunk, head) the intra-chunk
+``y = ((C·Bᵀ)∘L)·xdt`` and the chunk-end state ``Bᵀ·diag(to_end)·xdt``,
+in one launch whose CTAs take 64 rows of q (y) or of n (state).  bf16
+runs on the tensor cores (``mma.sync``), f32 on the CUDA cores.  It is
+bound by memory; ``ssd_bytes`` and ``ssd_flops`` give its least traffic
+and work.
+
+The wrapper checks what the kernel takes and raises on anything else,
+allocates the outputs, launches on PyTorch's current stream without
+synchronising, raises if the launch is refused, and counts launches in
+its ``launches`` attribute.  Inputs may carry any strides with a
+contiguous last axis (in bf16 16-byte aligned, strides a multiple of
+8): the model's (B, nc, Q, H, ·) activations go in as (B·nc, H, Q, ·)
+views, and B and C of one group as a stride-0 head axis.  y is
+(BC, H, Q, P) laid out as (BC, Q, H, P) in memory, so the model's
+transpose back is free; the state is contiguous f32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128)
+#: the largest d_state whose f32 tiles fit one CTA's shared memory
+MAX_STATE = 256
+#: the kernel's grid.y and grid.z (heads, chunks) limit
+MAX_GRID_YZ = 65535
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signatures."""
+    lib = build.load("ssd_chunk")
+    lib.ssd_chunk_launch.argtypes = (
+        [_VOIDP] * 6 + [_INT] * 5 + [_LL] * 15 + [_INT, _VOIDP])
+    lib.ssd_chunk_launch.restype = _INT
+    lib.ssd_chunk_error_string.argtypes = [_INT]
+    lib.ssd_chunk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ssd_bytes(bc: int, h: int, q: int, n: int, p: int, itemsize: int,
+              groups: int) -> int:
+    """Least HBM traffic of one call: read xdt, B and C once per group
+    and the f32 csum; write y and the f32 state."""
+    return (2 * bc * h * q * p * itemsize + 2 * bc * groups * q * n * itemsize
+            + 4 * bc * h * q + 4 * bc * h * n * p)
+
+
+def ssd_flops(bc: int, h: int, q: int, n: int, p: int) -> int:
+    """Multiply-adds ×2 over the (q, t) pairs the causal mask keeps, for
+    C·Bᵀ and (C·Bᵀ∘L)·xdt, plus the state's Q·N·P."""
+    pairs = q * (q + 1) // 2
+    return 2 * bc * h * (pairs * (n + p) + q * n * p)
+
+
+def ssd_chunk_cuda(
+    xdt: torch.Tensor,    # (BC, H, Q, P) f32 or bf16, CUDA
+    b: torch.Tensor,      # (BC, H, Q, N) same dtype
+    c: torch.Tensor,      # (BC, H, Q, N) same dtype
+    csum: torch.Tensor,   # (BC, H, Q) f32
+):
+    """(y_intra (BC, H, Q, P) in xdt's dtype, state (BC, H, N, P) f32)
+    on the card."""
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_cuda needs CUDA tensors, got "
+                         f"{xdt.device}")
+    if xdt.ndim != 4:
+        raise ValueError(f"xdt must be (BC, H, Q, P), got "
+                         f"{tuple(xdt.shape)}")
+    BC, H, Q, P = xdt.shape
+    if xdt.dtype not in DTYPE_CODES:
+        raise TypeError(f"xdt has dtype {xdt.dtype}; the kernel takes "
+                        f"{sorted(map(str, DTYPE_CODES))}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"head dim {P} not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if b.ndim != 4:
+        raise ValueError(f"b must be (BC, H, Q, N), got {tuple(b.shape)}")
+    N = b.shape[-1]
+    if N <= 0 or N % 16 or N > MAX_STATE:
+        raise ValueError(f"d_state {N} not supported; the kernel takes "
+                         f"multiples of 16 up to {MAX_STATE}")
+    if BC > MAX_GRID_YZ or H > MAX_GRID_YZ:
+        raise ValueError(f"BC={BC}, H={H}: the grid takes at most "
+                         f"{MAX_GRID_YZ} of each")
+    for name, t, dtype, shape in (
+            ("b", b, xdt.dtype, (BC, H, Q, N)),
+            ("c", c, xdt.dtype, (BC, H, Q, N)),
+            ("csum", csum, torch.float32, (BC, H, Q))):
+        if t.device != xdt.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{xdt.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    for name, t in (("xdt", xdt), ("b", b), ("c", c)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along its last axis")
+        # the bf16 kernel moves rows in 16-byte loads of 8 values
+        if xdt.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"{name} must be 16-byte aligned with strides "
+                             f"a multiple of 8 in bf16")
+    y = torch.empty((BC, Q, H, P), dtype=xdt.dtype,
+                    device=xdt.device).transpose(1, 2)
+    state = torch.empty((BC, H, N, P), dtype=torch.float32,
+                        device=xdt.device)
+    if BC == 0 or H == 0 or Q == 0:
+        return y, state.zero_()
+    lib = _lib()
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    with torch.cuda.device(xdt.device):
+        err = lib.ssd_chunk_launch(
+            xdt.data_ptr(), b.data_ptr(), c.data_ptr(), csum.data_ptr(),
+            y.data_ptr(), state.data_ptr(), BC, H, Q, N, P,
+            *xdt.stride()[:3], *b.stride()[:3], *c.stride()[:3],
+            *csum.stride(), *y.stride()[:3], DTYPE_CODES[xdt.dtype],
+            stream)
+    if err != 0:
+        msg = lib.ssd_chunk_error_string(err).decode()
+        raise RuntimeError(f"ssd_chunk launch failed: {msg} ({err})")
+    ssd_chunk_cuda.launches += 1
+    return y, state
+
+
+ssd_chunk_cuda.launches = 0

@@ -2,8 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --smoke --device cpu
 
-The JAX package's ``launch/serve.py`` on one card.  Weights come from
+The JAX package's ``launch/serve.py`` on one card, for any architecture
+the port serves (the decode cache is a KV cache for attention layers and
+the O(1) conv tails and SSD state for mamba layers).  Weights come from
 a seeded ``torch.Generator`` on the device, prompts and samples from a second one.  ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
 the plain versions of the kernels.
@@ -21,12 +25,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_residual_cuda
+from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
 from repro_torch.models import model as M
 from repro_torch.models.params import init_params
 from repro_torch.runtime import serve_step
 
 KERNELS = {"flash_attention": flash_attention_cuda,
-           "rmsnorm_residual": rmsnorm_residual_cuda}
+           "rmsnorm_residual": rmsnorm_residual_cuda,
+           "ssd_chunk": ssd_chunk_cuda}
 
 
 def make_params(cfg: ModelConfig, device, seed: int = 0):
@@ -49,7 +55,8 @@ class ServeResult:
     prefill_s: float
     decode_s: float              # all gen - 1 decode steps
     decode_steps: int
-    launches: dict               # {"prefill"|"decode": {kernel: count}}
+    launches: dict               # {"prefill"|"decode": {kernel: count}},
+                                 # the kernels of the config's layers
 
 
 def _sync(device: torch.device) -> None:
@@ -93,11 +100,12 @@ def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
     _sync(dev)
     t_decode = time.monotonic() - t0
     c2 = _counts()
+    names = M.launches_per_pass(cfg, "prefill")
     return ServeResult(
         tokens=torch.stack(toks, dim=1), first_logits=logits, last_logits=lg,
         prefill_s=t_prefill, decode_s=t_decode, decode_steps=gen - 1,
-        launches={"prefill": {k: c1[k] - c0[k] for k in KERNELS},
-                  "decode": {k: c2[k] - c1[k] for k in KERNELS}},
+        launches={"prefill": {k: c1[k] - c0[k] for k in names},
+                  "decode": {k: c2[k] - c1[k] for k in names}},
     )
 
 

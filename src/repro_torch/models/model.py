@@ -1,20 +1,20 @@
 """Public model API of the port: schema, prefill and decode for the
-dense GQA decoder.
+dense GQA decoder and the Mamba-2 (SSD) stack.
 
 The JAX package's ``models/model.py`` for the serving path, as plain
 functions on a parameter dict laid out as the JAX pytree.  prefill runs
-the flash-attention kernel once per layer and the fused residual-norm
-kernel ``2·layers + 1`` times (``launches_per_pass``); a decode step
-runs the norm kernel as often and attention as torch ops.
+the flash-attention kernel once per attention layer, the SSD chunk
+kernel once per mamba layer and the fused residual-norm kernel at every
+seam (``launches_per_pass``); a decode step runs the norm kernel as
+often, and attention and the O(1) state update as torch ops.
 
 Matrices and embeddings are declared in the compute dtype, norm scales
 in the parameter dtype.  The JAX package keeps every leaf in the
 parameter dtype and casts each use (``w.astype(dt)``); the values the
 matmuls see are the same.
 
-Configs that need MoE, MLA, Mamba-2, an encoder, M-RoPE, sinusoidal
-positions, embedding inputs or the MTP head raise
-``NotImplementedError``.
+Configs that need MoE, MLA, an encoder, M-RoPE, sinusoidal positions,
+embedding inputs or the MTP head raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot
     serve."""
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
-        ("mla", cfg.mla is not None), ("cross_attention", cfg.cross_attention),
+        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("cross_attention", cfg.cross_attention),
         ("encoder_layers", cfg.encoder_layers > 0), ("mtp", cfg.mtp),
         ("rope_type=mrope", cfg.rope_type == "mrope"),
         ("pos_embed=sinusoidal", cfg.pos_embed == "sinusoidal"),
@@ -84,15 +84,31 @@ def param_counts(cfg: ModelConfig) -> tuple[int, int]:
     return total, total
 
 
+def _layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
+    return [kind for b in cfg.blocks for _ in range(b.repeat)
+            for kind in b.pattern]
+
+
 def launches_per_pass(cfg: ModelConfig, phase: str) -> dict[str, int]:
-    """Kernel launches of one prefill or one decode step: flash
-    attention once per layer in prefill, the fused residual-norm at
-    every seam (two per layer and the final norm) in both."""
-    layers = cfg.block_layers()
+    """Kernel launches of one prefill or one decode step, counted from
+    the layer pattern, for the kernels the config's layers run: the
+    fused residual-norm at every seam (``norm1``, ``norm2`` where the
+    layer has an MLP, and the final norm) in both phases; in prefill,
+    flash attention once per attention layer and the SSD chunk kernel
+    once per mamba layer (decode runs neither)."""
     if phase not in ("prefill", "decode"):
         raise ValueError(f"phase {phase!r}")
-    return {"flash_attention": layers if phase == "prefill" else 0,
-            "rmsnorm_residual": 2 * layers + 1}
+    kinds = _layer_kinds(cfg)
+    out = {}
+    n_attn = sum(mixer == "attn" for mixer, _ in kinds)
+    n_mamba = sum(mixer == "mamba" for mixer, _ in kinds)
+    if n_attn:
+        out["flash_attention"] = n_attn if phase == "prefill" else 0
+    out["rmsnorm_residual"] = sum(1 + (mlp != "none")
+                                  for _, mlp in kinds) + 1
+    if n_mamba:
+        out["ssd_chunk"] = n_mamba if phase == "prefill" else 0
+    return out
 
 
 # ---------------------------------------------------------------------------

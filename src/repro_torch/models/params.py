@@ -6,9 +6,12 @@ are the same nested dict with tensors at the leaves, so a JAX parameter
 pytree and the port's have one layout (``models/convert.py``).  Each
 leaf is drawn with the JAX package's rule: a fan-in normal over axis -2
 of the unstacked shape (the last axis for a vector), ones for scales,
-zeros for caches, and a fixed-std normal for the embeddings.  Values
-come from an explicit ``torch.Generator`` on an explicit device; they
-do not equal JAX's draws.
+zeros for caches, and a fixed-std normal for the embeddings.  The two
+Mamba-2 inits the JAX schema gives as callables are kinds here too:
+``a_log`` is ``log(1..H)`` (deterministic, equal to JAX's), ``dt_bias``
+the inverse softplus of a log-uniform draw in ``[dt_min, dt_max]``.
+Values come from an explicit ``torch.Generator`` on an explicit device;
+the random ones do not equal JAX's draws.
 
 Sharding (``AxisRules``, ``shard``) has no meaning on one card and is
 not ported; a spec keeps its axis names only so the schemas read the
@@ -23,6 +26,7 @@ import torch
 
 #: init kinds
 FAN_IN, ZEROS, ONES, NORMAL = "fan_in", "zeros", "ones", "normal"
+A_LOG, DT_BIAS = "a_log", "dt_bias"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +38,7 @@ class ParamSpec:
     dtype: torch.dtype = torch.float32
     init: str = FAN_IN
     std: float = 0.0          # NORMAL only
+    dt_range: tuple[float, float] = (0.0, 0.0)   # DT_BIAS only: (min, max)
     stacked: int = 0          # leading stacked-layer axes (fan-in skips them)
 
     def __post_init__(self):
@@ -62,6 +67,16 @@ def scale_param(shape, axes, dtype=torch.float32) -> ParamSpec:
 
 def normal_param(shape, axes, std, dtype=torch.float32) -> ParamSpec:
     return ParamSpec(tuple(shape), tuple(axes), dtype, NORMAL, float(std))
+
+
+def a_log_param(shape, axes, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, A_LOG)
+
+
+def dt_bias_param(shape, axes, dt_min, dt_max,
+                  dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, DT_BIAS,
+                     dt_range=(float(dt_min), float(dt_max)))
 
 
 def is_spec(x) -> bool:
@@ -110,6 +125,20 @@ def init_leaf(spec: ParamSpec, gen: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == ONES:
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == A_LOG:
+        # log(1..H) along the last axis, the same for every stacked layer
+        h = torch.arange(1, spec.shape[-1] + 1, dtype=torch.float32,
+                         device=device)
+        return torch.log(h).to(spec.dtype).expand(spec.shape).contiguous()
+    if spec.init == DT_BIAS:
+        # dt = exp(u·(log dt_max − log dt_min) + log dt_min), u ~ U[0, 1);
+        # the bias is softplus⁻¹(dt) = dt + log(−expm1(−dt))
+        lo, hi = (torch.log(torch.tensor(v, dtype=torch.float32))
+                  for v in spec.dt_range)
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (hi - lo).to(device) + lo.to(device))
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
     std = fan_in_std(spec) if spec.init == FAN_IN else spec.std
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)

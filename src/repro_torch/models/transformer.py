@@ -1,4 +1,5 @@
-"""Decoder stack for the dense ``("attn", "dense")`` layer.
+"""Decoder stack for the dense ``("attn", "dense")`` and the Mamba-2
+``("mamba", "none")`` layers.
 
 The JAX package's ``models/transformer.py``, with a Python loop over the
 stacked layers in place of ``lax.scan`` / ``fori_loop``.  Parameters
@@ -8,16 +9,18 @@ leading axis, and layer ``i`` is the view ``a[i]`` of every leaf.
 The residual → norm seams are fused.  Where the JAX layer computes
 ``x = x + y; h = apply_norm(norm, x)``, the port makes one
 ``rmsnorm_residual(x, y, scale)`` call (the Hopper kernel on the card)
-that returns ``(h, x)``.  A layer therefore returns its MLP output
-un-added, and the next layer's ``norm1`` adds it; the last layer's is
-added by the model's ``final_norm``.  Layer 0's ``norm1`` calls the
-kernel with a zero residual: ``x + 0`` is ``x`` exactly, so that norm
-equals ``apply_norm``, and every norm of the path runs on the one
-kernel — ``2·layers + 1`` launches per pass — for one extra read of a
+that returns ``(h, x)``.  A layer therefore returns its last output (the
+MLP's, or the mixer's in a layer without an MLP) un-added, and the next
+layer's ``norm1`` adds it; the last layer's is added by the model's
+``final_norm``.  Layer 0's ``norm1`` calls the kernel with a zero
+residual: ``x + 0`` is ``x`` exactly, so that norm equals
+``apply_norm``, and every norm of the path runs on the one kernel —
+``Σ(1 + [mlp ≠ none]) + 1`` launches per pass — for one extra read of a
 zero tensor.
 
-Other mixers (MLA, Mamba-2), MoE and cross-attention raise
-``NotImplementedError``.
+A mamba layer has ``norm1`` and ``mixer`` and no ``norm2`` / ``mlp``,
+as in the JAX package.  Other mixers (MLA), MoE and cross-attention
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,15 +29,20 @@ import torch
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_residual
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.layers import apply_mlp, mlp_schema, norm_schema
 from repro_torch.models.params import stack_schema, tree_map
 
 
-def _dense_only(mixer: str, mlp: str) -> None:
-    if (mixer, mlp) != ("attn", "dense"):
+#: the (mixer, mlp) layer kinds the port serves
+LAYER_KINDS = (("attn", "dense"), ("mamba", "none"))
+
+
+def _served(mixer: str, mlp: str) -> None:
+    if (mixer, mlp) not in LAYER_KINDS:
         raise NotImplementedError(
-            f"layer ({mixer!r}, {mlp!r}): the port serves ('attn', "
-            f"'dense') layers only")
+            f"layer ({mixer!r}, {mlp!r}): the port serves {LAYER_KINDS} "
+            f"layers only")
 
 
 def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
@@ -57,7 +65,9 @@ def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
 
 
 def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
-    _dense_only(mixer, mlp)
+    _served(mixer, mlp)
+    if mixer == "mamba":
+        return {"norm1": norm_schema(cfg), "mixer": mamba2.mamba_schema(cfg)}
     return {
         "norm1": norm_schema(cfg),
         "mixer": attn.attn_schema(cfg),
@@ -68,8 +78,11 @@ def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
 
 def layer_cache_schema(cfg: ModelConfig, mixer: str, batch: int,
                        max_seq: int):
+    if mixer == "mamba":
+        return {"mixer": mamba2.mamba_cache_schema(cfg, batch)}
     if mixer != "attn":
-        raise NotImplementedError(f"mixer {mixer!r}: the port has attn only")
+        raise NotImplementedError(
+            f"mixer {mixer!r}: the port has attn and mamba only")
     return {"mixer": attn.attn_cache_schema(cfg, batch, max_seq)}
 
 
@@ -78,11 +91,16 @@ def apply_layer_full(
     rope_cs, causal=True, cache=None,
 ):
     """Prefill layer.  ``x`` (B,S,d) is the residual stream before the
-    previous layer's MLP output ``res`` is added.  Returns ``(x, y)``:
-    the stream after this layer's attention residual, and this layer's
-    MLP output, which the next fused norm adds."""
-    _dense_only(mixer, mlp)
+    previous layer's last output ``res`` is added.  Returns ``(x, y)``:
+    the stream after this layer's attention residual (after ``res`` in a
+    mamba layer), and this layer's MLP output (its mixer output), which
+    the next fused norm adds."""
+    _served(mixer, mlp)
     h, x = fused_norm(cfg, p["norm1"], x, res)
+    if mixer == "mamba":
+        return x, mamba2.apply_mamba_full(
+            cfg, p["mixer"], h,
+            cache=None if cache is None else cache["mixer"])
     y = attn.apply_attn_full(
         cfg, p["mixer"], h, rope_cs=rope_cs, causal=causal,
         cache=None if cache is None else cache["mixer"],
@@ -97,8 +115,10 @@ def apply_layer_decode(
 ):
     """Decode layer.  x and res (B,d), as in ``apply_layer_full``; the
     layer's cache is updated in place."""
-    _dense_only(mixer, mlp)
+    _served(mixer, mlp)
     h, x = fused_norm(cfg, p["norm1"], x, res)
+    if mixer == "mamba":
+        return x, mamba2.apply_mamba_decode(cfg, p["mixer"], h, cache["mixer"])
     y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
                                rope_cs=rope_cs)
     h2, x = fused_norm(cfg, p["norm2"], x, y)
