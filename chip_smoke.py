@@ -43,7 +43,8 @@ Phases, each printing one JSON line:
     (2e-2, 2^-8) in bf16 on both outputs.
 11. ``attention_vs_plain``: the flash-attention kernel against its
     plain version (the shapes of ``tests/test_kernels.py``, non-causal,
-    Yi-6B's prefill in the model's layout, ragged S=300): atol 2e-5 in
+    Yi-6B's prefill in the model's layout, ragged S=300, S=1 and S=64
+    at D=32 and 128, non-causal in the model's layout): atol 2e-5 in
     f32, 3e-2 in bf16.
 12. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
@@ -80,7 +81,10 @@ Phases, each printing one JSON line:
     its plain version on the served activations, and the 48-layer bf16
     invariant within 0.1·max|logit| under the init rule itself.
 17. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
-    kernel with its time, launches, error, bound and plain-version time.
+    kernel with its time, launches, error, bound and plain-version time;
+    flash attention also at a long prompt (``ms_long``,
+    ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
+    its bf16 ``design``.
 
 Then the card's ``nvidia-smi`` line, and last the contract line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -119,6 +123,10 @@ PEAKS = [
 RMS_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2e-2, 2.0 ** -8)}
 #: attention atol by dtype (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: the bf16 flash kernel is timed at Yi-6B's prefill and at a long
+#: prompt, (B, H, KH, S, D), causal, where the work is compute-bound
+FLASH_SHAPE = (4, 32, 4, 512, 128)
+FLASH_SHAPE_LONG = (1, 32, 4, 4096, 128)
 #: serve_vs_cpu: f32 logits on the card within this share of max|logit|
 SERVE_F32_TOL = 1e-3
 #: flash attention on the served model's activations: |got - want| <=
@@ -1028,6 +1036,10 @@ def run_attention_vs_plain(dev, rng):
               True, True)]
     plan += [("ragged S=300", (1, 8, 2, 300, 128), dt, True, False)
              for dt in (f32, bf16)]
+    plan += [(f"S={s}", (2, 4, 2, s, d), dt, True, False)
+             for s in (1, 64) for d in (32, 128) for dt in (f32, bf16)]
+    plan += [("non-causal, model layout", (2, 32, 4, 300, 128), bf16,
+              False, True)]
     for label, (b, h, kh, s, d), dtype, causal, layout in plan:
         q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout)
         want = ref.attention_ref(q, k, v, causal=causal)
@@ -1324,52 +1336,77 @@ def kernels_on_activations(cfg, params, prompts):
             for name, calls in seen.items()} | {"tolerance": out["tolerance"]}
 
 
-def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
-    """The kernels-line entries of the two LM kernels, timed at Yi-6B's
-    shapes; launches from the serve phase's run."""
+def flash_timing(dev, shape, bw, peak, g) -> dict:
+    """The bf16 flash kernel at ``shape`` = (B, H, KH, S, D), causal, on
+    the model's (B, S, H, D) views from ``g``: held to its plain version
+    within ATTN_TOL, its device ms, the plain version's, SDPA's (the
+    yardstick, never called by the port) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    B, H, KH, S, D = shape
+    bt = torch.bfloat16
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device=dev)
+               .to(bt).transpose(1, 2) for n in (H, KH, KH))
+    want = fr.attention_ref(q, k, v)
+    err, ok = _close([fk.flash_attention_cuda(q, k, v)], [want],
+                     ATTN_TOL[bt])
+    check(ok, f"flash at {shape}: {err} > {ATTN_TOL[bt]}")
+    del want
+    reps = max(5, 50 * 512 // S)
+    ms = device_time_ms(lambda: fk.flash_attention_cuda(q, k, v), reps)
+    plain_ms = device_time_ms(lambda: fr.attention_ref(q, k, v),
+                              10 if S <= 512 else 3)
+    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps)
+    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2),
+                       fk.attention_flops(B, H, S, D, True), bw, peak)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": fb, "bound_by": fby, "max_abs_err": err}
+
+
+def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
+    """The kernels-line entries of the two LM kernels, timed at Yi-6B's
+    shapes; launches from the serve phase's run."""
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.rmsnorm import ref as rr
     from repro_torch.kernels.stencil.tune import device_time_ms
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    B, H, KH, S, D = 4, 32, 4, 512, 128
+    B, H, KH, S, D = FLASH_SHAPE
     bt = torch.bfloat16
-    q = torch.randn((B, S, H, D), generator=g, device=dev).to(bt)
-    k = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt)
-    v = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # the model's views
-    err, _ = _close([fk.flash_attention_cuda(q, k, v)],
-                    [fr.attention_ref(q, k, v)], ATTN_TOL[bt])
-    check(err <= ATTN_TOL[bt], f"flash at Yi-6B shape: {err}")
-    ms = device_time_ms(lambda: fk.flash_attention_cuda(q, k, v), 50)
-    plain_ms = device_time_ms(lambda: fr.attention_ref(q, k, v), 10)
-    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 50)
-    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2),
-                       fk.attention_flops(B, H, S, D, True), bw, bf16)
+    main = flash_timing(dev, FLASH_SHAPE, bw, bf16, g)
+    long = flash_timing(dev, FLASH_SHAPE_LONG, bw, bf16, g)
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": served["launches"]["flash_attention"],
-        "max_abs_err": max(att["max_abs_err"], err),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": fb, "bound_by": fby,
-        "library_ms": lib_ms,
+        "max_abs_err": max(att["max_abs_err"], main["max_abs_err"],
+                           long["max_abs_err"]),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
         "shape": "B=4, H=32, KH=4, S=512, D=128, bf16, causal (Yi-6B "
                  "prefill, the model's strided views)",
+        "design": fk.DESIGN,
+        "ms_long": long["ms"], "library_ms_long": long["library_ms"],
+        "bound_ms_long": long["bound_ms"], "bound_by_long": long["bound_by"],
+        "plain_ms_long": long["plain_ms"],
+        "shape_long": "B=1, H=32, KH=4, S=4096, D=128, bf16, causal (the "
+                      "model's strided views)",
         "launches_per_prefill": served["launches_per_prefill"][
             "flash_attention"],
         "max_abs_err_served": served["kernels_on_activations"][
             "flash_attention"]["max_abs_diff"],
     }
-    del q, k, v
 
     N, d = B * S, 4096
     x = torch.randn((N, d), generator=g, device=dev).to(bt)

@@ -91,10 +91,46 @@ def _unflatten(target, values: dict[str, Any], prefix: tuple = ()):
     return values[_SEP.join(prefix) or "root"]
 
 
-def _to_host(leaf) -> np.ndarray:
+#: tensor dtypes numpy lacks, by the names the JAX package (ml_dtypes)
+#: gives them; such a leaf is stored as its raw bytes, ``uint{8·itemsize}``,
+#: with the true name in the manifest, as the JAX package stores it
+_RAW_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+}
+_RAW_NAMES = {dt: name for name, dt in _RAW_DTYPES.items()}
+#: signed views of the same widths: torch's unsigned types are partial
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16}
+
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """(array to store, true dtype name for the manifest)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        name = _RAW_NAMES.get(t.dtype)
+        if name is None:
+            arr = t.numpy()
+            return arr, str(arr.dtype)
+        size = t.element_size()
+        raw = t.view(_INT_OF_SIZE[size]).numpy()
+        return raw.view(np.dtype(f"u{size}")), name
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype: str, key: str) -> torch.Tensor:
+    """The tensor of a stored leaf whose manifest names ``dtype``."""
+    if str(arr.dtype) == dtype:
+        return torch.from_numpy(arr)
+    tdt = _RAW_DTYPES.get(dtype)
+    if tdt is None or arr.dtype.kind != "u" \
+            or arr.dtype.itemsize != tdt.itemsize:
+        raise TypeError(
+            f"leaf {key} is stored as {dtype}, which "
+            f"has no numpy dtype here")
+    signed = arr.view(np.dtype(f"i{arr.dtype.itemsize}"))
+    return torch.from_numpy(signed).view(tdt)
 
 
 class CheckpointManager:
@@ -163,13 +199,13 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "extra": extra, "leaves": {}}
-        for key, arr in host.items():
+        for key, (arr, dtype) in host.items():
             fname = f"{key}.npy"
             np.save(tmp / fname, arr, allow_pickle=False)
             manifest["leaves"][key] = {
                 "file": fname,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 # content checksum of the serialized bytes — what
                 # restore() verifies before trusting this generation
                 "crc32": zlib.crc32((tmp / fname).read_bytes()),
@@ -273,11 +309,7 @@ class CheckpointManager:
             if key not in flat_target:
                 continue
             arr = np.load(d / meta["file"], allow_pickle=False)
-            if str(arr.dtype) != meta["dtype"]:
-                raise TypeError(
-                    f"leaf {key} is stored as {meta['dtype']}, which "
-                    f"has no numpy dtype here")
-            out[key] = torch.from_numpy(arr)
+            out[key] = _from_host(arr, meta["dtype"], key)
         missing = set(flat_target) - set(out)
         if missing:
             raise KeyError(f"checkpoint at step {step} missing leaves: "

@@ -12,7 +12,7 @@
 // last axis contiguous), so the model's (B, S, H, D) projections are
 // read in place.
 //
-// Design (a simple kernel that is right; speed comes later):
+// Design:
 //   * D is 32, 64 or 128.  One CTA per (b, h, 64-row query tile); the
 //     grid runs the query tiles in reverse, so the longest causal rows
 //     start first.  A loop
@@ -29,21 +29,55 @@
 //     of a row with shuffles.  Q and K are staged transposed (d-major),
 //     P transposed, V row-major, so the inner loops read float4s
 //     (float2s of V at D = 32).
-//   * bf16 (flash_mma_bf16_kernel): tensor cores via mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate).  4 warps, 16 query rows each;
-//     the Q fragments stay in registers, S = Q K^T lands in the mma
-//     accumulator layout, which is reused as the A operand of P V after
-//     rounding P to bf16 (as the plain version rounds its probabilities
-//     to q's dtype).  K is staged row-major and V transposed in shared
-//     memory, rows padded by 8 elements so fragment loads are free of
-//     bank conflicts.  wgmma, TMA and warp specialisation come later.
+//   * bf16 (flash_fwd_bf16_kernel), for Hopper: one warpgroup (128
+//     threads, 16 query rows a warp) per CTA.
+//     - Ring: thread 0 issues TMA copies (cp.async.bulk.tensor.4d, maps
+//       over (d, s, head, b) with the tensors' own strides, built on the
+//       host through cudaGetDriverEntryPoint, passed __grid_constant__)
+//       of the Q tile and of the K and V tiles into a 2-stage K ring and
+//       a 2-stage V ring; each tile completes on its own mbarrier, so
+//       tile t + 1 is in flight while tile t is in the math and the
+//       compute warps spend no instructions on copies.  The hardware
+//       zero-fills rows >= S; keys >= S are still masked, as a zero key
+//       scores 0, not -inf.  (16-byte cp.async copies into the same
+//       ring took 0.0461 ms against TMA's 0.0384 at Yi-6B's prefill on
+//       an H100 80GB HBM3 at 700 W.)
+//     - S = Q K^T: wgmma m64n64k16 with Q and K in 128-byte-swizzled
+//       shared memory (64-byte at D = 32); K's row-major (key, d) tile
+//       is K-major for K^T.
+//     - O += P V: wgmma m64nDk16 with A = P from registers (the score
+//       accumulator rounded to bf16 and packed, mma.sync's A layout)
+//       and B = V read row-major from shared memory with the transpose
+//       bit: no transposed copy of V and no fragment loads.
+//     - Schedule (as FlashAttention-3 does within a warpgroup): S(t)
+//       and P V(t-1) are issued back to back, and the softmax of tile t
+//       runs while P V(t-1) finishes; every wgmma wait in the loop is
+//       unconditional, so ptxas keeps them asynchronous.  One
+//       __syncthreads per key tile tells thread 0 that the stages it
+//       refills are free.
+//     - Roundings: P is rounded to bf16 before P V and O is divided by
+//       l (times 1/l) once at the end, as before; exp is ex2.approx.ftz
+//       of a fused scale-and-subtract in log2 units.
+//     - Resources at D = 128: 80 KB of tiles (Q 16 KB + 2 x (K 16 KB +
+//       V 16 KB)) + 1 KB of alignment slack + 40 bytes of barriers, 138
+//       registers a thread (ptxas; 106 at D = 64, 90 at D = 32), so 2
+//       CTAs per SM by shared memory; at Yi-6B's prefill 1024 CTAs run
+//       in 3.9 waves of 264.
 //
 // Bound: at Yi-6B's prefill (B=4, H=32, KH=4, S=512, D=128, bf16,
 // causal) the least work is 4*B*H*D*S(S+1)/2 = 8.6 GFLOP (8.7 us at the
 // bf16 tensor peak) and the least traffic reads q, k, v and writes o
 // once: 38 MB (11.3 us at 3.35 TB/s), so bytes bound it.  Each CTA
 // reads its kv head's tiles up to the diagonal, so k and v are read
-// ~S/128 * H/KH times over; those reads mostly hit the 50 MB L2.
+// ~S/128 * H/KH times over (~147 MB from L2 at that shape).  What holds
+// the kernel back is the work between the products (softmax, rescale,
+// waits) in a single warpgroup with 2 of them per SM.  Tried and
+// dropped: a third ring stage (slower), and two warpgroups sharing
+// 128-row query tiles (half the L2 reads), which needed 186 registers
+// with cp.async copies (1 CTA per SM) and spilled when capped at 128
+// (2 CTAs per SM); both ran slower.
+#include <cuda.h>          // CUtensorMap and its enums (no -lcuda: the
+                           // encoder comes from cudaGetDriverEntryPoint)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -229,22 +263,73 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// ------------------------------------------------------- bf16, mma.sync
+// ------------------------------------------------------------ bf16 tiles
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int LDV = BK + 8;       // row stride of the transposed V tile
+constexpr int FA_THREADS = 128;   // one warpgroup: 4 warps x 16 query rows
+constexpr int STAGES = 2;   // K/V ring depth (key tile t in stage t & 1)
+
+// A 64-row bf16 tile of D columns is stored as D*2/RB column blocks of
+// 64 rows x RB bytes (RB = 128, or 64 at D = 32), one TMA box each,
+// swizzled as TMA's SWIZZLE_128B / SWIZZLE_64B write them and wgmma's
+// B128 / B64 layouts read them: the 16-byte chunk index within a row
+// is XORed with bits 7.. of the byte offset.  Tiles start on 1024-byte
+// boundaries.
+template <int D>
+struct TileShape {
+    static constexpr int RB = 2 * D < 128 ? 2 * D : 128;  // row bytes
+    static constexpr int BLOCK = 64 * RB;   // bytes of one column block
+    static constexpr int BYTES = 64 * D * 2;
+    static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;  // B128 / B64
+};
 
 template <int D>
-constexpr size_t mma_smem_bytes()
+constexpr size_t fa_smem_bytes()
 {
-    // Qs (BQ, D+8), Ks (BK, D+8), Vt (D, BK+8), bf16
-    return 2 * ((size_t)BQ * (D + 8) + (size_t)BK * (D + 8) +
-                (size_t)D * LDV);
+    // 1024 bytes of alignment slack, Q, STAGES x (K, V)
+    return 1024 + (size_t)(1 + 2 * STAGES) * TileShape<D>::BYTES;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p)
+__device__ __forceinline__ void mbar_init(uint32_t bar)
 {
-    return *reinterpret_cast<const uint32_t*>(p);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(bar) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA writes to come
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// spin until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
+{
+    asm volatile(
+        "{\n.reg .pred done;\n"
+        "WAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT_%=;\n}\n"
+        :: "r"(bar), "r"(parity) : "memory");
+}
+
+// rows r0 .. r0+63 of head h, batch b of a (B, heads, S, D) tensor into
+// the swizzled tile at dst, one TMA box (RB bytes x 64 rows) per column
+// block; the hardware zero-fills rows >= S and signals `bar`
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int r0, int h, int b)
+{
+    using T = TileShape<D>;
+    mbar_expect(bar, T::BYTES);
+#pragma unroll
+    for (int cb = 0; cb < 2 * D / T::RB; ++cb)
+        asm volatile(
+            "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier"
+            "::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+            :: "r"(dst + cb * T::BLOCK), "l"((uint64_t)&map),
+               "r"(cb * T::RB / 2), "r"(r0), "r"(h), "r"(b), "r"(bar)
+            : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
@@ -253,172 +338,374 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1)
+// ------------------------------------------------------- wgmma helpers
+
+// shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1 = B128, 2 = B64)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout)
+{
+    return (uint64_t)((addr & 0x3FFFF) >> 4) |
+           ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand (d contiguous): k-step ks (16 columns) of a 64-row
+// tile; 8-row groups lie 8 * RB bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int ks)
+{
+    using T = TileShape<D>;
+    const uint32_t col = ks * 32;
+    return smem_desc(tile + (col / T::RB) * T::BLOCK + col % T::RB, 16,
+                     8 * T::RB, T::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence()
+{
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit()
+{
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait()
+{
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N])
+{
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 64, f32) (+)= a (64 x 16) * b (16 x 64), both K-major in
+// shared memory; d += only when accumulate != 0
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate)
 {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+
+// MN-major operand (read with the transpose bit): k-step kk (16 rows)
+// of a 64-row tile whose rows are the reduction axis; its column blocks
+// lie BLOCK bytes apart (LBO) and its 8-row groups 8 * RB bytes (SBO)
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk)
+{
+    using T = TileShape<D>;
+    return smem_desc(tile + kk * 16 * T::RB, T::BLOCK, 8 * T::RB,
+                     T::LAYOUT);
+}
+
+// d (64 x N, f32) += a (64 x 16, bf16 fragments in registers, laid out
+// as mma.sync's A) * b (16 x N, MN-major in shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// S = Q K^T for one key tile: 64 x 64 f32 in wgmma's accumulator layout
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t Qs,
+                                         uint32_t Ks)
+{
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_64x64_ss(s, kmajor_desc<D>(Qs, ks), kmajor_desc<D>(Ks, ks),
+                       ks);
+    wgmma_commit();
+}
+
+// O += P V for one key tile: P from registers, V row-major in shared
+// memory, read with the transpose bit
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pf)[BK / 16][4],
+                                         uint32_t Vs)
+{
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(acc, pf[kk], mnmajor_desc<D>(Vs, kk));
+    wgmma_commit();
+}
+
+// 2^x, flushing results below 2^-126 to 0 (one MUFU operation)
+__device__ __forceinline__ float ex2(float x)
+{
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The online softmax of one score tile in wgmma's accumulator layout:
+// s[4 * n8 + e] is row r0 (e = 0, 1) or r0 + 8 (e = 2, 3) of the
+// thread's warp, key k0 + n8 * 8 + 2 * t4 + (e & 1).  Masks the keys
+// >= S and, when causal, above the diagonal; leaves P in s, updates m
+// and l (m in log2 units: scores times sl2 = D^-1/2 log2 e), and gives
+// alpha, the factor for O.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int k0, int q0, int S, int causal, const int (&qrow)[2], int t4,
+    float sl2)
+{
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+        const int row = (i >> 1) & 1;
+        if (edge) {
+            const int kj = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+            if (kj >= S || (causal && kj > qrow[row])) s[i] = NEG_INF;
+        }
+        mx[row] = fmaxf(mx[row], s[i]);
+    }
+    float m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        m_new[row] = fmaxf(m[row], mx[row] * sl2);
+        alpha[row] = ex2(m[row] - m_new[row]);
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+        const float p = ex2(fmaf(s[i], sl2, -m_new[(i >> 1) & 1]));
+        s[i] = p;
+        rs[(i >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+        rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 1);
+        rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 2);
+        l[row] = l[row] * alpha[row] + rs[row];
+        m[row] = m_new[row];
+    }
+}
+
+// P rounded to bf16, as mma.sync's A fragments of 16 keys each
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&pf)[BK / 16][4])
+{
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            pf[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_mma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(FA_THREADS)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ o, int S, int rep,
                       Strides st, float scale, int causal)
 {
-    constexpr int LDS = D + 8;
-    extern __shared__ float4 smem4[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-    __nv_bfloat16* Ks = Qs + BQ * LDS;       // Ks[r * LDS + d]
-    __nv_bfloat16* Vt = Ks + BK * LDS;       // Vt[d * LDV + r]
+    using T = TileShape<D>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t base =
+        ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+    // Q, then the K ring, then the V ring; tile t sits in stage t & 1
+    const uint32_t Qs = base;
+    auto kst = [&](int t) { return base + (1 + (t & 1)) * T::BYTES; };
+    auto vst = [&](int t) { return base + (3 + (t & 1)) * T::BYTES; };
+
+    // full barriers: Q, K stages 0-1, V stages 0-1; the n-th use of a
+    // stage completes phase n, so key tile t waits on parity (t >> 1) & 1
+    __shared__ __align__(8) uint64_t bars[5];
+    const uint32_t bq = (uint32_t)__cvta_generic_to_shared(bars);
+    auto kbar = [&](int t) { return bq + 8 * (1 + (t & 1)); };
+    auto vbar = [&](int t) { return bq + 8 * (3 + (t & 1)); };
+    auto par = [](int t) { return (uint32_t)(t >> 1) & 1u; };
 
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
     const int h = blockIdx.y, b = blockIdx.z, kvh = h / rep;
-    const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
-    const __nv_bfloat16* kp = k + b * st.kb + kvh * st.kh;
-    const __nv_bfloat16* vp = v + b * st.vb + kvh * st.vh;
     __nv_bfloat16* op = o + b * st.ob + h * st.oh;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3;
-
-    for (int e = tid; e < BQ * D / 2; e += MMA_THREADS) {
-        const int r = e / (D / 2), c = (e % (D / 2)) * 2, i = q0 + r;
-        *reinterpret_cast<uint32_t*>(&Qs[r * LDS + c]) =
-            i < S ? ld_u32(qp + i * st.qs + c) : 0u;
-    }
-    __syncthreads();
-
+    const int t4 = lane & 3;
     // this thread's rows of the warp's 16: r0 and r0 + 8
-    const int r0 = warp * 16 + g;
-    uint32_t qf[D / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-        const int c = ks * 16 + 2 * t4;
-        qf[ks][0] = ld_u32(&Qs[r0 * LDS + c]);
-        qf[ks][1] = ld_u32(&Qs[(r0 + 8) * LDS + c]);
-        qf[ks][2] = ld_u32(&Qs[r0 * LDS + c + 8]);
-        qf[ks][3] = ld_u32(&Qs[(r0 + 8) * LDS + c + 8]);
-    }
+    const int r0 = warp * 16 + (lane >> 2);
     const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float acc[D / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
+    const float sl2 = scale * LOG2E;   // scores in log2 units
     const int nt = key_tiles(S, q0, causal);
-    for (int t = 0; t < nt; ++t) {
-        const int k0 = t * BK;
-        __syncthreads();                     // Ks and Vt free again
-        for (int e = tid; e < BK * D / 2; e += MMA_THREADS) {
-            // K: neighbouring threads take neighbouring column pairs
-            const int r = e / (D / 2), c = (e % (D / 2)) * 2, j = k0 + r;
-            *reinterpret_cast<uint32_t*>(&Ks[r * LDS + c]) =
-                j < S ? ld_u32(kp + j * st.ks + c) : 0u;
-            // V: neighbouring threads take neighbouring rows, so the
-            // transposed 16-bit stores fall in distinct banks
-            const int rv = e % BK, cv = (e / BK) * 2, jv = k0 + rv;
-            uint32_t w = jv < S ? ld_u32(vp + jv * st.vs + cv) : 0u;
-            const __nv_bfloat162 pair =
-                *reinterpret_cast<const __nv_bfloat162*>(&w);
-            Vt[cv * LDV + rv] = pair.x;
-            Vt[(cv + 1) * LDV + rv] = pair.y;
-        }
-        __syncthreads();
 
-        float s[BK / 8][4];
+    // thread 0 issues every copy: Q, K0, K1 and V0 now, then K(t+1) and
+    // V(t) at the top of iteration t, once the barrier there has shown
+    // that every warp is done with the stages they overwrite
+    if (tid == 0) {
 #pragma unroll
-        for (int n8 = 0; n8 < BK / 8; ++n8) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[n8][e] = 0.f;
-            const __nv_bfloat16* kr = &Ks[(n8 * 8 + g) * LDS + 2 * t4];
-#pragma unroll
-            for (int ks = 0; ks < D / 16; ++ks)
-                mma_16816(s[n8], qf[ks], ld_u32(kr + ks * 16),
-                          ld_u32(kr + ks * 16 + 8));
-        }
-
-        // accumulator layout: e = 0, 1 -> row r0, e = 2, 3 -> row r0 + 8;
-        // key column n8 * 8 + 2 * t4 + (e & 1)
-        float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-        for (int n8 = 0; n8 < BK / 8; ++n8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = e >> 1;
-                const int kj = k0 + n8 * 8 + 2 * t4 + (e & 1);
-                float x = s[n8][e] * scale;
-                if (kj >= S || (causal && kj > qrow[row])) x = NEG_INF;
-                s[n8][e] = x;
-                mx[row] = fmaxf(mx[row], x);
-            }
-        float alpha[2], m_new[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-        for (int row = 0; row < 2; ++row) {
-            mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-            mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-            m_new[row] = fmaxf(m[row], mx[row]);
-            alpha[row] = expf(m[row] - m_new[row]);
-        }
-#pragma unroll
-        for (int n8 = 0; n8 < BK / 8; ++n8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float p = expf(s[n8][e] - m_new[e >> 1]);
-                s[n8][e] = p;
-                rs[e >> 1] += p;
-            }
-#pragma unroll
-        for (int row = 0; row < 2; ++row) {
-            rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 1);
-            rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 2);
-            l[row] = l[row] * alpha[row] + rs[row];
-            m[row] = m_new[row];
-        }
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-            acc[dn][0] *= alpha[0];
-            acc[dn][1] *= alpha[0];
-            acc[dn][2] *= alpha[1];
-            acc[dn][3] *= alpha[1];
-        }
-
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            const uint32_t a[4] = {
-                pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-            };
-#pragma unroll
-            for (int dn = 0; dn < D / 8; ++dn) {
-                const __nv_bfloat16* vr =
-                    &Vt[(dn * 8 + g) * LDV + kk * 16 + 2 * t4];
-                mma_16816(acc[dn], a, ld_u32(vr), ld_u32(vr + 8));
-            }
-        }
+        for (int i = 0; i < 5; ++i) mbar_init(bq + 8 * i);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        tma_tile<D>(Qs, tq, bq, q0, h, b);
+        tma_tile<D>(kst(0), tk, kbar(0), 0, kvh, b);
+        if (nt > 1) tma_tile<D>(kst(1), tk, kbar(1), BK, kvh, b);
+        tma_tile<D>(vst(0), tv, vbar(0), 0, kvh, b);
     }
+    __syncthreads();                 // the barriers are initialised
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    float acc[D / 2];               // O in wgmma's accumulator layout
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[BK / 2];
+    uint32_t pf[BK / 16][4];
+
+    mbar_wait(bq, 0);
+    mbar_wait(kbar(0), 0);
+    issue_qk<D>(s, Qs, kst(0));
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(s, m, l, alpha, 0, q0, S, causal, qrow, t4, sl2);
+    pack_p(s, pf);
+
+    // iteration t: S(t) and P V(t-1) are in flight together, and the
+    // softmax of tile t runs while P V(t-1) finishes
+    for (int t = 1; t < nt; ++t) {
+        __syncthreads();             // S(t-1) and P V(t-2) are done
+        if (tid == 0) {
+            if (t + 1 < nt)
+                tma_tile<D>(kst(t + 1), tk, kbar(t + 1), (t + 1) * BK, kvh,
+                            b);
+            tma_tile<D>(vst(t), tv, vbar(t), t * BK, kvh, b);
+        }
+        mbar_wait(kbar(t), par(t));
+        issue_qk<D>(s, Qs, kst(t));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        mbar_wait(vbar(t - 1), par(t - 1));
+        issue_pv<D>(acc, pf, vst(t - 1));
+        wgmma_wait<1>();             // S(t)
+        fence_regs(s);
+        softmax_tile(s, m, l, alpha, t * BK, q0, S, causal, qrow, t4, sl2);
+        wgmma_wait<0>();             // P V(t-1)
+        fence_regs(acc);
+        pack_p(s, pf);
+    }
+
+    mbar_wait(vbar(nt - 1), par(nt - 1));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    issue_pv<D>(acc, pf, vst(nt - 1));
+    wgmma_wait<0>();
+    fence_regs(acc);
 
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
         const int qi = qrow[row];
         if (qi >= S) continue;
-        const float lv = fmaxf(l[row], 1e-30f);
+        const float inv = 1.f / fmaxf(l[row], 1e-30f);
 #pragma unroll
         for (int dn = 0; dn < D / 8; ++dn) {
             const int c = dn * 8 + 2 * t4;
             *reinterpret_cast<uint32_t*>(&op[qi * st.os + c]) =
-                pack_bf16(acc[dn][2 * row] / lv, acc[dn][2 * row + 1] / lv);
+                pack_bf16(acc[4 * dn + 2 * row] * inv,
+                          acc[4 * dn + 2 * row + 1] * inv);
         }
     }
 }
@@ -451,22 +738,77 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
     return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               dim3 grid, int S, int rep, const Strides& st, float scale,
-               int causal, cudaStream_t stream)
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at first use (no link to libcuda)
+EncodeTiledFn encode_tiled()
 {
-    constexpr size_t smem = mma_smem_bytes<D>();
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = (EncodeTiledFn)p;
+    }
+    return fn;
+}
+
+// A 4-D tensor map over (d, s, head, b) of a bf16 (B, heads, S, D)
+// tensor with element strides (sb, sh, ss), in boxes of RB bytes x 64
+// rows swizzled as the tiles are; rows past S read as zeros
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
+              long long sb, long long sh, long long ss)
+{
+    using T = TileShape<D>;
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                                (cuuint64_t)heads, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                   (cuuint64_t)sb * 2};
+    const cuuint32_t box[4] = {T::RB / 2, 64, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  T::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                dim3 grid, int S, int rep, const Strides& st, float scale,
+                int causal, cudaStream_t stream)
+{
+    constexpr size_t smem = fa_smem_bytes<D>();
     static bool ready = false;
     if (!ready) {
-        cudaError_t e = allow_smem(flash_mma_bf16_kernel<D>, smem);
+        cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, smem);
         if (e != cudaSuccess) return (int)e;
         ready = true;
     }
-    flash_mma_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, S, rep, st, scale,
-        causal);
+    const int B = grid.z, H = grid.y, KH = H / rep;
+    CUtensorMap tq, tk, tv;
+    if (!make_map<D>(&tq, q, B, H, S, st.qb, st.qh, st.qs) ||
+        !make_map<D>(&tk, k, B, KH, S, st.kb, st.kh, st.ks) ||
+        !make_map<D>(&tv, v, B, KH, S, st.vb, st.vh, st.vs))
+        return (int)cudaErrorInvalidValue;
+    flash_fwd_bf16_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+        tq, tk, tv, (__nv_bfloat16*)o, S, rep, st, scale, causal);
     return (int)cudaGetLastError();
 }
 
@@ -478,8 +820,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
     if (dtype == 0)
         return launch_simt<D>(q, k, v, o, grid, S, rep, st, scale, causal,
                               stream);
-    return launch_mma<D>(q, k, v, o, grid, S, rep, st, scale, causal,
-                         stream);
+    return launch_bf16<D>(q, k, v, o, grid, S, rep, st, scale, causal,
+                          stream);
 }
 
 }  // namespace
@@ -488,7 +830,7 @@ extern "C" {
 
 // q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), each with
 // element strides (b, h, s) and a contiguous last axis.  dtype: 0 = f32
-// (the SIMT kernel), 1 = bf16 (the mma kernel).  Launches on `stream`;
+// (the SIMT kernel), 1 = bf16 (the wgmma kernel).  Launches on `stream`;
 // returns the cudaError_t of the launch (0 = ok).
 int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,

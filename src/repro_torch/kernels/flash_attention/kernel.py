@@ -5,9 +5,10 @@
 (``kernels/flash_attention/kernel.py:86``): one CTA per (b, h, 64-row
 query tile), an online softmax in f32 over 64-row key tiles, tiles
 above the diagonal skipped, any S ≥ 1, D ∈ {32, 64, 128}.  bf16 runs on
-the tensor cores
-(``mma.sync``), f32 on the CUDA cores.  ``attention_flops`` and
-``attention_bytes`` give its least work and traffic.
+Hopper's ``wgmma`` tensor-core products fed by a TMA ring of swizzled
+K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores.
+``attention_flops`` and ``attention_bytes`` give its least work and
+traffic.
 
 The wrapper checks what the kernel takes and raises on anything else,
 allocates the output, launches on PyTorch's current stream without
@@ -27,6 +28,8 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)
+#: the bf16 kernel's design in one word: ``ring+mma.sync`` or ``wgmma``
+DESIGN = "wgmma"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VOIDP = ctypes.c_void_p
@@ -52,6 +55,18 @@ def attention_flops(b: int, h: int, s: int, d: int, causal: bool) -> int:
     mask keeps: S(S+1)/2 per head when causal, S² otherwise."""
     pairs = s * (s + 1) // 2 if causal else s * s
     return 4 * b * h * d * pairs
+
+
+#: the bf16 kernel's K/V ring depth and tile rows (``csrc`` STAGES, BK)
+STAGES = 2
+TILE_ROWS = 64
+
+
+def flash_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one bf16 CTA: 1024 bytes of alignment
+    slack, the Q tile and ``STAGES`` K and V tiles, each 64 rows of d
+    bf16 values (``fa_smem_bytes`` in the source)."""
+    return 1024 + (1 + 2 * STAGES) * TILE_ROWS * d * 2
 
 
 def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
@@ -95,10 +110,13 @@ def flash_attention_cuda(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
-        # the bf16 kernel moves bf16 pairs as 32-bit words
-        if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3]):
-            raise ValueError(f"{name} must be 4-byte aligned with even "
-                             f"strides")
+        # the f32 kernel moves floats; the bf16 kernel's TMA tensor maps
+        # need a 16-byte-aligned base and byte strides in 16s
+        align = 16 if t.dtype == torch.bfloat16 else 4
+        if t.data_ptr() % align or any(st * t.element_size() % align
+                                       for st in t.stride()[:3]):
+            raise ValueError(f"{name} must be {align}-byte aligned with "
+                             f"byte strides that are multiples of {align}")
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B == 0 or S == 0:

@@ -106,6 +106,15 @@ def test_bound_model():
         2 * 512 * 128 * 4 * (2 * 32 + 2 * 4)
 
 
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+def test_bf16_shared_memory_plan_fits_a_block(D):
+    """The bf16 CTA's Q tile and K/V ring fit the 227 KB a Hopper block
+    may use (232,448 bytes), twice over: 2 CTAs share an SM."""
+    got = kernel.flash_smem_bytes(D)
+    assert got == 1024 + (1 + 2 * kernel.STAGES) * 64 * D * 2
+    assert 2 * got <= 232_448
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -116,7 +125,9 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,KH,S,D", [(2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
                                         (1, 4, 2, 300, 128), (1, 2, 1, 1, 64),
-                                        (2, 8, 2, 77, 64)])
+                                        (2, 8, 2, 77, 64), (2, 4, 2, 64, 32),
+                                        (2, 4, 2, 64, 128), (2, 4, 2, 1, 32),
+                                        (1, 4, 2, 1, 128)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_matches_plain_on_card(cuda_device, B, H, KH, S, D, dtype,
@@ -144,3 +155,18 @@ def test_kernel_reads_the_models_layout_in_place(cuda_device):
     want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got), _np(want), atol=3e-2)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_strides_off_16_bytes(cuda_device):
+    """The bf16 kernel copies 16-byte pieces of rows: a row stride of
+    (D + 2) * 2 bytes is refused before anything launches."""
+    base = torch.zeros((1, 4, 64, 66), dtype=torch.bfloat16,
+                       device=cuda_device)
+    q = base[..., :64]
+    k, v = (torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16,
+                        device=cuda_device) for _ in range(2))
+    before = kernel.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernel.flash_attention_cuda(q, k, v)
+    assert kernel.flash_attention_cuda.launches == before
