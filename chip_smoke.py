@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
 2. ``build``: nvcc builds ``csrc/*.cu`` for sm_90a from this checkout.
 3. ``kernel_vs_plain``: the CUDA block kernel against its plain
    PyTorch version on the same card tensors, unit-normal inputs from a
-   fixed seed; fails above 1e-5 max abs diff.
+   fixed seed (``BLOCK_CASES``: ragged 37 x 53, sources on tile seams
+   and field edges, k = 1, 3, 4, 8, 600 x 600, 4096 x 4096 S=4 k=8,
+   and the 2-D entry); fails unless every output is bitwise equal.
 4. ``step_vs_plain``: the CUDA step kernel likewise (ragged 37 x 53,
    64 x 96, 600 x 600 and 4096 x 4096).
 5. ``session``: the main path at the paper's size (``FWIConfig()``:
@@ -31,8 +33,8 @@ Phases, each printing one JSON line:
    ``ElasticOrchestrator`` through a congested 600-step run that must
    burst.
 8. ``production``: ``run_forward`` at 4096 x 4096, 4 shots, 200 steps
-   (k = 8): ms per block against the card's bound, one block held to
-   the plain version on the card.
+   (k = 8): ms per block against the card's bound, one block held
+   bitwise to the plain version on the card.
 9. ``autotune``: the tile sweeps of both kernels at 600 x 600 and
    4096 x 4096 (S=4), every candidate held bitwise to the plain version
    at 600 x 600, and a short ``FWISession(autotune=True)`` run.
@@ -81,7 +83,9 @@ Phases, each printing one JSON line:
     its plain version on the served activations, and the 48-layer bf16
     invariant within 0.1·max|logit| under the init rule itself.
 17. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
-    kernel with its time, launches, error, bound and plain-version time;
+    kernel with its time, launches, error, bound and plain-version time
+    (the block kernel's launches in the session, in calibration and in
+    ``production``);
     flash attention also at a long prompt (``ms_long``,
     ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
     its bf16 ``design``.
@@ -187,6 +191,89 @@ def peaks_for(name: str) -> tuple[float, float, float]:
     raise SmokeFailure(f"no peak rates known for card {name!r}")
 
 
+def block_inputs(rng, dev, ns, nz, nx, k, *, per_shot=True, src=None):
+    """Unit-normal wavefields, positive model fields, per-shot (or
+    shared) amplitudes and source cells (drawn, or ``src``) from
+    ``rng``, on ``dev``: the block kernel's seven inputs."""
+    p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+    pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+    v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
+    sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
+    sv = rng.standard_normal((ns, k) if per_shot else (k,),
+                             dtype=np.float32)
+    if src is None:
+        src = (rng.integers(0, nz, ns), rng.integers(0, nx, ns))
+    sz = np.asarray(src[0], np.int32)
+    sx = np.asarray(src[1], np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (p, pp, v2, sp, sv, sz, sx)]
+
+
+def max_diff(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def compare_block(ops, ref, args, receiver_row) -> tuple[float, bool]:
+    """(max |kernel - plain|, bitwise) of one block through the
+    dispatch (the kernel at its default tile)."""
+    got = ops.wave_block(*args, receiver_row=receiver_row)
+    want = ref.wave_block_shots_ref(*args, receiver_row=receiver_row)
+    torch.cuda.synchronize()
+    return max_diff(got, want), all(
+        torch.equal(g, w) for g, w in zip(got, want))
+
+
+#: kernel_vs_plain cases of the block kernel: label, (S, NZ, NX, k),
+#: input options, receiver row.  Sources sit on tile seams (rows and
+#: columns 32, 64, 2048 and one before them, seams of every
+#: power-of-two tile) and on the field's edges.
+BLOCK_CASES = [
+    ("ragged tiny", (1, 37, 53, 1), dict(per_shot=False), 2),
+    ("(S,k) amplitudes", (3, 64, 96, 3), {}, 2),
+    ("paper size k=4", (4, 600, 600, 4), {}, 2),
+    ("seams and edges k=8", (4, 600, 600, 8),
+     dict(src=([32, 31, 0, 599], [64, 0, 599, 33])), 32),
+    ("seams and edges k=1", (4, 600, 600, 1),
+     dict(src=([64, 63, 0, 599], [128, 0, 599, 65])), 64),
+    ("ragged seams k=3", (3, 130, 203, 3),
+     dict(src=([64, 129, 31], [63, 202, 128])), 63),
+    ("production size k=8", (4, 4096, 4096, 8),
+     dict(src=([2048, 2047, 0, 4095], [2048, 0, 4095, 2047])), 2048),
+]
+
+
+def run_block_vs_plain(dev, rng) -> list[dict]:
+    """The block kernel against its plain version on ``BLOCK_CASES``
+    and the 2-D entry: every case must be bitwise equal."""
+    from repro_torch.kernels.stencil import ops, ref
+
+    cases = []
+    for label, (ns, nz, nx, k), kw, rrow in BLOCK_CASES:
+        args = block_inputs(rng, dev, ns, nz, nx, k, **kw)
+        err, exact = compare_block(ops, ref, args, rrow)
+        del args
+        cases.append({"case": label, "S": ns, "nz": nz, "nx": nx, "k": k,
+                      "receiver_row": rrow, "max_abs_diff": err,
+                      "bitwise": exact})
+        check(exact, f"kernel vs plain {label}: not bitwise "
+                     f"(max |diff| {err})")
+    torch.cuda.empty_cache()
+    p, pp, v2, sp, sv, sz, sx = block_inputs(rng, dev, 1, 600, 600, 8,
+                                             per_shot=False)
+    got = ops.wave_block(p[0], pp[0], v2, sp, sv, int(sz[0]), int(sx[0]),
+                         receiver_row=2)
+    want = ref.wave_block_ref(p[0], pp[0], v2, sp, sv, int(sz[0]),
+                              int(sx[0]), receiver_row=2)
+    torch.cuda.synchronize()
+    err = max_diff(got, want)
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    cases.append({"case": "2-D entry k=8", "S": 1, "nz": 600, "nx": 600,
+                  "k": 8, "receiver_row": 2, "max_abs_diff": err,
+                  "bitwise": exact})
+    check(exact, f"kernel vs plain 2-D entry: not bitwise (max |diff| "
+                 f"{err})")
+    return cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -229,57 +316,16 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
 
-    def inputs(ns, nz, nx, k, *, per_shot=True, src=None):
-        p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
-        pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
-        v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
-        sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
-        sv = rng.standard_normal((ns, k) if per_shot else (k,),
-                                 dtype=np.float32)
-        if src is None:
-            src = (rng.integers(0, nz, ns), rng.integers(0, nx, ns))
-        sz = np.asarray(src[0], np.int32)
-        sx = np.asarray(src[1], np.int32)
-        return [torch.from_numpy(a).to(dev)
-                for a in (p, pp, v2, sp, sv, sz, sx)]
-
-    def max_diff(got, want) -> float:
-        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+    def inputs(ns, nz, nx, k, **kw):
+        return block_inputs(rng, dev, ns, nz, nx, k, **kw)
 
     def compare(args, receiver_row):
-        got = ops.wave_block(*args, receiver_row=receiver_row)
-        want = ref.wave_block_shots_ref(*args, receiver_row=receiver_row)
-        torch.cuda.synchronize()
-        return max_diff(got, want), all(
-            torch.equal(g, w) for g, w in zip(got, want))
+        return compare_block(ops, ref, args, receiver_row)
 
     # 3. kernel_vs_plain
-    cases = []
-    for label, (ns, nz, nx, k), kw, rrow in [
-        ("ragged tiny", (1, 37, 53, 1), dict(per_shot=False), 2),
-        ("(S,k) amplitudes", (3, 64, 96, 3), {}, 2),
-        ("paper size k=4", (4, 600, 600, 4), {}, 2),
-        ("seams and edges k=8", (4, 600, 600, 8),
-         dict(src=([32, 31, 0, 599], [64, 0, 599, 33])), 32),
-    ]:
-        err, exact = compare(inputs(ns, nz, nx, k, **kw), rrow)
-        cases.append({"case": label, "S": ns, "nz": nz, "nx": nx, "k": k,
-                      "receiver_row": rrow, "max_abs_diff": err,
-                      "bitwise": exact})
-        check(err <= TOL, f"kernel vs plain {label}: {err} > {TOL}")
-    p, pp, v2, sp, sv, sz, sx = inputs(1, 600, 600, 8, per_shot=False)
-    got = ops.wave_block(p[0], pp[0], v2, sp, sv, int(sz[0]), int(sx[0]),
-                         receiver_row=2)
-    want = ref.wave_block_ref(p[0], pp[0], v2, sp, sv, int(sz[0]),
-                              int(sx[0]), receiver_row=2)
-    torch.cuda.synchronize()
-    err = max_diff(got, want)
-    cases.append({"case": "2-D entry k=8", "S": 1, "nz": 600, "nx": 600,
-                  "k": 8, "receiver_row": 2, "max_abs_diff": err,
-                  "bitwise": all(torch.equal(g, w)
-                                 for g, w in zip(got, want))})
-    check(err <= TOL, f"kernel vs plain 2-D entry: {err} > {TOL}")
-    emit({"phase": "kernel_vs_plain", "tolerance": TOL, "cases": cases})
+    cases = run_block_vs_plain(dev, rng)
+    emit({"phase": "kernel_vs_plain", "contract": "bitwise",
+          "tolerance": 0.0, "cases": cases})
 
     def step_inputs(ns, nz, nx):
         p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
@@ -358,8 +404,8 @@ def main() -> int:
                                    ("600 S=1", (1, 600, 600, 4)),
                                    ("4096 S=1", (1, 4096, 4096, 8))):
         args = inputs(ns, nz, nx, k)
-        err, _ = compare(args, 2)
-        check(err <= TOL, f"kernel vs plain at {label}: {err} > {TOL}")
+        err, exact = compare(args, 2)
+        check(exact, f"kernel vs plain at {label}: not bitwise ({err})")
         small = label.startswith("600")
         ms = tune.device_time_ms(lambda: kernel.wave_block_shots_cuda(
             *args, receiver_row=2), reps=50 if small else 10)
@@ -407,6 +453,7 @@ def main() -> int:
         ],
         "launches": session_launches,
         "launches_calibration": calib["wave_block_launches"],
+        "launches_production": production["kernel_launches"],
         "max_abs_err": max(t["max_abs_err"] for t in timings.values()),
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
@@ -627,8 +674,9 @@ def run_production(dev, bw, f32):
                                        receiver_row=cfg.receiver_depth)
     want = ref.wave_block_shots_ref(*args, receiver_row=cfg.receiver_depth)
     torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    check(err <= TOL, f"production block vs plain: {err} > {TOL}")
+    err = max_diff(got, want)
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    check(exact, f"production block vs plain: not bitwise ({err})")
     ms_block = wall / blocks * 1e3
     bound, _ = bound_ms(kernel.block_bytes(4, cfg.nz, cfg.nx, k),
                         kernel.block_flops(4, cfg.nz, cfg.nx, k), bw, f32)
@@ -639,8 +687,7 @@ def run_production(dev, bw, f32):
         "ms_per_block": ms_block, "bound_ms_per_block": bound,
         "share_of_bound": bound / ms_block,
         "block_max_abs_diff_vs_plain": err,
-        "block_bitwise_vs_plain": all(
-            torch.equal(g, w) for g, w in zip(got, want)),
+        "block_bitwise_vs_plain": exact, "kernel_launches": launches,
         "max_abs_p": float(st.p.abs().max()),
     }
 
@@ -886,8 +933,10 @@ def run_autotune(dev, step_inputs, block_inputs):
     from repro_torch.fwi.solver import FWIConfig, run_forward
     from repro_torch.kernels.stencil import kernel, ref, tune
 
-    default = (kernel.TILE_Z, kernel.TILE_X)
-    out = {"phase": "autotune", "default_tile": list(default)}
+    default = tuple(kernel.BLOCK_TILE)
+    step_default = (kernel.TILE_Z, kernel.TILE_X)
+    out = {"phase": "autotune", "default_tile": list(default),
+           "step_default_tile": list(step_default)}
     for label, n, kdef in (("600", 600, 4), ("4096", 4096, 8)):
         t0 = time.monotonic()
         blk = tune.sweep_block(n, n, 4, device=dev)
@@ -907,7 +956,8 @@ def run_autotune(dev, step_inputs, block_inputs):
                               "ms_per_step": blk[(default, kdef)]},
             "step_candidates": len(stp),
             "step_winner": {"tile": list(st), "ms": stp[st]},
-            "step_default": {"tile": list(default), "ms": stp[default]},
+            "step_default": {"tile": list(step_default),
+                             "ms": stp[step_default]},
         }
 
     args = step_inputs(4, 600, 600)

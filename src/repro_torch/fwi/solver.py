@@ -238,7 +238,7 @@ def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
     or (p, p_prev) with ``collect_traces=False``.  A step count that is
     not a multiple of k ends with a tail block of ``steps % k`` steps.
     ``run.k`` is the block length; ``tile`` the kernel's CTA tile (CUDA
-    only; default ``kernel.TILE_Z, kernel.TILE_X``)."""
+    only; default ``kernel.BLOCK_TILE``)."""
     dev = resolve_device(device)
     if k is None:
         k = pick_k(cfg.nz)

@@ -18,6 +18,10 @@ allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.  The owned tile of one CTA, ``tile=(TZ,
 TX)``, is a launch argument (``kernels/stencil/tune.py`` sweeps it).
+For the block kernel the wrapper also picks, by rules tested on the
+CPU, the launch shape (``launch_shape``: rows per thread and CTAs per
+SM) and how many CTAs per tile the shots are spread over
+(``shot_groups``).
 """
 from __future__ import annotations
 
@@ -29,9 +33,20 @@ import torch
 from repro_torch.kernels import build
 
 HALO = 2
-#: owned output tile of one CTA (rows, columns)
+#: the block kernel's launch shapes in the order the wrapper prefers
+#: them: (rows per thread, CTAs per SM, most threads of one CTA).  Two
+#: CTAs per SM where the window is small enough, the longer strips
+#: first: the order measured fastest on the H100 (``PERF.md`` §6)
+LAUNCHES = ((8, 2, 256), (4, 2, 512), (4, 1, 768), (8, 1, 576))
+#: f32 buffers of one block-kernel CTA in shared memory
+WINDOWS = 2
+#: block-kernel CTAs per SM that ``shot_groups`` aims the grid at
+CTAS_PER_SM = 4
+#: owned output tile of one step-kernel CTA (rows, columns)
 TILE_Z = 32
 TILE_X = 32
+#: owned output tile of one block-kernel CTA (rows, columns)
+BLOCK_TILE = (32, 64)
 #: shared memory one CTA may use on Hopper
 MAX_SMEM_BYTES = 232448
 
@@ -45,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     signatures."""
     lib = build.load("wave_block")
     lib.wave_block_shots_launch.argtypes = (
-        [_VOIDP] * 5 + [_INT] + [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP]
+        [_VOIDP] * 5 + [_INT] + [_VOIDP] * 5 + [_INT] * 10 + [_VOIDP]
     )
     lib.wave_block_shots_launch.restype = _INT
     lib.wave_block_error_string.argtypes = [_INT]
@@ -65,11 +80,53 @@ def _step_lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(k: int, tz: int = TILE_Z, tx: int = TILE_X) -> int:
-    """Dynamic shared memory of one block-kernel CTA: five
-    (tz+4k, tx+4k) f32 windows (v2dt2, sponge and three rotating field
-    buffers)."""
-    return 5 * (tz + 2 * k * HALO) * (tx + 2 * k * HALO) * 4
+def window(k: int, tz: int = BLOCK_TILE[0], tx: int = BLOCK_TILE[1]
+           ) -> tuple[int, int]:
+    """The (rows, columns) of one block-kernel CTA's window: its owned
+    tile widened by the trapezoid's reach, k·HALO, on every side."""
+    return tz + 2 * k * HALO, tx + 2 * k * HALO
+
+
+def smem_bytes(k: int, tz: int = BLOCK_TILE[0], tx: int = BLOCK_TILE[1]
+               ) -> int:
+    """Dynamic shared memory of one block-kernel CTA: ``WINDOWS`` f32
+    buffers, each the window's rows rounded up to whole strips of the
+    launch's rows per thread, with HALO zero rows above and below."""
+    wz, wx = window(k, tz, tx)
+    rows = (launch_shape(k, tz, tx) or (8,))[0]
+    return WINDOWS * (-(-wz // rows) * rows + 2 * HALO) * wx * 4
+
+
+def block_threads(k: int, tz: int, tx: int, rows: int) -> int:
+    """Threads of one block-kernel CTA: one per pair of window columns
+    and strip of ``rows`` rows."""
+    wz, wx = window(k, tz, tx)
+    return wx // 2 * -(-wz // rows)
+
+
+def launch_shape(k: int, tz: int = BLOCK_TILE[0], tx: int = BLOCK_TILE[1]
+                 ) -> tuple[int, int] | None:
+    """(rows per thread, CTAs per SM) of the first of ``LAUNCHES`` whose
+    thread limit the CTA fits, or None where none does (the tile is not
+    launched)."""
+    for rows, ctas, limit in LAUNCHES:
+        if block_threads(k, tz, tx, rows) <= limit:
+            return rows, ctas
+    return None
+
+
+def shot_groups(ns: int, tiles: int, sms: int) -> int:
+    """CTAs per tile that the shots are spread over (grid z).  Each CTA
+    takes ``ceil(ns·tiles / (CTAS_PER_SM·sms))`` shots, at least one, so
+    a grid of few tiles (600² and smaller) still fills the card; the
+    CTAs of one tile then re-read its model windows from L2."""
+    per_cta = max(1, -(-ns * tiles // (CTAS_PER_SM * sms)))
+    return -(-ns // per_cta)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def step_smem_bytes(tz: int = TILE_Z, tx: int = TILE_X) -> int:
@@ -132,7 +189,7 @@ def wave_block_shots_cuda(
     src_x: torch.Tensor,     # (S,) int32 source columns
     *,
     receiver_row: int,
-    tile: tuple[int, int] = (TILE_Z, TILE_X),
+    tile: tuple[int, int] = BLOCK_TILE,
 ):
     """k fused timesteps on the card; k is ``src_vals.shape[-1]``.
     Returns (p_k, p_prev_damped_k, traces (S, k, NX)).  Sources outside
@@ -166,6 +223,14 @@ def wave_block_shots_cuda(
     if not 0 <= receiver_row < nz:
         raise ValueError(f"receiver_row {receiver_row} outside [0, {nz})")
     tz, tx = _check_tile(tile, smem_bytes(k, *tile))
+    if tx % 2:
+        raise ValueError(f"tile {tile} needs an even column count")
+    shape = launch_shape(k, tz, tx)
+    if shape is None:
+        raise ValueError(f"tile {tile} at k={k} needs more threads per CTA "
+                         f"than the kernel takes")
+    tiles = -(-nz // tz) * -(-nx // tx)
+    groups = shot_groups(ns, tiles, _sm_count(dev.index or 0))
     p_out = torch.empty_like(p)
     pp_out = torch.empty_like(p)
     traces = torch.empty((ns, k, nx), dtype=f32, device=dev)
@@ -179,7 +244,8 @@ def wave_block_shots_cuda(
             sponge.data_ptr(), src_vals.data_ptr(), src_vals.stride(0),
             src_z.data_ptr(), src_x.data_ptr(),
             p_out.data_ptr(), pp_out.data_ptr(), traces.data_ptr(),
-            ns, nz, nx, k, int(receiver_row), tz, tx, stream,
+            ns, nz, nx, k, int(receiver_row), tz, tx, *shape, groups,
+            stream,
         )
     if err != 0:
         msg = lib.wave_block_error_string(err).decode()

@@ -20,9 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.stencil.kernel import (
+    BLOCK_TILE,
     HALO,
-    TILE_X,
-    TILE_Z,
     wave_block_shots_cuda,
     wave_step_cuda,
 )
@@ -117,7 +116,7 @@ def wave_block(p, p_prev, v2dt2, sponge, src_vals, src_z, src_x, *,
             p, p_prev, v2dt2, sponge, src_vals, src_z, src_x,
             receiver_row=receiver_row,
         )
-    tile = tile or (TILE_Z, TILE_X)
+    tile = tile or BLOCK_TILE
     if p.ndim == 2:
         pk, ppk, tr = wave_block_shots_cuda(
             p[None], p_prev[None], v2dt2, sponge, src_vals,

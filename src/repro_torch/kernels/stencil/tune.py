@@ -9,7 +9,8 @@ JAX package's TPU strip tuners (``kernels/stencil/kernel.py``).
   session runs that same shot-batched kernel, so it tunes the kernel
   that will run.
 
-Candidates whose shared memory exceeds ``MAX_SMEM_BYTES`` are skipped.
+Candidates whose shared memory exceeds ``MAX_SMEM_BYTES``, or whose
+window needs more threads than the block kernel takes, are skipped.
 Each candidate is timed on the device by ``device_time_ms``.  The
 sweeps are memoized per (shape, shot count, candidates, card name), so
 a session rebuilt after a resize reuses the choice.  They time the card and raise on any other device:
@@ -25,6 +26,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.stencil.kernel import (
     MAX_SMEM_BYTES,
+    launch_shape,
     smem_bytes,
     step_smem_bytes,
     wave_block_shots_cuda,
@@ -46,10 +48,11 @@ def step_candidates(tiles=STEP_TILES) -> list[tuple[int, int]]:
 
 def block_candidates(tiles=BLOCK_TILES, ks=BLOCK_KS
                      ) -> list[tuple[tuple[int, int], int]]:
-    """The (tile, k) pairs of the block kernel that fit one CTA's shared
-    memory."""
+    """The (tile, k) pairs of the block kernel that fit one CTA: its
+    shared memory and its thread limit (``launch_shape``)."""
     return [(tuple(t), k) for k in ks for t in tiles
-            if smem_bytes(k, *t) <= MAX_SMEM_BYTES]
+            if smem_bytes(k, *t) <= MAX_SMEM_BYTES
+            and launch_shape(k, *t) is not None]
 
 
 def _card(device) -> torch.device:

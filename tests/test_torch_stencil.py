@@ -18,7 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.stencil import ops as jops  # noqa: E402
 from repro.kernels.stencil import ref as jref  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.stencil import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.stencil import kernel, ops, ref, tune  # noqa: E402
 
 
 def _inputs(seed, ns, nz, nx, k, per_shot=True):
@@ -151,9 +151,59 @@ def test_bound_and_shared_memory_model():
     # least traffic of one block (600², S=4, k=4 and 4096², S=4, k=8)
     assert kernel.block_bytes(4, 600, 600, 4) == 25_958_400
     assert kernel.block_bytes(4, 4096, 4096, 8) == 1_208_483_840
-    assert kernel.smem_bytes(8) == 5 * 64 * 64 * 4
+    # what one CTA allocates: WINDOWS buffers of the (TZ+4k, TX+4k)
+    # window, its rows rounded up to whole strips, plus 2·HALO zero rows
+    tz, tx = kernel.BLOCK_TILE
+    wz, wx = tz + 32, tx + 32
+    rows = kernel.launch_shape(8)[0]
+    assert kernel.smem_bytes(8) == \
+        kernel.WINDOWS * (-(-wz // rows) * rows + 4) * wx * 4
     assert kernel.smem_bytes(8) <= kernel.MAX_SMEM_BYTES
     assert ops.pick_k(600) == 8 and ops.pick_k(4096) == 8
+
+
+def test_block_launch_plan():
+    """Every (tile, k) the tuner may launch has a launch shape the
+    kernel is built for: the first of ``LAUNCHES`` whose thread limit
+    its CTA fits, with the threads covering the window in column pairs
+    and whole strips."""
+    pairs = tune.block_candidates()
+    assert pairs
+    for (tz, tx), k in pairs:
+        rows, ctas = kernel.launch_shape(k, tz, tx)
+        assert tx % 2 == 0
+        wz, wx = kernel.window(k, tz, tx)
+        assert (wz, wx) == (tz + 4 * k, tx + 4 * k)
+        threads = kernel.block_threads(k, tz, tx, rows)
+        assert threads == wx // 2 * -(-wz // rows)
+        first = next(i for i, (r, c, lim) in enumerate(kernel.LAUNCHES)
+                     if kernel.block_threads(k, tz, tx, r) <= lim)
+        assert kernel.LAUNCHES[first][:2] == (rows, ctas)
+    # the default tile: two CTAs per SM at k=4, one of 768 threads at 8
+    assert kernel.launch_shape(4) == (8, 2)
+    assert kernel.launch_shape(8) == (4, 1)
+    # a window too wide for any launch shape is not launched
+    assert kernel.launch_shape(8, 64, 128) is None
+    assert tune.block_candidates(((64, 128),), (8,)) == []
+
+
+def test_shot_groups_rule():
+    """Shots spread over CTAs only where the tiles leave the card short
+    of ``CTAS_PER_SM`` CTAs per SM, into as few groups as that aim
+    allows."""
+    sms = 132
+    assert kernel.shot_groups(4, 19 * 10, sms) == 2      # 600², (32, 64)
+    assert kernel.shot_groups(4, 10 * 10, sms) == 4      # 600², (64, 64)
+    assert kernel.shot_groups(4, 128 * 64, sms) == 1     # 4096²
+    assert kernel.shot_groups(1, 4, sms) == 1
+    assert kernel.shot_groups(0, 4, sms) == 0
+    for ns in range(1, 9):
+        for tiles in (1, 7, 100, 190, 361, 1000, 8192):
+            g = kernel.shot_groups(ns, tiles, sms)
+            aim = max(1, -(-ns * tiles // (kernel.CTAS_PER_SM * sms)))
+            # the fewest groups whose CTAs take at most `aim` shots each
+            assert 1 <= g <= ns and -(-ns // g) <= aim
+            assert g == 1 or -(-ns // (g - 1)) > aim
 
 
 def test_pick_k_matches_jax():
@@ -180,4 +230,57 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     want = ref.wave_block_shots_ref(*args, receiver_row=2)
     torch.cuda.synchronize()
     for x, y in zip(got, want):
-        assert float((x - y).abs().max()) <= 1e-5
+        assert torch.equal(x, y)
+
+
+def _seam_inputs(seed, ns, nz, nx, k, tile=kernel.BLOCK_TILE):
+    """``_inputs`` with the sources on the tile's seams (the first row
+    and column of a tile and the last of the one before) and on the
+    field's edges."""
+    p, pp, v2, sp, sv, _, _ = _inputs(seed, ns, nz, nx, k)
+    tz, tx = tile
+    zs = np.array([tz, tz - 1, 0, nz - 1], np.int32).clip(0, nz - 1)
+    xs = np.array([tx - 1, nx - 1, tx, 0], np.int32).clip(0, nx - 1)
+    return p, pp, v2, sp, sv, zs[np.arange(ns) % 4], xs[np.arange(ns) % 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("ns", [1, 3, 4])
+def test_kernel_bitwise_on_card(cuda_device, ns, k):
+    """Ragged fields (37 x 53, inside one tile's reach; 130 x 203, over
+    several tiles with odd columns), sources on tile seams and field
+    edges, the receiver on a seam: every output bitwise equal."""
+    for nz, nx in ((37, 53), (130, 203)):
+        args = [t.to(cuda_device)
+                for t in _torch(_seam_inputs(10 * k + ns, ns, nz, nx, k))]
+        rrow = min(kernel.BLOCK_TILE[0], nz - 1)
+        got = ops.wave_block(*args, receiver_row=rrow)
+        want = ref.wave_block_shots_ref(*args, receiver_row=rrow)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), (nz, nx)
+
+
+@pytest.mark.gpu
+def test_every_block_candidate_bitwise_on_card(cuda_device):
+    """Every (tile, k) the tuner may pick, sources on that tile's seams."""
+    for t, k in tune.block_candidates():
+        args = [x.to(cuda_device)
+                for x in _torch(_seam_inputs(17, 4, 150, 171, k, tile=t))]
+        got = kernel.wave_block_shots_cuda(*args, receiver_row=t[0], tile=t)
+        want = ref.wave_block_shots_ref(*args, receiver_row=t[0])
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), (t, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+def test_shot_groups_bitwise_on_card(cuda_device, monkeypatch, groups):
+    """The shots spread over 1-4 CTAs per tile (uneven at 3): bitwise."""
+    monkeypatch.setattr(kernel, "shot_groups", lambda ns, tiles, sms: groups)
+    args = [t.to(cuda_device)
+            for t in _torch(_seam_inputs(23, 4, 130, 203, 4))]
+    got = kernel.wave_block_shots_cuda(*args, receiver_row=31)
+    want = ref.wave_block_shots_ref(*args, receiver_row=31)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
