@@ -13,8 +13,11 @@ Phases, each printing one JSON line:
    fixed seed (``BLOCK_CASES``: ragged 37 x 53, sources on tile seams
    and field edges, k = 1, 3, 4, 8, 600 x 600, 4096 x 4096 S=4 k=8,
    and the 2-D entry); fails unless every output is bitwise equal.
-4. ``step_vs_plain``: the CUDA step kernel likewise (ragged 37 x 53,
-   64 x 96, 600 x 600 and 4096 x 4096).
+4. ``step_vs_plain``: the CUDA step kernel likewise, bitwise
+   (``STEP_CASES``: ragged 37 x 53, 64 x 96, NX of 3, 3 rows, 600 x 600,
+   600 x 128, 601 x 598, NX % 4 of 1, 2 and 3 at 4096 rows, inputs offset from
+   16-byte alignment, 4096 x 4096 at S=1 and S=4; S=1 also through the
+   2-D entry).
 5. ``session``: the main path at the paper's size (``FWIConfig()``:
    600 x 600, 4 shots, 600 steps) — ``ElasticOrchestrator`` drives
    ``fwi_session_factory(device="cuda")`` through a scripted GROW and
@@ -85,7 +88,11 @@ Phases, each printing one JSON line:
 17. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration and in
-    ``production``);
+    ``production``; the step kernel's in the nz=600 and nz=4096 gamma
+    sweeps and in ``scan_vs_block``, its device ms at every gamma-sweep
+    shape beside the bound and the launch the wrapper made (``sweep``,
+    each shape first held bitwise to the plain version) and its
+    ``design``);
     flash attention also at a long prompt (``ms_long``,
     ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
     its bf16 ``design``.
@@ -274,6 +281,78 @@ def run_block_vs_plain(dev, rng) -> list[dict]:
     return cases
 
 
+def step_inputs(rng, dev, ns, nz, nx, *, offset=0):
+    """Unit-normal wavefields and positive model fields from ``rng`` on
+    ``dev``: the step kernel's four inputs.  ``offset`` > 0 places each
+    one that many floats into its own allocation (a contiguous view whose
+    address is only 4-byte aligned)."""
+    p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+    pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
+    v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
+    sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
+    out = []
+    for a in (p, pp, v2, sp):
+        t = torch.from_numpy(a).to(dev)
+        if offset:
+            buf = torch.empty(t.numel() + offset, device=dev)
+            buf[offset:].copy_(t.reshape(-1))
+            t = buf[offset:].view(t.shape)
+        out.append(t)
+    return out
+
+
+#: step_vs_plain cases of the step kernel: label, (S, NZ, NX), offset of
+#: the inputs in floats.  NX % 4 of 1, 2 and 3 and offset inputs take
+#: the kernel's 1- and 2-column paths; 601 rows end in a part strip, 3
+#: rows are fewer than one strip, 600 x 128 (the narrowest gamma-sweep
+#: width) takes 2-row strips; the S=1 cases also go through the 2-D
+#: entry.
+STEP_CASES = [
+    ("ragged tiny", (1, 37, 53), 0),
+    ("small batch", (3, 64, 96), 0),
+    ("narrow", (2, 9, 3), 0),
+    ("fewer rows than a strip", (2, 3, 260), 0),
+    ("2-row strips", (4, 600, 128), 0),
+    ("paper size", (4, 600, 600), 0),
+    ("ragged strips", (4, 601, 598), 0),
+    ("NX % 4 = 1", (2, 4096, 1025), 0),
+    ("NX % 4 = 2", (2, 4096, 1026), 0),
+    ("NX % 4 = 3", (2, 4096, 1027), 0),
+    ("offset inputs", (2, 600, 600), 1),
+    ("offset inputs, even", (2, 600, 600), 2),
+    ("single shot", (1, 4096, 4096), 0),
+    ("production size", (4, 4096, 4096), 0),
+]
+
+
+def run_step_vs_plain(dev, rng) -> list[dict]:
+    """The step kernel against its plain version on ``STEP_CASES``,
+    through the dispatch at the default tile: every case must be
+    bitwise equal, the S=1 ones through the 2-D entry too."""
+    from repro_torch.kernels.stencil import ops, ref
+
+    cases = []
+    for label, (ns, nz, nx), offset in STEP_CASES:
+        args = step_inputs(rng, dev, ns, nz, nx, offset=offset)
+        got = ops.wave_step(*args)
+        want = ref.wave_step_ref(*args)
+        torch.cuda.synchronize()
+        err = max_diff(got, want)
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        cases.append({"case": label, "S": ns, "nz": nz, "nx": nx,
+                      "offset": offset, "max_abs_diff": err,
+                      "bitwise": exact})
+        check(exact, f"step kernel vs plain {label}: not bitwise "
+                     f"(max |diff| {err})")
+        if ns == 1:                                  # the 2-D entry
+            got2 = ops.wave_step(args[0][0], args[1][0], *args[2:])
+            check(all(torch.equal(g[None], w) for g, w in zip(got2, got)),
+                  f"2-D wave_step differs from the S=1 batch ({label})")
+        del args, got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -327,36 +406,14 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain", "contract": "bitwise",
           "tolerance": 0.0, "cases": cases})
 
-    def step_inputs(ns, nz, nx):
-        p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
-        pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
-        v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
-        sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
-        return [torch.from_numpy(a).to(dev) for a in (p, pp, v2, sp)]
+    def step_args(ns, nz, nx):
+        return step_inputs(rng, dev, ns, nz, nx)
 
     # 4. step_vs_plain
-    cases, step_err = [], 0.0
-    for label, (ns, nz, nx) in [("ragged tiny", (1, 37, 53)),
-                                ("small batch", (3, 64, 96)),
-                                ("paper size", (4, 600, 600)),
-                                ("production size", (4, 4096, 4096))]:
-        args = step_inputs(ns, nz, nx)
-        got = ops.wave_step(*args)
-        want = ref.wave_step_ref(*args)
-        torch.cuda.synchronize()
-        err = max_diff(got, want)
-        step_err = max(step_err, err)
-        cases.append({"case": label, "S": ns, "nz": nz, "nx": nx,
-                      "max_abs_diff": err, "bitwise": all(
-                          torch.equal(g, w) for g, w in zip(got, want))})
-        check(err <= TOL, f"step kernel vs plain {label}: {err} > {TOL}")
-        if ns == 1:                                  # the 2-D entry
-            got2 = ops.wave_step(args[0][0], args[1][0], *args[2:])
-            check(all(torch.equal(g[None], w) for g, w in zip(got2, got)),
-                  "2-D wave_step differs from the S=1 batch")
-        del args, got, want
-    torch.cuda.empty_cache()
-    emit({"phase": "step_vs_plain", "tolerance": TOL, "cases": cases})
+    cases = run_step_vs_plain(dev, rng)
+    step_err = max(c["max_abs_diff"] for c in cases)
+    emit({"phase": "step_vs_plain", "contract": "bitwise",
+          "tolerance": 0.0, "cases": cases})
 
     # 5. session: the main path
     session_launches, session = run_session(dev)
@@ -375,7 +432,7 @@ def main() -> int:
     emit(production)
 
     # 9. autotune
-    emit(run_autotune(dev, step_inputs, inputs))
+    emit(run_autotune(dev, step_args, inputs))
 
     # 10.-13. the LM serving slice
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -420,12 +477,13 @@ def main() -> int:
     steps_t = {}
     for label, (ns, nz, nx) in (("600", (4, 600, 600)),
                                 ("4096", (4, 4096, 4096))):
-        args = step_inputs(ns, nz, nx)
+        args = step_args(ns, nz, nx)
         got = kernel.wave_step_cuda(*args)
         want = ref.wave_step_ref(*args)
         torch.cuda.synchronize()
         err = max_diff(got, want)
-        check(err <= TOL, f"step kernel vs plain at {label}: {err} > {TOL}")
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"step kernel vs plain at {label}: not bitwise ({err})")
         del got, want
         small = label == "600"
         ms = tune.device_time_ms(lambda: kernel.wave_step_cuda(*args),
@@ -438,6 +496,7 @@ def main() -> int:
                               bound_by=by, max_abs_err=err)
         del args
         torch.cuda.empty_cache()
+    step_sweep = run_step_sweep(dev, step_args, bw, f32)
     t6, t4k = timings["600"], timings["4096"]
     s6, s4k = timings["600 S=1"], timings["4096 S=1"]
     w6, w4k = steps_t["600"], steps_t["4096"]
@@ -479,6 +538,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/stencil/csrc/wave_step.cu",
         "replaces": "src/repro/kernels/stencil/kernel.py:157",
         "launches": calib["wave_step_launches"],
+        "launches_600": calib["gamma"]["paper"]["wave_step_launches"],
+        "launches_4096": calib["gamma"]["production"]["wave_step_launches"],
+        "launches_scan": scan["wave_step_launches"],
         "max_abs_err": max(step_err, w6["max_abs_err"], w4k["max_abs_err"]),
         "ms": w6["ms"],
         "plain_ms": w6["plain_ms"],
@@ -490,6 +552,13 @@ def main() -> int:
         "plain_ms_4096": w4k["plain_ms"],
         "bound_ms_4096": w4k["bound_ms"],
         "shape_4096": "S=4, 4096x4096",
+        "sweep": step_sweep,
+        "design": "streaming, no shared memory and no barrier: a thread "
+                  "walks a strip of 4 (2 on narrow fields) rows of 4 "
+                  "(2, 1) columns with p's five rows in registers and "
+                  "one row of loads in flight; x neighbours by warp "
+                  "shuffles; one shot a CTA, the shot the fastest block "
+                  "index",
         "library": "none: no single PyTorch call computes the damped "
                    "leapfrog step with its 4th-order Laplacian",
     }
@@ -498,6 +567,41 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+#: the gamma sweeps' (S, NZ, NX) (``run_calibration``)
+GAMMA_SHAPES = [(4, 4096, w) for w in (512, 1024, 2048, 4096)] \
+    + [(4, 600, w) for w in (128, 192, 256, 384, 512, 600)]
+
+
+def run_step_sweep(dev, step_args, bw, f32) -> list[dict]:
+    """The step kernel at every gamma-sweep shape: bitwise against its
+    plain version, then its device ms beside its bound and the launch
+    the wrapper made (columns and rows a thread)."""
+    from repro_torch.kernels.stencil import kernel, ref, tune
+
+    out = []
+    for ns, nz, nx in GAMMA_SHAPES:
+        args = step_args(ns, nz, nx)
+        got = kernel.wave_step_cuda(*args)
+        launch = kernel.wave_step_cuda.last_launch
+        want = ref.wave_step_ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"step sweep {nz}x{nx}: not bitwise "
+              f"(max |diff| {max_diff(got, want)})")
+        del got, want
+        ms = tune.device_time_ms(lambda: kernel.wave_step_cuda(*args),
+                                 reps=200 if nz == 600 else 20)
+        bound, _ = bound_ms(kernel.step_bytes(ns, nz, nx),
+                            kernel.step_flops(ns, nz, nx), bw, f32)
+        check(math.isfinite(ms) and ms > 0, f"step sweep {nz}x{nx}: {ms}")
+        out.append({"nz": nz, "nx": nx, "ms": ms, "bound_ms": bound,
+                    "vec": launch["vec"], "rows": launch["rows"],
+                    "bitwise": True})
+        del args
+    torch.cuda.empty_cache()
+    return out
 
 
 def bound_ms(nbytes, flops, bw, peak) -> tuple[float, str]:
@@ -854,18 +958,24 @@ def run_calibration(dev):
          [512, 1024, 2048, 4096], 20),
     ):
         # fit_gamma_model's two steps, kept apart so the samples print
+        before = wave_step_cuda.launches
         g, t = measure_gamma_sweep(base, widths, steps=steps, device=dev)
+        launches = wave_step_cuda.launches - before
         model = GammaModel.fit(g, t, name="fwi-width")
         check(all(math.isfinite(x) and x > 0 for x in t),
               f"gamma sweep at {label} height: times {t}")
         if label == "production":
             check(model.a > 0, f"t(gamma) does not grow with width at "
                                f"nz={base.nz}: a = {model.a}")
-        expected += len(widths) * 3 * steps       # warm-up + 2 repeats
+        want = len(widths) * 3 * steps            # warm-up + 2 repeats
+        check(launches == want, f"gamma sweep at {label} height: "
+                                f"{launches} step launches, not {want}")
+        expected += want
         heights[label] = {"nz": base.nz, "shots": base.n_shots,
                           "steps": steps, "widths": g, "s_per_step": t,
                           "a": model.a, "b": model.b,
-                          "r2": model.r2(g, t)}
+                          "r2": model.r2(g, t),
+                          "wave_step_launches": launches}
     step_launches = wave_step_cuda.launches
     check(step_launches == expected,
           f"gamma sweep: {step_launches} step launches, not {expected}")
@@ -925,7 +1035,7 @@ def run_calibration(dev):
     }
 
 
-def run_autotune(dev, step_inputs, block_inputs):
+def run_autotune(dev, step_args, block_inputs):
     """Both tile sweeps at 600² and 4096² (S=4); every candidate held
     bitwise to the plain version at 600²; a short tuned session."""
     from repro_torch.core import PodSpec, Resources
@@ -960,7 +1070,7 @@ def run_autotune(dev, step_inputs, block_inputs):
                              "ms": stp[step_default]},
         }
 
-    args = step_inputs(4, 600, 600)
+    args = step_args(4, 600, 600)
     want = ref.wave_step_ref(*args)
     for t in tune.step_candidates():
         got = kernel.wave_step_cuda(*args, tile=t)

@@ -11,7 +11,10 @@ Its least traffic per block is ``block_bytes(S, NZ, NX, k)``.
 step with no source and no receiver.  It replaces ``wave_step_pallas``
 (``kernel.py:157``), which the JAX package vmaps over shots.  Its least
 traffic per step is ``step_bytes(S, NZ, NX)``.  Both kernels are bound
-by memory.
+by memory.  The step kernel streams: each thread walks a strip of rows
+of V adjacent columns with no shared memory, and ``step_launch``
+derives V, the strip's rows and the CTA's threads from the tile, the
+shape and the tensors' alignment.
 
 Each wrapper checks what its kernel takes and raises on anything else,
 allocates the outputs, launches on PyTorch's current stream without
@@ -42,9 +45,19 @@ LAUNCHES = ((8, 2, 256), (4, 2, 512), (4, 1, 768), (8, 1, 576))
 WINDOWS = 2
 #: block-kernel CTAs per SM that ``shot_groups`` aims the grid at
 CTAS_PER_SM = 4
-#: owned output tile of one step-kernel CTA (rows, columns)
-TILE_Z = 32
-TILE_X = 32
+#: owned output tile of one step-kernel CTA (rows, columns): the
+#: fastest at 600² and within 2 % of the fastest at 4096² on the H100
+#: (``tools/step_bench.py --variants``, ``PERF.md`` §6)
+TILE_Z = 16
+TILE_X = 128
+#: rows of the strip one step-kernel thread walks, longest first: 4
+#: was the fastest at 600² and 4096², 2 only on narrow fields
+STEP_ROWS = (4, 2)
+#: columns a step-kernel thread may own, most first (``step_vector``)
+STEP_VECTORS = (4, 2, 1)
+#: step-kernel threads per SM that ``step_launch`` aims the grid at: at
+#: nz=600 strips of 4 rows lead from 384 columns up, 2 rows below
+STEP_THREADS_PER_SM = 384
 #: owned output tile of one block-kernel CTA (rows, columns)
 BLOCK_TILE = (32, 64)
 #: shared memory one CTA may use on Hopper
@@ -73,7 +86,7 @@ def _step_lib() -> ctypes.CDLL:
     """The step kernel's library, built at first use, with its C
     signatures."""
     lib = build.load("wave_step")
-    lib.wave_step_shots_launch.argtypes = [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP]
+    lib.wave_step_shots_launch.argtypes = [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP]
     lib.wave_step_shots_launch.restype = _INT
     lib.wave_step_error_string.argtypes = [_INT]
     lib.wave_step_error_string.restype = ctypes.c_char_p
@@ -129,10 +142,62 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def step_smem_bytes(tz: int = TILE_Z, tx: int = TILE_X) -> int:
-    """Dynamic shared memory of one step-kernel CTA: the (tz+4, tx+4)
-    window of p and the (tz, tx) v2dt2 and sponge tiles, f32."""
-    return ((tz + 2 * HALO) * (tx + 2 * HALO) + 2 * tz * tx) * 4
+def step_vector(nx: int, addresses=()) -> int:
+    """Columns per step-kernel thread: 4, 2 or 1, the most for which NX
+    and every tensor's address allow one aligned 16-, 8- or 4-byte
+    access per row."""
+    for vec in STEP_VECTORS[:-1]:
+        if nx % vec == 0 and all(a % (4 * vec) == 0 for a in addresses):
+            return vec
+    return 1
+
+
+def step_shapes(tile, vec: int) -> list[tuple[int, int]]:
+    """(rows per thread, threads) of every strip length in ``STEP_ROWS``
+    with which a (tz, tx) tile launches at ``vec`` columns a thread,
+    longest strip first: tx/vec lanes across (8, 16 or a multiple of
+    32: a shuffle segment), tz/rows strips down, a whole number of warps
+    and at most 1024/vec threads (the kernel's launch bounds)."""
+    tz, tx = tile
+    if tx % vec:
+        return []
+    lanes = tx // vec
+    if lanes not in (8, 16) and lanes % 32:
+        return []
+    out = []
+    for rows in STEP_ROWS:
+        threads = lanes * (tz // rows)
+        if tz % rows == 0 and threads % 32 == 0 \
+                and 0 < threads <= 1024 // vec:
+            out.append((rows, threads))
+    return out
+
+
+def step_tile_launches(tile) -> bool:
+    """Whether a (tz, tx) tile launches at every column count in
+    ``STEP_VECTORS``, so whatever NX and the tensors' alignment give.
+    The wrapper takes no other tile, and the tuner offers no other."""
+    return all(step_shapes(tile, vec) for vec in STEP_VECTORS)
+
+
+def step_launch(ns: int, nz: int, nx: int, tile, vec: int, sms: int
+                ) -> dict | None:
+    """The step kernel's launch for an (ns, nz, nx) batch: ``vec``
+    columns a thread, the longest strip whose grid still has
+    ``STEP_THREADS_PER_SM`` threads on each of ``sms`` SMs (else the
+    shortest that launches), one shot per CTA (the shot is the fastest
+    block index).  None if the tile cannot launch at ``vec``."""
+    shapes = step_shapes(tile, vec)
+    if not shapes:
+        return None
+    tz, tx = tile
+    tiles = -(-nz // tz) * -(-nx // tx)
+    rows, threads = next(
+        (s for s in shapes
+         if ns * tiles * s[1] >= STEP_THREADS_PER_SM * sms),
+        shapes[-1])
+    return {"vec": vec, "rows": rows, "threads": threads,
+            "blocks": tiles * ns}
 
 
 def block_bytes(ns: int, nz: int, nx: int, k: int) -> int:
@@ -278,24 +343,40 @@ def wave_step_cuda(
     _check("p_prev", p_prev, f32, (ns, nz, nx), dev)
     _check("v2dt2", v2dt2, f32, (nz, nx), dev)
     _check("sponge", sponge, f32, (nz, nx), dev)
-    tz, tx = _check_tile(tile, step_smem_bytes(*tile))
+    tile = tuple(int(v) for v in tile)
+    if not step_tile_launches(tile):
+        raise ValueError(f"tile {tile} does not launch at every column "
+                         f"count a thread (kernel.step_shapes)")
     p_next = torch.empty_like(p)
     p_damped = torch.empty_like(p)
-    if ns == 0 or nz == 0 or nx == 0:
-        return p_next, p_damped
+    tensors = (p, p_prev, v2dt2, sponge, p_next, p_damped)
+    vec = step_vector(nx, [t.data_ptr() for t in tensors])
+    launch = step_launch(ns, nz, nx, tile, vec, _sm_count(dev.index or 0))
+    if ns and nz and nx:
+        _launch_step(tensors, tile, launch)
+    return p_next, p_damped
+
+
+wave_step_cuda.launches = 0
+#: the ``step_launch`` dict of the last launch made
+wave_step_cuda.last_launch = None
+
+
+def _launch_step(tensors, tile, launch: dict) -> None:
+    """Launch the step kernel on (p, p_prev, v2dt2, sponge, p_next,
+    p_damped) as ``launch`` says; raises if the launch is refused.
+    Records ``launch`` in ``wave_step_cuda.last_launch``."""
+    p = tensors[0]
+    ns, nz, nx = p.shape
     lib = _step_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    with torch.cuda.device(p.device):
         err = lib.wave_step_shots_launch(
-            p.data_ptr(), p_prev.data_ptr(), v2dt2.data_ptr(),
-            sponge.data_ptr(), p_next.data_ptr(), p_damped.data_ptr(),
-            ns, nz, nx, tz, tx, stream,
+            *(t.data_ptr() for t in tensors), ns, nz, nx, *tile,
+            launch["vec"], launch["rows"], stream,
         )
     if err != 0:
         msg = lib.wave_step_error_string(err).decode()
         raise RuntimeError(f"wave_step_shots launch failed: {msg} ({err})")
     wave_step_cuda.launches += 1
-    return p_next, p_damped
-
-
-wave_step_cuda.launches = 0
+    wave_step_cuda.last_launch = dict(launch, tile=tuple(tile))

@@ -9,8 +9,10 @@ JAX package's TPU strip tuners (``kernels/stencil/kernel.py``).
   session runs that same shot-batched kernel, so it tunes the kernel
   that will run.
 
-Candidates whose shared memory exceeds ``MAX_SMEM_BYTES``, or whose
-window needs more threads than the block kernel takes, are skipped.
+Block-kernel candidates whose shared memory exceeds ``MAX_SMEM_BYTES``,
+or whose window needs more threads than the kernel takes, are skipped;
+step-kernel tiles are kept where they launch at every column count a
+thread may get (``step_tile_launches``).
 Each candidate is timed on the device by ``device_time_ms``.  The
 sweeps are memoized per (shape, shot count, candidates, card name), so
 a session rebuilt after a resize reuses the choice.  They time the card and raise on any other device:
@@ -28,22 +30,23 @@ from repro_torch.kernels.stencil.kernel import (
     MAX_SMEM_BYTES,
     launch_shape,
     smem_bytes,
-    step_smem_bytes,
+    step_tile_launches,
     wave_block_shots_cuda,
     wave_step_cuda,
 )
 
 #: CTA tiles (rows, columns) the sweeps try
-STEP_TILES = ((8, 64), (16, 32), (16, 64), (16, 128), (32, 32), (32, 64),
-              (32, 128), (64, 32), (64, 64))
+STEP_TILES = ((4, 256), (8, 128), (8, 256), (8, 512), (16, 64), (16, 128),
+              (16, 256), (32, 64), (32, 128), (64, 64))
 BLOCK_TILES = ((16, 32), (16, 64), (32, 32), (32, 64), (32, 128),
                (64, 32), (64, 64))
 BLOCK_KS = (1, 2, 4, 8)
 
 
 def step_candidates(tiles=STEP_TILES) -> list[tuple[int, int]]:
-    """The step-kernel tiles that fit one CTA's shared memory."""
-    return [tuple(t) for t in tiles if step_smem_bytes(*t) <= MAX_SMEM_BYTES]
+    """The step-kernel tiles that launch at 4, 2 and 1 columns a thread
+    (whatever NX and the tensors' alignment give)."""
+    return [tuple(t) for t in tiles if step_tile_launches(t)]
 
 
 def block_candidates(tiles=BLOCK_TILES, ks=BLOCK_KS

@@ -17,7 +17,10 @@ Tolerances, each with its reason:
   1e-6·max|ref| of the JAX package's jitted ``make_scan_runner``, which
   XLA:CPU compiles with FMA contraction.
 * On the card (marked ``gpu``) the CUDA kernel is bitwise equal to its
-  plain version, at every tile the tuners try.
+  plain version, at every tile the tuners try, at 1, 2 and 4 columns a
+  thread (NX % 4 and offset inputs) and with fewer rows than a strip.
+* On the CPU the step kernel's launch rule (``kernel.step_launch``) is
+  pinned at the shapes the engines run and checked to cover every tile.
 """
 import numpy as np
 import pytest
@@ -125,18 +128,100 @@ def test_step_bound_and_shared_memory_model():
     assert kernel.step_bytes(4, 600, 600) == 25_920_000
     assert kernel.step_bytes(4, 4096, 4096) == 1_207_959_552
     assert kernel.step_flops(4, 600, 600) == 24_480_000
-    assert kernel.step_smem_bytes(32, 32) == (36 * 36 + 2 * 32 * 32) * 4
     assert kernel.step_bytes(1, 5, 7) == kernel.block_bytes(1, 5, 7, 1) \
         - 4 * 7
-    # every candidate the tuners keep fits; the ones they drop do not
-    for t in tune.step_candidates(((8, 64), (128, 256))):
-        assert kernel.step_smem_bytes(*t) <= kernel.MAX_SMEM_BYTES
-    assert tune.step_candidates(((128, 256),)) == []
+    # the streaming kernel holds p in registers and uses no shared
+    # memory; every candidate the tuner keeps launches at 4, 2 and 1
+    # columns a thread; the ones it drops do not (too many threads, or
+    # lanes that are no shuffle segment)
+    kept = tune.step_candidates(((8, 64), (128, 256), (64, 256), (8, 48)))
+    assert kept == [(8, 64)]
+    for t in tune.step_candidates():
+        assert all(kernel.step_shapes(t, v) for v in (4, 2, 1))
+    assert (kernel.TILE_Z, kernel.TILE_X) in tune.step_candidates()
     pairs = tune.block_candidates()
     assert ((64, 64), 8) in pairs
     assert all(kernel.smem_bytes(k, *t) <= kernel.MAX_SMEM_BYTES
                for t, k in pairs)
     assert tune.block_candidates(((64, 128),), (8,)) == []
+
+
+@pytest.mark.parametrize("nx,addresses,vec", [
+    (600, (0, 512, 1024), 4),    # 16-byte rows and addresses
+    (1026, (0, 512), 2),         # NX % 4 = 2
+    (1025, (0,), 1),             # NX % 4 = 1
+    (1027, (0,), 1),             # NX % 4 = 3
+    (600, (0, 4), 1),            # an address 4 bytes into its allocation
+    (600, (8, 0), 2),            # 8 bytes in
+    (3, (), 1),
+])
+def test_step_columns_per_thread(nx, addresses, vec):
+    assert kernel.step_vector(nx, addresses) == vec
+
+
+@pytest.mark.parametrize("tile,ok", [
+    ((16, 128), True),      # the default
+    ((8, 512), True),       # 1024 threads at one column a thread
+    ((4, 32), False),       # launches at one column a thread only
+    ((64, 256), False),     # too many threads at every column count
+    ((16, 96), False),      # 24, 48, 96 lanes: no shuffle segment
+    ((5, 128), False),      # rows no whole number of strips
+    ((0, 128), False),
+    ((16, 0), False),
+])
+def test_step_tile_rule(tile, ok):
+    """The wrapper takes a tile, and the tuner offers it, only where it
+    launches at every column count a thread, so whether a tile is taken
+    never depends on NX or on the tensors' alignment."""
+    assert kernel.step_tile_launches(tile) is ok
+    assert (tune.step_candidates((tile,)) == [tile]) is ok
+    if ok:
+        for vec in kernel.STEP_VECTORS:
+            assert kernel.step_launch(2, 601, 598, tile, vec, 132)
+
+
+@pytest.mark.parametrize("shape,vec,rows,threads,blocks", [
+    # default tile (16, 128) on a 132-SM card
+    ((4, 600, 600), 4, 4, 128, 4 * 38 * 5),
+    ((4, 600, 128), 4, 2, 256, 4 * 38),       # small grid: 2-row strips
+    ((4, 4096, 4096), 4, 4, 128, 4 * 256 * 32),
+    ((4, 4096, 512), 4, 4, 128, 4 * 256 * 4),
+    ((2, 601, 598), 2, 4, 256, 2 * 38 * 5),   # part strip, ragged tile
+    ((2, 4096, 1027), 1, 4, 512, 2 * 256 * 9),
+    ((2, 3, 260), 4, 2, 256, 2 * 1 * 3),      # fewer rows than a strip
+    ((1, 37, 53), 1, 2, 1024, 1 * 3 * 1),
+])
+def test_step_launch_rule(shape, vec, rows, threads, blocks):
+    ns, nz, nx = shape
+    tile = (kernel.TILE_Z, kernel.TILE_X)
+    got = kernel.step_launch(ns, nz, nx, tile, vec, 132)
+    assert got == {"vec": vec, "rows": rows, "threads": threads,
+                   "blocks": blocks}
+    # the CTA's strips cover its tile once: lanes x strips x cells
+    assert threads * rows * vec == tile[0] * tile[1]
+
+
+def test_step_launch_rule_covers_every_tile():
+    """At every candidate tile and column count the launch is a whole
+    number of warps within the kernel's bounds, its strips cover the
+    tile, and the grid covers the field once per shot."""
+    rng = np.random.default_rng(21)
+    for tile in tune.step_candidates():
+        for vec in (4, 2, 1):
+            for _ in range(4):
+                ns, nz, nx = (int(rng.integers(1, 5)),
+                              int(rng.integers(1, 700)),
+                              int(rng.integers(1, 700)))
+                got = kernel.step_launch(ns, nz, nx, tile, vec,
+                                         int(rng.integers(1, 200)))
+                assert got["rows"] in kernel.STEP_ROWS
+                assert got["threads"] % 32 == 0
+                assert got["threads"] <= 1024 // vec
+                assert got["threads"] * got["rows"] * vec \
+                    == tile[0] * tile[1]
+                assert got["blocks"] == ns * -(-nz // tile[0]) \
+                    * -(-nx // tile[1])
+    assert kernel.step_launch(1, 64, 64, (8, 48), 4, 132) is None
 
 
 # ------------------------------------------------------ the engines
@@ -233,8 +318,12 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 37, 53), (3, 64, 96), (2, 5, 3),
-                                   (4, 130, 70)])
+@pytest.mark.parametrize("shape", [
+    (1, 37, 53), (3, 64, 96), (2, 5, 3), (4, 130, 70),
+    (2, 70, 1025), (2, 70, 1026), (2, 70, 1027),   # NX % 4 = 1, 2, 3
+    (2, 3, 260), (3, 1, 64),                       # NZ below a strip
+    (1, 601, 598), (1, 4, 128),                    # S = 1
+])
 def test_step_kernel_bitwise_on_card(cuda_device, shape):
     args = [t.to(cuda_device) for t in _torch(_inputs(11, shape))]
     before = kernel.wave_step_cuda.launches
@@ -247,7 +336,33 @@ def test_step_kernel_bitwise_on_card(cuda_device, shape):
 
 
 @pytest.mark.gpu
+def test_step_kernel_bitwise_on_offset_inputs(cuda_device):
+    """Inputs 4 and 8 bytes into their allocations take the kernel's 1-
+    and 2-column paths at an NX that is a multiple of 4."""
+    for offset in (1, 2):
+        args = []
+        for a in _inputs(14, (2, 66, 128)):
+            buf = torch.zeros(a.size + offset, device=cuda_device)
+            buf[offset:] = torch.from_numpy(a.reshape(-1)).to(cuda_device)
+            args.append(buf[offset:].view(a.shape))
+        got = kernel.wave_step_cuda(*args)
+        want = ref.wave_step_ref(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), offset
+
+
+@pytest.mark.gpu
 def test_every_tuner_tile_bitwise_on_card(cuda_device):
+    for shape in ((2, 67, 1027), (2, 40, 256)):     # 1 and 4 columns
+        args = [t.to(cuda_device) for t in _torch(_inputs(15, shape))]
+        want = ref.wave_step_ref(*args)
+        for t in tune.step_candidates():
+            got = kernel.wave_step_cuda(*args, tile=t)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+                (shape, t)
+        # a tile that would launch at one column a thread only is
+        # refused whatever the input
+        with pytest.raises(ValueError, match="tile"):
+            kernel.wave_step_cuda(*args, tile=(4, 32))
     p, pp, v2, sp = [t.to(cuda_device)
                      for t in _torch(_inputs(12, (3, 150, 170)))]
     want = ref.wave_step_ref(p, pp, v2, sp)
