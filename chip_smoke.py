@@ -67,11 +67,15 @@ Phases, each printing one JSON line:
     attention projections drawn at the fan-in of their contraction
     (``well_conditioned``).
 14. ``ssd_vs_plain``: the SSD chunk kernel against its plain version
-    (the shapes of ``tests/test_kernels.py`` in f32 and bf16, mamba2-370m's
-    served prefill in bf16 with B and C as stride-0 head broadcasts and
-    xdt as the model's permuted view, a ragged Q=96): atol 1e-5 in f32;
-    in bf16 y within 2^-8·max|y| + 2^-7·|y| and the state within 1e-5;
-    device ms against the bound and the plain version's ms.
+    on ``SSD_CASES`` (the shapes of ``tests/test_kernels.py`` in f32 and
+    bf16, a ragged Q=96, the largest N and P, mamba2-370m's served
+    prefill in bf16 on the model's views (B and C stride-0 head
+    broadcasts, xdt the model's permuted view) and with per-head B and
+    C, ragged Q and odd H on the model's views, two groups repeated per
+    head): atol 1e-5 in f32; in bf16 y within 2^-8·max|y| + 2^-7·|y| and
+    the state within 1e-5; device ms at the served shape in both
+    layouts against their bounds, the launch the wrapper made and the
+    plain version's ms.
 15. ``mamba_vs_cpu``: mamba2-370m at full width and all 48 layers, f32
     (no TF32): the same weights serve on the card (kernels) and on the
     CPU (plain versions), B=2, prompt 300 (one full chunk, one padded),
@@ -95,7 +99,9 @@ Phases, each printing one JSON line:
     ``design``);
     flash attention also at a long prompt (``ms_long``,
     ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
-    its bf16 ``design``.
+    its bf16 ``design``; the SSD kernel also with per-head B and C
+    (``ms_per_head``, ``bound_ms_per_head``), the heads a CTA took at
+    the served shape (``heads_per_cta``) and its ``design``.
 
 Then the card's ``nvidia-smi`` line, and last the contract line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -1607,24 +1613,55 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
     return [flash, norm]
 
 
-def _ssd_inputs(rng, dev, dtype, bc, h, q, n, p, model_layout=False):
+#: ssd_vs_plain's cases: (label, (BC, H, Q, N, P), dtypes, layout, rtol).
+#: Layouts (``_ssd_inputs``): "contiguous" per-head tensors; "model" the
+#: views ssd_chunked hands over (xdt a (BC, H, Q, P) view of (BC, Q, H,
+#: P), B and C one group seen by every head with stride 0); "groups2"
+#: the model's xdt with two groups of B and C repeated per head as
+#: ``models/mamba2.py::_heads`` builds them for G > 1
+SSD_CASES = [
+    *((f"test_kernels {shape}", shape, ("float32", "bfloat16"),
+       "contiguous", 0.0)
+      for shape in ((4, 2, 64, 32, 64), (2, 4, 128, 128, 64),
+                    (3, 1, 32, 16, 16))),
+    ("ragged Q=96", (2, 4, 96, 128, 64), ("float32", "bfloat16"),
+     "contiguous", 1e-6),
+    ("largest N and P", (2, 8, 256, 256, 128), ("bfloat16",), "contiguous",
+     1e-6),
+    ("ragged Q=96, model views", (2, 6, 96, 128, 64), ("bfloat16",), "model",
+     1e-6),
+    ("ragged Q=96, odd H, model views", (2, 5, 96, 128, 64), ("bfloat16",),
+     "model", 1e-6),
+    ("two groups, repeated per head", (4, 8, 256, 128, 64), ("bfloat16",),
+     "groups2", 1e-6),
+    ("mamba2-370m prefill, per-head B/C", (32, 32, 256, 128, 64),
+     ("bfloat16",), "contiguous", 1e-6),
+    ("mamba2-370m prefill, model views", (32, 32, 256, 128, 64),
+     ("bfloat16",), "model", 1e-6),
+]
+#: the served shape (mamba2-370m, 4 x 2048 tokens), timed in both layouts
+SSD_SERVED = (32, 32, 256, 128, 64)
+
+
+def _ssd_inputs(rng, dev, dtype, bc, h, q, n, p, layout="contiguous"):
     """xdt, B, C and csum from the seed as tests/test_kernels.py builds
-    them (unit normals, csum = -cumsum(uniform)).  With ``model_layout``
-    xdt is a (BC, H, Q, P) view of a (BC, Q, H, P) tensor and B and C
-    are one group seen by every head (stride 0), as ssd_chunked hands
-    them over."""
+    them (unit normals, csum = -cumsum(uniform)), in one of
+    ``SSD_CASES``' layouts."""
     def dev_t(a, dt=dtype):
         return torch.from_numpy(a).to(dev, dt)
 
-    if model_layout:
-        x = dev_t(rng.standard_normal((bc, q, h, p), dtype=np.float32)
-                  ).transpose(1, 2)
-        b, c = (dev_t(rng.standard_normal((bc, 1, q, n), dtype=np.float32)
-                      ).expand(bc, h, q, n) for _ in range(2))
-    else:
+    if layout == "contiguous":
         x = dev_t(rng.standard_normal((bc, h, q, p), dtype=np.float32))
         b, c = (dev_t(rng.standard_normal((bc, h, q, n), dtype=np.float32))
                 for _ in range(2))
+    else:
+        x = dev_t(rng.standard_normal((bc, q, h, p), dtype=np.float32)
+                  ).transpose(1, 2)
+        g = 1 if layout == "model" else 2
+        b, c = (dev_t(rng.standard_normal((bc, g, q, n), dtype=np.float32))
+                for _ in range(2))
+        b, c = ((t.expand(bc, h, q, n) for t in (b, c)) if g == 1 else
+                (t.repeat_interleave(h // g, dim=1) for t in (b, c)))
     cs = -np.cumsum(rng.uniform(size=(bc, h, q)).astype(np.float32), -1)
     return x, b, c, dev_t(cs, torch.float32)
 
@@ -1639,47 +1676,60 @@ def _ssd_ok(dtype, got, want, rtol=0.0) -> tuple[float, bool]:
     return max(ey, es), oky and oks
 
 
+def check_ssd_cases(dev, rng) -> tuple[list[dict], float]:
+    """Every ``SSD_CASES`` case through the kernel's wrapper against the
+    plain version; raises on the first that fails.  Returns the cases
+    and the worst error."""
+    from repro_torch.kernels.ssd import kernel, ref
+
+    cases, worst = [], 0.0
+    for label, shape, dtypes, layout, rtol in SSD_CASES:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            args = _ssd_inputs(rng, dev, dtype, *shape, layout=layout)
+            got = kernel.ssd_chunk_cuda(*args)
+            launch = kernel.ssd_chunk_cuda.last_launch
+            want = ref.ssd_chunk_ref(*args)
+            torch.cuda.synchronize()
+            err, ok = _ssd_ok(dtype, got, want, rtol)
+            worst = max(worst, err)
+            cases.append({"case": label, "BC_H_Q_N_P": list(shape),
+                          "dtype": dt, "layout": layout,
+                          "heads_per_cta": launch["heads_per_cta"],
+                          "max_abs_diff_y_state": [
+                              float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)],
+                          "max_abs_y": float(want[0].float().abs().max())})
+            check(ok, f"ssd kernel vs plain {label} {dtype}: {cases[-1]}")
+            del args, got, want
+    torch.cuda.empty_cache()
+    return cases, worst
+
+
 def run_ssd_vs_plain(dev, rng, bw, bf16):
     """The SSD chunk kernel against its plain version on card tensors
-    from the seed; times the served shape."""
+    from the seed; times the served shape on the model's views and with
+    per-head B and C."""
     from repro_torch.kernels.ssd import kernel, ref
     from repro_torch.kernels.stencil.tune import device_time_ms
 
-    cases, worst = [], 0.0
-    f32, bt = torch.float32, torch.bfloat16
-    plan = [(f"test_kernels {shape}", shape, dt, False)
-            for shape in ((4, 2, 64, 32, 64), (2, 4, 128, 128, 64),
-                          (3, 1, 32, 16, 16)) for dt in (f32, bt)]
-    plan += [("ragged Q=96", (2, 4, 96, 128, 64), dt, False)
-             for dt in (f32, bt)]
-    plan += [("mamba2-370m prefill, model views", (32, 32, 256, 128, 64),
-              bt, True)]
-    for label, shape, dtype, layout in plan:
-        args = _ssd_inputs(rng, dev, dtype, *shape, model_layout=layout)
-        got = kernel.ssd_chunk_cuda(*args)
-        want = ref.ssd_chunk_ref(*args)
-        torch.cuda.synchronize()
-        rtol = 1e-6 if label.startswith(("ragged", "mamba")) else 0.0
-        err, ok = _ssd_ok(dtype, got, want, rtol)
-        worst = max(worst, err)
-        cases.append({"case": label, "BC_H_Q_N_P": list(shape),
-                      "dtype": str(dtype).split(".")[-1],
-                      "max_abs_diff_y_state": [
-                          float((g.float() - w.float()).abs().max())
-                          for g, w in zip(got, want)],
-                      "max_abs_y": float(want[0].float().abs().max())})
-        check(ok, f"ssd kernel vs plain {label} {dtype}: {cases[-1]}")
-        if layout:
-            timed = args
-        else:
-            del args
-        del got, want
-    BC, H, Q, N, P = 32, 32, 256, 128, 64
+    cases, worst = check_ssd_cases(dev, rng)
+    BC, H, Q, N, P = SSD_SERVED
+    timed = _ssd_inputs(rng, dev, torch.bfloat16, *SSD_SERVED,
+                        layout="model")
     ms = device_time_ms(lambda: kernel.ssd_chunk_cuda(*timed), 50)
+    launch = kernel.ssd_chunk_cuda.last_launch
     plain_ms = device_time_ms(lambda: ref.ssd_chunk_ref(*timed), 5)
+    del timed
+    per_head = _ssd_inputs(rng, dev, torch.bfloat16, *SSD_SERVED)
+    ms_per_head = device_time_ms(lambda: kernel.ssd_chunk_cuda(*per_head),
+                                 50)
+    launch_per_head = kernel.ssd_chunk_cuda.last_launch
+    del per_head
     bound, by = bound_ms(kernel.ssd_bytes(BC, H, Q, N, P, 2, 1),
                          kernel.ssd_flops(BC, H, Q, N, P), bw, bf16)
-    del timed
+    bound_ph, by_ph = bound_ms(kernel.ssd_bytes(BC, H, Q, N, P, 2, H),
+                               kernel.ssd_flops(BC, H, Q, N, P), bw, bf16)
     torch.cuda.empty_cache()
     return {"phase": "ssd_vs_plain",
             "tolerance": {"float32": SSD_TOL, "bfloat16_y": SSD_BF16_Y,
@@ -1689,7 +1739,11 @@ def run_ssd_vs_plain(dev, rng, bw, bf16):
                                "B/C stride-0 over heads, xdt the model's "
                                "view (mamba2-370m, 4 x 2048 tokens)",
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by,
+                      "bound_by": by, "launch": launch,
+                      "ms_per_head": ms_per_head,
+                      "bound_ms_per_head": bound_ph,
+                      "bound_by_per_head": by_ph,
+                      "launch_per_head": launch_per_head,
                       "bytes": kernel.ssd_bytes(BC, H, Q, N, P, 2, 1),
                       "flops": kernel.ssd_flops(BC, H, Q, N, P)}}
 
@@ -1962,6 +2016,8 @@ def ssd_kernel_entry(ssd, mserved):
     """The kernels-line entry of the SSD chunk kernel, timed at
     mamba2-370m's served prefill shape in ``ssd_vs_plain``; launches from
     the mamba_serve phase's run."""
+    from repro_torch.kernels.ssd import kernel
+
     t = ssd["timed"]
     return {
         "name": "ssd_chunk", "route": "cuda",
@@ -1971,6 +2027,10 @@ def ssd_kernel_entry(ssd, mserved):
         "max_abs_err": ssd["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "ms_per_head": t["ms_per_head"],
+        "bound_ms_per_head": t["bound_ms_per_head"],
+        "heads_per_cta": t["launch"]["heads_per_cta"],
+        "design": kernel.DESIGN,
         "library": "none: no single PyTorch call computes the masked-decay "
                    "chunk and its state",
         "shape": t["shape"],

@@ -4,8 +4,9 @@
 ``ssd_chunk_cuda`` replaces the JAX package's ``ssd_chunk_pallas``
 (``kernels/ssd/kernel.py:51``): per (chunk, head) the intra-chunk
 ``y = ((C·Bᵀ)∘L)·xdt`` and the chunk-end state ``Bᵀ·diag(to_end)·xdt``,
-in one launch whose CTAs take 64 rows of q (y) or of n (state).  bf16
-runs on the tensor cores (``mma.sync``), f32 on the CUDA cores.  It is
+in one launch whose CTAs take 64 rows of q (y) or of n (state) for a
+block of heads (``launch_rule``).  bf16 runs on the tensor cores
+(``wgmma``, fed by TMA), f32 on the CUDA cores.  It is
 bound by memory; ``ssd_bytes`` and ``ssd_flops`` give its least traffic
 and work.
 
@@ -34,22 +35,81 @@ MAX_STATE = 256
 #: the kernel's grid.y and grid.z (heads, chunks) limit
 MAX_GRID_YZ = 65535
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: rows of q, n and t a CTA's tiles take
+TILE = 64
+#: the bf16 kernel's design, as chip_smoke.py reports it
+DESIGN = ("wgmma + TMA ring: two heads of a group a y CTA, a warpgroup "
+          "each, S = C·Bᵀ once for both (halves swapped through shared "
+          "memory); a 2-stage TMA ring of B_t and xdt_t on mbarriers; "
+          "y += rnd(S∘L)·xdt with A from registers, stored by TMA; a "
+          "state CTA one head and two n blocks, to_end·xdt split once "
+          "into three bf16 parts, B_tᵀ (ldmatrix.trans) · parts")
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
-    lib = build.load("ssd_chunk")
-    lib.ssd_chunk_launch.argtypes = (
-        [_VOIDP] * 6 + [_INT] * 5 + [_LL] * 15 + [_INT, _VOIDP])
+def signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signatures of ``ssd_chunk.cu``'s entries."""
+    args = [_VOIDP] * 6 + [_INT] * 5 + [_LL] * 15 + [_INT] * 3
+    lib.ssd_chunk_launch.argtypes = args + [_VOIDP]
     lib.ssd_chunk_launch.restype = _INT
+    lib.ssd_chunk_launch_role.argtypes = args + [_INT, _VOIDP]
+    lib.ssd_chunk_launch_role.restype = _INT
     lib.ssd_chunk_error_string.argtypes = [_INT]
     lib.ssd_chunk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signatures."""
+    return signatures(build.load("ssd_chunk"))
+
+
+def c_args(xdt, b, c, csum, y, state, launch: dict) -> tuple:
+    """The arguments of ``ssd_chunk_launch`` up to the stream."""
+    BC, H, Q, P = xdt.shape
+    return (xdt.data_ptr(), b.data_ptr(), c.data_ptr(), csum.data_ptr(),
+            y.data_ptr(), state.data_ptr(), BC, H, Q, b.shape[-1], P,
+            *xdt.stride()[:3], *b.stride()[:3], *c.stride()[:3],
+            *csum.stride(), *y.stride()[:3], DTYPE_CODES[xdt.dtype],
+            launch["heads_per_group"], launch["heads_per_cta"])
+
+
+def heads_per_group(b: torch.Tensor, c: torch.Tensor) -> int:
+    """H when B and C are one group seen by every head (a stride-0 head
+    axis, as ``models/mamba2.py::_heads`` hands over G = 1), else 1: a
+    copy per head, ``repeat_interleave``'s included, is taken as one
+    group per head."""
+    H = b.shape[1]
+    return H if H > 1 and b.stride(1) == 0 and c.stride(1) == 0 else 1
+
+
+def launch_rule(BC: int, H: int, Q: int, N: int, P: int, dtype,
+                hpg: int) -> dict:
+    """The kernel's launch for a (BC, H, Q, N, P) call whose heads share
+    B and C in groups of ``hpg``.
+
+    A y CTA takes 64 rows of q for ``heads_per_cta`` heads of one
+    group, one warpgroup a head: in bf16 two where heads share B and C
+    (the last block of an odd H holds one head and a warpgroup that
+    stores nothing), so C·Bᵀ and the staging of B and C are done once
+    for them; otherwise one.  A state CTA takes one head of the block
+    and ``heads_per_cta`` n blocks of 64 rows, one a warpgroup, so the
+    split of to_end·xdt is done once for them: ``n_tiles`` state CTAs a
+    head block.  grid = (y tiles then state tiles, head blocks,
+    chunks): the CTAs of one chunk are launched together and share its
+    B, C and xdt in L2."""
+    hb = 2 if dtype == torch.bfloat16 and hpg > 1 else 1
+    q_tiles = -(-Q // TILE)
+    n_tiles = hb * -(-N // (TILE * hb))
+    head_blocks = -(-H // hb)
+    return {"heads_per_group": hpg, "heads_per_cta": hb,
+            "q_tiles": q_tiles, "n_tiles": n_tiles,
+            "head_blocks": head_blocks,
+            "grid": (q_tiles + n_tiles, head_blocks, BC)}
 
 
 def ssd_bytes(bc: int, h: int, q: int, n: int, p: int, itemsize: int,
@@ -112,7 +172,8 @@ def ssd_chunk_cuda(
     for name, t in (("xdt", xdt), ("b", b), ("c", c)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
-        # the bf16 kernel moves rows in 16-byte loads of 8 values
+        # the bf16 kernel's TMA maps need 16-byte aligned bases and
+        # strides
         if xdt.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
             raise ValueError(f"{name} must be 16-byte aligned with strides "
@@ -123,20 +184,20 @@ def ssd_chunk_cuda(
                         device=xdt.device)
     if BC == 0 or H == 0 or Q == 0:
         return y, state.zero_()
+    launch = launch_rule(BC, H, Q, N, P, xdt.dtype, heads_per_group(b, c))
     lib = _lib()
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     with torch.cuda.device(xdt.device):
         err = lib.ssd_chunk_launch(
-            xdt.data_ptr(), b.data_ptr(), c.data_ptr(), csum.data_ptr(),
-            y.data_ptr(), state.data_ptr(), BC, H, Q, N, P,
-            *xdt.stride()[:3], *b.stride()[:3], *c.stride()[:3],
-            *csum.stride(), *y.stride()[:3], DTYPE_CODES[xdt.dtype],
-            stream)
+            *c_args(xdt, b, c, csum, y, state, launch), stream)
     if err != 0:
         msg = lib.ssd_chunk_error_string(err).decode()
         raise RuntimeError(f"ssd_chunk launch failed: {msg} ({err})")
     ssd_chunk_cuda.launches += 1
+    ssd_chunk_cuda.last_launch = launch
     return y, state
 
 
 ssd_chunk_cuda.launches = 0
+#: the ``launch_rule`` dict of the last launch made
+ssd_chunk_cuda.last_launch = None

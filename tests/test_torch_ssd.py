@@ -141,6 +141,43 @@ def test_bound_model():
         pairs * (128 + 64) + 256 * 128 * 64)
 
 
+def test_heads_per_group_from_strides():
+    # the model's G = 1 view (stride 0 over heads) is one group of H
+    # heads; a repeat_interleave copy (G > 1) and contiguous per-head
+    # tensors are read as one group per head
+    base = torch.zeros((2, 1, 64, 32), dtype=torch.bfloat16)
+    shared = base.expand(2, 8, 64, 32)
+    assert kernel.heads_per_group(shared, shared) == 8
+    rep = torch.zeros((2, 2, 64, 32)).repeat_interleave(4, dim=1)
+    assert kernel.heads_per_group(rep, rep) == 1
+    per_head = torch.zeros((2, 8, 64, 32))
+    assert kernel.heads_per_group(per_head, per_head) == 1
+    assert kernel.heads_per_group(shared, per_head) == 1
+    one = base.expand(2, 1, 64, 32)
+    assert kernel.heads_per_group(one, one) == 1
+
+
+@pytest.mark.parametrize("H,Q,N,P,hpg,dtype,hb", [
+    (32, 256, 128, 64, 32, torch.bfloat16, 2),    # mamba2-370m, shared
+    (32, 256, 128, 64, 1, torch.bfloat16, 1),     # per-head B and C
+    (5, 96, 128, 64, 5, torch.bfloat16, 2),       # odd H, ragged Q
+    (6, 96, 128, 16, 6, torch.bfloat16, 2),
+    (3, 40, 48, 32, 3, torch.bfloat16, 2),
+    (8, 256, 256, 128, 8, torch.bfloat16, 2),
+    (8, 256, 128, 64, 8, torch.float32, 1),       # f32: one head a CTA
+], ids=str)
+def test_launch_rule_on_ragged_shapes(H, Q, N, P, hpg, dtype, hb):
+    r = kernel.launch_rule(7, H, Q, N, P, dtype, hpg)
+    assert r["heads_per_group"] == hpg and r["heads_per_cta"] == hb
+    # state CTAs a head block: each head's n blocks of 64 rows, hb a CTA
+    assert r["q_tiles"] == -(-Q // 64)
+    assert r["n_tiles"] == hb * -(-N // (64 * hb))
+    assert r["n_tiles"] * 64 >= N and r["n_tiles"] % hb == 0
+    # every head in exactly one block, the last one possibly part full
+    assert (r["head_blocks"] - 1) * hb < H <= r["head_blocks"] * hb
+    assert r["grid"] == (r["q_tiles"] + r["n_tiles"], r["head_blocks"], 7)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -149,8 +186,12 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES + [(2, 4, 96, 128, 64),
-                                            (4, 8, 256, 128, 64)], ids=str)
+@pytest.mark.parametrize("shape", SHAPES + [
+    (2, 4, 96, 128, 64), (4, 8, 256, 128, 64),
+    # on the model's stride-0 views: mamba2-370m's heads at Q = 256 and a
+    # ragged Q = 96; the largest N and P
+    (2, 32, 256, 128, 64), (2, 32, 96, 128, 64), (2, 4, 128, 256, 128)],
+    ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
