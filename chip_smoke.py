@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
    PyTorch version on the same card tensors, unit-normal inputs from a
    fixed seed (``BLOCK_CASES``: ragged 37 x 53, sources on tile seams
    and field edges, k = 1, 3, 4, 8, 600 x 600, 4096 x 4096 S=4 k=8,
-   and the 2-D entry); fails unless every output is bitwise equal.
+   the striped engine's window shapes ``WINDOW_CASES`` with zero
+   amplitudes on clipped columns, and the 2-D entry); fails unless
+   every output is bitwise equal.
 4. ``step_vs_plain``: the CUDA step kernel likewise, bitwise
    (``STEP_CASES``: ragged 37 x 53, 64 x 96, NX of 3, 3 rows, 600 x 600,
    600 x 128, 601 x 598, NX % 4 of 1, 2 and 3 at 4096 rows, inputs offset from
@@ -20,42 +22,54 @@ Phases, each printing one JSON line:
    2-D entry).
 5. ``session``: the main path at the paper's size (``FWIConfig()``:
    600 x 600, 4 shots, 600 steps) — ``ElasticOrchestrator`` drives
-   ``fwi_session_factory(device="cuda")`` through a scripted GROW and
-   RETIRE (checkpoint -> new session -> restore), a ``PreemptionGuard``
-   snapshot is saved and loaded mid-run and resumed to the end.  The
-   kernel's launch count must equal the blocks dispatched, and the
-   final field must match the plain version on the CPU within
-   1e-5 * max|ref|.
-6. ``scan_vs_block``: the step-at-a-time engine (``make_scan_runner``,
+   ``fwi_session_factory(stripes_for=elastic_stripes_for(1, 2),
+   device="cuda")`` through a scripted GROW onto 2 stripes and a RETIRE
+   back to 1 (checkpoint -> new session -> restore), a
+   ``PreemptionGuard`` snapshot is saved on 2 stripes and resumed on 1
+   to the end.  The kernel's launch count must equal the sessions'
+   (blocks × stripes), and the final field must be bitwise equal to
+   the plain version's on the CPU.
+6. ``striped``: the striped domain (``fwi/domain.py``) at the paper's
+   size, 600 steps, k = 4: 2 and 4 stripes under each schedule, bitwise
+   against the single-stripe block runner on the card, the launch
+   count (blocks × stripes × 1 for "fused", × 3 for the split
+   schedules), host ms per step and a profile's device ms per step
+   split into the kernel's and the copies'.
+7. ``shot_split`` (4 shots over 3 shards, bitwise against the block
+   runner) and ``seam`` (``measure_seam_latency`` at 600² and 4096², 2
+   and 4 stripes).
+8. ``scan_vs_block``: the step-at-a-time engine (``make_scan_runner``,
    one step-kernel launch per step) against the block engine over all
    600 steps at the paper's size: bitwise, traces included.
-7. ``calibration``: the paper's pre-processing phase on the card — the
+9. ``calibration``: the paper's pre-processing phase on the card — the
    gamma sweep and its linear fit at the paper's height (nz=600) and a
    production height (nz=4096), then capacity models fitted from a
    measured step time drive ``BurstPlanner`` and
    ``ElasticOrchestrator`` through a congested 600-step run that must
    burst.
-8. ``production``: ``run_forward`` at 4096 x 4096, 4 shots, 200 steps
+10. ``production``: ``run_forward`` at 4096 x 4096, 4 shots, 200 steps
    (k = 8): ms per block against the card's bound, one block held
-   bitwise to the plain version on the card.
-9. ``autotune``: the tile sweeps of both kernels at 600 x 600 and
+   bitwise to the plain version on the card; then
+   ``striped_production``: 4 stripes, "fused" and "pipeline", as
+   ``striped``.
+11. ``autotune``: the tile sweeps of both kernels at 600 x 600 and
    4096 x 4096 (S=4), every candidate held bitwise to the plain version
    at 600 x 600, and a short ``FWISession(autotune=True)`` run.
-10. ``rmsnorm_vs_plain``: the fused residual-add + RMSNorm kernel
+12. ``rmsnorm_vs_plain``: the fused residual-add + RMSNorm kernel
     against its plain version (the shapes of ``tests/test_kernels.py``,
     Yi-6B's prefill and decode rows, a ragged row count; f32 and bf16):
     |got - want| <= atol + rtol·|want| with (1e-6, 1e-6) in f32 and
     (2e-2, 2^-8) in bf16 on both outputs.
-11. ``attention_vs_plain``: the flash-attention kernel against its
+13. ``attention_vs_plain``: the flash-attention kernel against its
     plain version (the shapes of ``tests/test_kernels.py``, non-causal,
     Yi-6B's prefill in the model's layout, ragged S=300, S=1 and S=64
     at D=32 and 128, non-causal in the model's layout): atol 2e-5 in
     f32, 3e-2 in bf16.
-12. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
+14. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
     versions), B=2, prompt 128, 4 greedy steps: logits within
     1e-3·max|logit|, identical tokens, the predicted launch counts.
-13. ``serve``: Yi-6B at full width and depth in bf16 through
+15. ``serve``: Yi-6B at full width and depth in bf16 through
     ``launch/serve.py``'s functions: 4 requests of 512 prompt tokens and
     32 greedy tokens each, with prefill and decode times, peak memory,
     the kernels' launches per prefill and per decode step (equal to
@@ -66,7 +80,7 @@ Phases, each printing one JSON line:
     held at all 32 layers in bf16 within 5e-2·max|logit|, with the
     attention projections drawn at the fan-in of their contraction
     (``well_conditioned``).
-14. ``ssd_vs_plain``: the SSD chunk kernel against its plain version
+16. ``ssd_vs_plain``: the SSD chunk kernel against its plain version
     on ``SSD_CASES`` (the shapes of ``tests/test_kernels.py`` in f32 and
     bf16, a ragged Q=96, the largest N and P, mamba2-370m's served
     prefill in bf16 on the model's views (B and C stride-0 head
@@ -76,23 +90,24 @@ Phases, each printing one JSON line:
     the state within 1e-5; device ms at the served shape in both
     layouts against their bounds, the launch the wrapper made and the
     plain version's ms.
-15. ``mamba_vs_cpu``: mamba2-370m at full width and all 48 layers, f32
+17. ``mamba_vs_cpu``: mamba2-370m at full width and all 48 layers, f32
     (no TF32): the same weights serve on the card (kernels) and on the
     CPU (plain versions), B=2, prompt 300 (one full chunk, one padded),
     4 greedy steps: logits within 1e-3·max|logit|, identical tokens, the
     launch counts of ``launches_per_pass``, and the card's prefill vs
     prefill(S-1) + decode within 1e-4·max|logit|.
-16. ``mamba_serve``: mamba2-370m at full size in bf16 through
+18. ``mamba_serve``: mamba2-370m at full size in bf16 through
     ``launch/serve.py``'s functions: 4 requests of 2048 prompt tokens
     and 32 greedy tokens, with prefill and decode times, peak memory,
     launches per prefill and per step and a profile of each phase.
     Every SSD and norm call of one prefill and decode step is held to
     its plain version on the served activations, and the 48-layer bf16
     invariant within 0.1·max|logit| under the init rule itself.
-17. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
+19. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
-    (the block kernel's launches in the session, in calibration and in
-    ``production``; the step kernel's in the nz=600 and nz=4096 gamma
+    (the block kernel's launches in the session, in calibration, in
+    ``production``, ``striped``, ``striped_production`` and
+    ``shot_split``, and its device ms at each window shape; the step kernel's in the nz=600 and nz=4096 gamma
     sweeps and in ``scan_vs_block``, its device ms at every gamma-sweep
     shape beside the bound and the launch the wrapper made (``sweep``,
     each shape first held bitwise to the plain version) and its
@@ -204,16 +219,20 @@ def peaks_for(name: str) -> tuple[float, float, float]:
     raise SmokeFailure(f"no peak rates known for card {name!r}")
 
 
-def block_inputs(rng, dev, ns, nz, nx, k, *, per_shot=True, src=None):
+def block_inputs(rng, dev, ns, nz, nx, k, *, per_shot=True, src=None,
+                 zero=()):
     """Unit-normal wavefields, positive model fields, per-shot (or
     shared) amplitudes and source cells (drawn, or ``src``) from
-    ``rng``, on ``dev``: the block kernel's seven inputs."""
+    ``rng``, on ``dev``: the block kernel's seven inputs.  The shots in
+    ``zero`` get zero amplitudes (a stripe window that does not cover
+    their source)."""
     p = rng.standard_normal((ns, nz, nx), dtype=np.float32)
     pp = rng.standard_normal((ns, nz, nx), dtype=np.float32)
     v2 = rng.uniform(0.05, 0.2, (nz, nx)).astype(np.float32)
     sp = rng.uniform(0.9, 1.0, (nz, nx)).astype(np.float32)
     sv = rng.standard_normal((ns, k) if per_shot else (k,),
                              dtype=np.float32)
+    sv[list(zero)] = 0.0
     if src is None:
         src = (rng.integers(0, nz, ns), rng.integers(0, nx, ns))
     sz = np.asarray(src[0], np.int32)
@@ -235,6 +254,24 @@ def compare_block(ops, ref, args, receiver_row) -> tuple[float, bool]:
         torch.equal(g, w) for g, w in zip(got, want))
 
 
+#: the striped engine's windows (``fwi/domain.py``): label, (S, NZ, NX,
+#: k), source cells.  Shots 0 and 1 sit on the window's first and last
+#: column with zero amplitudes, as a window that does not cover a shot
+#: gives them (its clipped column); the boundary windows (3·k·HALO
+#: columns) are narrower than one CTA tile.
+WINDOW_CASES = [
+    ("stripe window 600/2 k=4", (4, 600, 316, 4),
+     ([4, 4, 300, 599], [0, 315, 7, 158])),
+    ("stripe window 600/4 k=4", (4, 600, 166, 4),
+     ([4, 4, 0, 599], [0, 165, 83, 31])),
+    ("boundary window 600 k=4", (4, 600, 24, 4),
+     ([4, 4, 300, 599], [0, 23, 12, 8])),
+    ("stripe window 4096/4 k=8", (4, 4096, 1056, 8),
+     ([4, 4, 2048, 4095], [0, 1055, 528, 31])),
+    ("boundary window 4096 k=8", (4, 4096, 48, 8),
+     ([4, 4, 2048, 0], [0, 47, 24, 16])),
+]
+
 #: kernel_vs_plain cases of the block kernel: label, (S, NZ, NX, k),
 #: input options, receiver row.  Sources sit on tile seams (rows and
 #: columns 32, 64, 2048 and one before them, seams of every
@@ -251,6 +288,8 @@ BLOCK_CASES = [
      dict(src=([64, 129, 31], [63, 202, 128])), 63),
     ("production size k=8", (4, 4096, 4096, 8),
      dict(src=([2048, 2047, 0, 4095], [2048, 0, 4095, 2047])), 2048),
+    *[(label, shape, dict(src=src, zero=(0, 1)), 2)
+      for label, shape, src in WINDOW_CASES],
 ]
 
 
@@ -425,22 +464,33 @@ def main() -> int:
     session_launches, session = run_session(dev)
     emit(session)
 
-    # 6. scan_vs_block
+    # 6. striped: this slice's path, the domain split into stripes
+    striped_launches, striped = run_striped(dev)
+    emit(striped)
+
+    # 7. shot_split and seam
+    split_launches, split = run_shot_split(dev)
+    emit(split)
+    emit(run_seam(dev))
+
+    # 8. scan_vs_block
     scan = run_scan_vs_block(dev)
     emit(scan)
 
-    # 7. calibration: the paper's pre-processing phase
+    # 9. calibration: the paper's pre-processing phase
     calib = run_calibration(dev)
     emit(calib)
 
-    # 8. production
+    # 10. production, and striped at production size
     production = run_production(dev, bw, f32)
     emit(production)
+    sprod_launches, sprod = run_striped_production(dev)
+    emit(sprod)
 
-    # 9. autotune
+    # 11. autotune
     emit(run_autotune(dev, step_args, inputs))
 
-    # 10.-13. the LM serving slice
+    # 12.-15. the LM serving slice
     torch.backends.cuda.matmul.allow_tf32 = False
     rms = run_rmsnorm_vs_plain(dev, rng)
     emit(rms)
@@ -450,7 +500,7 @@ def main() -> int:
     served = run_serve(dev)
     emit(served)
 
-    # 14.-16. the Mamba-2 serving slice
+    # 16.-18. the Mamba-2 serving slice
     ssd = run_ssd_vs_plain(dev, rng, bw, bf16)
     emit(ssd)
     emit(run_mamba_vs_cpu(dev))
@@ -460,7 +510,8 @@ def main() -> int:
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
 
-    # 17. kernels
+    # 19. kernels
+    windows = window_timings(dev, rng, bw, f32)
     timings = {}
     for label, (ns, nz, nx, k) in (("600", (4, 600, 600, 4)),
                                    ("4096", (4, 4096, 4096, 8)),
@@ -519,7 +570,11 @@ def main() -> int:
         "launches": session_launches,
         "launches_calibration": calib["wave_block_launches"],
         "launches_production": production["kernel_launches"],
-        "max_abs_err": max(t["max_abs_err"] for t in timings.values()),
+        "launches_striped": striped_launches,
+        "launches_striped_production": sprod_launches,
+        "launches_shot_split": split_launches,
+        "max_abs_err": max(t["max_abs_err"]
+                           for t in [*timings.values(), *windows]),
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"],
@@ -536,6 +591,7 @@ def main() -> int:
         "bound_ms_s1_4096": s4k["bound_ms"],
         "shape_s1": "S=1, 600x600, k=4 / S=1, 4096x4096, k=8 (the "
                     "single-shot entries)",
+        "windows": windows,
         "library": "none: no single PyTorch call computes the k-step block",
     }
     step_entry = {
@@ -660,6 +716,7 @@ def run_session(dev):
         FWISession,
         PreemptionGuard,
         TimeModel,
+        elastic_stripes_for,
         fwi_session_factory,
         load_session_snapshot,
     )
@@ -679,7 +736,9 @@ def run_session(dev):
         planner=planner, predictor=DeadlinePredictor(10_000.0),
         check_every=8, ckpt_every=96, cloud_slowdown=1.4)
     tm = TimeModel(chip_seconds_per_step=64.0, jitter=0.01)
-    base = fwi_session_factory(cfg, tm, seed=SEED, device=dev)
+    base = fwi_session_factory(cfg, tm, seed=SEED,
+                               stripes_for=elastic_stripes_for(1, 2),
+                               device=dev)
     sessions = []
 
     def factory(res, start_step, restored):
@@ -705,9 +764,14 @@ def run_session(dev):
     check(rec.completed, "orchestrated run did not complete")
     check(kinds == ["grow", "retire"], f"scale events {kinds}")
     check(len(sessions) == 3, f"{len(sessions)} sessions, expected 3")
+    stripes = [s.n_stripes for s in sessions]
+    check(stripes == [1, 2, 1], f"sessions ran on {stripes} stripes, "
+                                f"expected the GROW onto 2")
     blocks = sum(s.blocks for s in sessions)
-    check(launches > 0 and launches == blocks,
-          f"kernel launches {launches} != blocks dispatched {blocks}")
+    want = sum(s.launches for s in sessions)
+    check(launches > 0 and launches == want,
+          f"kernel launches {launches} != {want} for {blocks} blocks "
+          f"on {stripes} stripes")
     last = sessions[-1]
     check(last.t == steps, f"session ended at t={last.t}, not {steps}")
     p = last.p.cpu()
@@ -717,11 +781,14 @@ def run_session(dev):
     cpu_s = time.monotonic() - t0
     scale = float(ref.p.abs().max())
     err = float((p - ref.p).abs().max())
-    check(scale > 0 and err <= TOL * scale,
-          f"final field vs CPU plain run: {err} > {TOL} * {scale}")
+    check(scale > 0 and torch.equal(p, ref.p),
+          f"final field vs CPU plain run: not bitwise (max |diff| {err})")
 
-    # the guard's snapshot resumes to the same final field
-    check(snap_step == 296, f"snapshot at step {snap_step}")
+    # the guard's snapshot, taken on 2 stripes, resumes on 1 to the same
+    # final field
+    check(snap_step == 296 and restored["res_sig"][0] == 2,
+          f"snapshot at step {snap_step} on {restored['res_sig'][0]} "
+          f"stripes")
     resumed = FWISession(cfg, initial, snap_step, restored,
                          time_model=tm, rng=np.random.default_rng(SEED),
                          device=dev)
@@ -741,6 +808,7 @@ def run_session(dev):
         "phase": "session", "nz": cfg.nz, "nx": cfg.nx,
         "shots": cfg.n_shots, "steps": steps, "k": last.k,
         "scale_events": kinds, "sessions": len(sessions),
+        "stripes": stripes, "grown_schedule": sessions[1].runner.schedule,
         "kernel_launches": launches, "blocks_dispatched": blocks,
         "final_max_abs_diff_vs_cpu": err, "final_max_abs_ref": scale,
         "bitwise_vs_cpu": bool(torch.equal(p, ref.p)),
@@ -800,6 +868,209 @@ def run_production(dev, bw, f32):
         "block_bitwise_vs_plain": exact, "kernel_launches": launches,
         "max_abs_p": float(st.p.abs().max()),
     }
+
+
+def _copy_split(prof: dict, steps: int) -> dict:
+    """A profile's device ms per step: the block kernel's, the rest
+    (the exchange's and the stitch's copies and fills), and their
+    share."""
+    kern = sum(v for key, v in prof["by_kernel_ms"].items()
+               if "wave_block" in key)
+    rest = prof["device_ms"] - kern
+    return {"device_ms_per_step": prof["device_ms"] / steps,
+            "kernel_ms_per_step": kern / steps,
+            "copy_ms_per_step": rest / steps,
+            "copy_share": rest / prof["device_ms"],
+            "busy_share": prof["busy_share"],
+            "launches_per_step": prof["kernels_per_call"]}
+
+
+def run_striped_cfg(dev, cfg, k, stripes, schedules, prof_blocks):
+    """The striped engine at ``cfg`` against the single-stripe block
+    engine on the card: every (n, schedule) bitwise in p, p_prev and
+    traces, with the block kernel's launches counted from 0 around the
+    timed run (blocks × n × 1 for "fused", × 3 for the split
+    schedules), host ms per step, and a profile of ``prof_blocks``
+    blocks split into kernel and copy time.  Returns (launches, rows,
+    single-stripe row)."""
+    from repro_torch.fwi import domain
+    from repro_torch.fwi.solver import ShotState, make_block_runner
+    from repro_torch.kernels.stencil.kernel import wave_block_shots_cuda
+
+    steps = cfg.timesteps
+    st = ShotState.init(cfg, dev)
+    one = make_block_runner(cfg, k=k, device=dev)
+    one(st.p, st.p_prev, 0, 2 * k)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = one(st.p, st.p_prev, 0, steps)
+    torch.cuda.synchronize()
+    one_row = {"n": 1, "schedule": "block runner",
+               "host_ms_per_step": (time.monotonic() - t0) / steps * 1e3,
+               **_copy_split(profile_device(
+                   lambda: one(st.p, st.p_prev, 0, prof_blocks * k),
+                   prof_blocks * k), prof_blocks * k)}
+    check(float(ref[0].abs().max()) > 0, "the reference field is zero")
+    total, rows = 0, []
+    for n in stripes:
+        mesh = domain.stripe_mesh(n, dev)
+        for schedule in schedules:
+            run, place, kk = domain.make_sharded_scan_runner(
+                cfg, mesh, k=k, overlap=schedule)
+            check(kk == k, f"{n} stripes clamp k={k} to {kk}")
+            blocks = steps // k
+            p, pp = place((st.p, st.p_prev))
+            run(p, pp, 0, 2)                             # warm-up
+            torch.cuda.synchronize()
+            wave_block_shots_cuda.launches = 0
+            t0 = time.monotonic()
+            out = run(p, pp, 0, blocks)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = wave_block_shots_cuda.launches
+            per = 1 if schedule == "fused" else 3
+            check(launches == blocks * n * per,
+                  f"{n} stripes {schedule}: {launches} launches for "
+                  f"{blocks} blocks")
+            total += launches
+            got = (run.gather(out[0]), run.gather(out[1]), out[2])
+            same = [torch.equal(g, r) for g, r in zip(got, ref)]
+            check(all(same), f"{n} stripes {schedule} vs one stripe: not "
+                             f"bitwise {same} (max |diff| "
+                             f"{max_diff(got, ref)})")
+            del out, got
+            prof = profile_device(lambda: run(p, pp, 0, prof_blocks),
+                                  prof_blocks * k)
+            rows.append({"n": n, "schedule": schedule, "launches": launches,
+                         "bitwise": True,
+                         "host_ms_per_step": wall / steps * 1e3,
+                         **_copy_split(prof, prof_blocks * k)})
+            del p, pp
+    torch.cuda.empty_cache()
+    return total, rows, one_row
+
+
+def run_striped(dev):
+    """The striped domain at the paper's size, 600 steps, k = 4: 2 and 4
+    stripes under each schedule, all on the one card."""
+    from repro_torch.fwi.domain import SCHEDULES, pick_schedule
+    from repro_torch.fwi.solver import FWIConfig
+
+    cfg = FWIConfig()
+    launches, rows, one = run_striped_cfg(dev, cfg, 4, (2, 4), SCHEDULES,
+                                          25)
+    fastest = {n: min((r for r in rows if r["n"] == n),
+                      key=lambda r: r["host_ms_per_step"])["schedule"]
+               for n in (2, 4)}
+    return launches, {
+        "phase": "striped", "nz": cfg.nz, "nx": cfg.nx,
+        "shots": cfg.n_shots, "steps": cfg.timesteps, "k": 4,
+        "contract": "bitwise vs the single-stripe block runner",
+        "single_stripe": one, "runs": rows,
+        "fastest_host_schedule": fastest,
+        "pick_schedule": pick_schedule(dev),
+    }
+
+
+def run_striped_production(dev):
+    """The striped domain at 4096², 200 steps, k = 8: 4 stripes,
+    "fused" and "pipeline", bitwise against the production run."""
+    from repro_torch.fwi.solver import FWIConfig
+
+    cfg = FWIConfig(nz=4096, nx=4096, n_shots=4, timesteps=200)
+    launches, rows, one = run_striped_cfg(dev, cfg, 8, (4,),
+                                          ("fused", "pipeline"), 5)
+    return launches, {
+        "phase": "striped_production", "nz": cfg.nz, "nx": cfg.nx,
+        "shots": cfg.n_shots, "steps": cfg.timesteps, "k": 8,
+        "contract": "bitwise vs the single-stripe block runner",
+        "single_stripe": one, "runs": rows,
+    }
+
+
+def run_shot_split(dev):
+    """4 shots over 3 shards (padded with a copy of shot 0) at the
+    paper's size, all shards on the card: bitwise against the block
+    runner, 150 blocks × 3 shards launches."""
+    from repro_torch.fwi.solver import (
+        FWIConfig,
+        ShotState,
+        make_block_runner,
+        make_shot_parallel_runner,
+    )
+    from repro_torch.kernels.stencil.kernel import wave_block_shots_cuda
+
+    cfg = FWIConfig()
+    k, shards, steps = 4, 3, cfg.timesteps
+    st = ShotState.init(cfg, dev)
+    ref = make_block_runner(cfg, k=k, device=dev)(st.p, st.p_prev, 0, steps)
+    run, place = make_shot_parallel_runner(cfg, shards, k=k, devices=dev)
+    p, pp = place((st.p, st.p_prev))
+    check(p.shape[0] == 6, f"padded batch {tuple(p.shape)}")
+    run(p, pp, 0, 2 * k)                                 # warm-up
+    torch.cuda.synchronize()
+    wave_block_shots_cuda.launches = 0
+    t0 = time.monotonic()
+    out = run(p, pp, 0, steps)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = wave_block_shots_cuda.launches
+    check(launches == steps // k * shards,
+          f"shot split: {launches} launches for {steps // k} blocks")
+    same = [torch.equal(g, r) for g, r in zip(out, ref)]
+    check(all(same) and out[0].shape[0] == 4,
+          f"shot split vs block runner: not bitwise {same}")
+    return launches, {
+        "phase": "shot_split", "nz": cfg.nz, "nx": cfg.nx, "shots": 4,
+        "shards": shards, "padded_shots": 6, "steps": steps, "k": k,
+        "launches": launches, "bitwise": True,
+        "host_ms_per_step": wall / steps * 1e3,
+    }
+
+
+def run_seam(dev):
+    """The seam probe on the card at 600² (k = 4) and 4096² (k = 8),
+    2 and 4 stripes."""
+    from repro_torch.fwi.calibrate import measure_seam_latency
+    from repro_torch.fwi.solver import FWIConfig
+
+    rows = []
+    for cfg, k in ((FWIConfig(), 4),
+                   (FWIConfig(nz=4096, nx=4096, timesteps=200), 8)):
+        for n in (2, 4):
+            r = measure_seam_latency(cfg, n_stripes=n, k=k, iters=30,
+                                     blocks=8, device=dev)
+            check(r["backend"] == "cuda" and r["ppermute_latency_s"] > 0
+                  and r["interior_compute_s_per_step"] > 0,
+                  f"seam probe {cfg.nx}² n={n}: {r}")
+            rows.append({"nz": cfg.nz, "nx": cfg.nx, **r})
+    return {"phase": "seam", "probes": rows}
+
+
+def window_timings(dev, rng, bw, f32) -> list[dict]:
+    """The block kernel at each ``WINDOW_CASES`` shape: bitwise against
+    its plain version, then device ms beside its bound and the plain
+    version's ms."""
+    from repro_torch.kernels.stencil import kernel, ops, ref, tune
+
+    out = []
+    for label, (ns, nz, nx, k), src in WINDOW_CASES:
+        args = block_inputs(rng, dev, ns, nz, nx, k, src=src, zero=(0, 1))
+        err, exact = compare_block(ops, ref, args, 2)
+        check(exact, f"{label}: not bitwise ({err})")
+        small = nz == 600
+        ms = tune.device_time_ms(lambda: kernel.wave_block_shots_cuda(
+            *args, receiver_row=2), reps=100 if small else 20)
+        plain_ms = tune.device_time_ms(lambda: ref.wave_block_shots_ref(
+            *args, receiver_row=2), reps=5 if small else 2)
+        bound, by = bound_ms(kernel.block_bytes(ns, nz, nx, k),
+                             kernel.block_flops(ns, nz, nx, k), bw, f32)
+        out.append({"window": label, "S": ns, "nz": nz, "nx": nx, "k": k,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "max_abs_err": err})
+        del args
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_scan_vs_block(dev):

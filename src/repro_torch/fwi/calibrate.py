@@ -12,10 +12,14 @@ same two fits and the same configurations:
   slowdown K, with seeded noise; the fitting path is the one real
   hardware would run (DESIGN.md §10 records this boundary).
 
+* the seam probe (``measure_seam_latency``): the latency of one packed
+  halo exchange of the striped engine and the stripe interior's compute
+  time per step, which ``OverheadModel.with_overlapped_seam`` turns into
+  the planner's seam term.
+
 Every measurement runs on ``device`` (the card unless the caller asks
 for the CPU) and times up to ``torch.cuda.synchronize()``, so a time
-taken on the card is the card's.  ``measure_seam_latency`` needs the
-striped domain and is not ported yet.
+taken on the card is the card's.
 """
 from __future__ import annotations
 
@@ -27,9 +31,16 @@ import torch
 from repro_torch.core.capacity import LogCapacityModel
 from repro_torch.core.gamma import GammaModel
 from repro_torch.device import resolve_device
+from repro_torch.fwi.domain import (
+    HALO,
+    halo_exchange_plan,
+    make_exchange,
+    stripe_mesh,
+)
 from repro_torch.fwi.solver import (
     FWIConfig,
     ShotState,
+    make_block_runner,
     make_scan_runner,
     run_forward,
 )
@@ -78,6 +89,91 @@ def fit_gamma_model(base: FWIConfig, widths=None, *, device="cuda",
     widths = widths or [128, 192, 256, 384, 512]
     g, t = measure_gamma_sweep(base, widths, device=device, **kw)
     return GammaModel.fit(g, t, name="fwi-width")
+
+
+def measure_seam_latency(
+    cfg: FWIConfig | None = None,
+    *,
+    n_stripes: int = 2,
+    k: int = 4,
+    iters: int = 30,
+    blocks: int = 8,
+    mesh=None,
+    device="cuda",
+) -> dict:
+    """The seam probe feeding ``OverheadModel.with_overlapped_seam``,
+    with the shapes the striped engine uses:
+
+    * ``ppermute_latency_s``: the median wall time, to the last copy's
+      end, of one packed halo exchange of ``n_stripes`` stripes through
+      the striped engine's own exchange, each stripe's payload the real
+      ``bytes_per_exchange`` of ``halo_exchange_plan(cfg, n_stripes,
+      k)`` (its (S, NZ, k·HALO) edges, p and p_prev for k > 1, both
+      ways).  ``mesh`` (default: all stripes in this process on
+      ``device``) may be a ``torch.distributed`` group's, whose exchange
+      is a message between ranks; ``mesh_devices`` says how many
+      devices the stripes spanned: on one card the exchange is a copy
+      on it, not a transfer between devices.
+    * ``interior_compute_s_per_step``: the best of two timed runs of
+      the stripe interior's block engine (width ``nx / n_stripes``, k
+      steps a block, ``blocks`` blocks), per step: the compute an
+      exchange in flight can hide behind.
+
+    Returns the JAX package's keys; ``backend`` is the device type."""
+    cfg = cfg or FWIConfig()
+    plan = halo_exchange_plan(cfg, n_stripes, k=k)
+    k = int(plan["k"])                     # effective (clamped) block
+    mesh = mesh or stripe_mesh(n_stripes, device)
+    dev = mesh.devices[0]
+    fields = 1 if k == 1 else 2
+    local = len(mesh.stripes)
+    shape = (cfg.n_shots, cfg.nz, k * HALO)
+    edges = [[torch.zeros(shape, device=mesh.devices[j])
+              for _ in range(2 * fields)] for j in range(local)]
+    halos = [[torch.empty(shape, device=mesh.devices[j])
+              for _ in range(4)] for j in range(local)]
+    exchange = make_exchange(mesh)
+
+    def once():
+        exchange.wait(exchange.start(
+            [e[:fields] for e in edges], [e[fields:] for e in edges],
+            [h[:2] for h in halos], [h[2:] for h in halos], fields))
+        _sync(dev)
+
+    once()                                            # warm-up
+    ts = []
+    for _ in range(iters):
+        t0 = time.monotonic()
+        once()
+        ts.append(time.monotonic() - t0)
+    t_pp = sorted(ts)[len(ts) // 2]
+
+    icfg = FWIConfig(
+        nz=cfg.nz, nx=cfg.nx // n_stripes, dt=cfg.dt, dx=cfg.dx,
+        timesteps=cfg.timesteps, n_shots=cfg.n_shots,
+        sponge_width=cfg.sponge_width,
+    )
+    st = ShotState.init(icfg, dev)
+    blk = make_block_runner(icfg, k=k, collect_traces=False, device=dev)
+    steps = k * blocks
+    blk(st.p, st.p_prev, 0, steps)                    # warm-up
+    _sync(dev)
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.monotonic()
+        blk(st.p, st.p_prev, 0, steps)
+        _sync(dev)
+        best = min(best, time.monotonic() - t0)
+
+    return {
+        "plan": plan,
+        "ppermute_latency_s": t_pp,
+        "interior_compute_s_per_step": best / steps,
+        "n_stripes": n_stripes,
+        "mesh_devices": len(set(mesh.devices)) if mesh.group is None
+        else mesh.n,
+        "backend": dev.type,
+    }
 
 
 def measure_single_device_step(cfg: FWIConfig, steps: int = 30,

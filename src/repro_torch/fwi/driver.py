@@ -1,11 +1,14 @@
 """Self-adaptive FWI driver — the paper end-to-end on the port's solver.
 
 The counterpart of the JAX package's ``fwi/driver.py``.  An FWISession
-runs the fused block engine (``solver.make_block_runner``) on one
-device and one stripe, and the ElasticOrchestrator drives monitoring →
+runs the striped engine (``domain.make_sharded_scan_runner``) over its
+stripe count, or the fused block engine (``solver.make_block_runner``)
+on one stripe, and the ElasticOrchestrator drives monitoring →
 prediction → burst exactly as in the JAX package; CHECKPOINT and
-RESHARD are real: the fields are copied to the host and placed again
-on the device by the next session.
+RESHARD are real: the whole fields are gathered to the host and placed
+again, under the next session's stripes, by the next session.  So a
+GROW through ``elastic_stripes_for`` moves part of the domain onto the
+new stripe.
 
 Measurement is amortized over a dispatch of ``scan_block`` timesteps
 (a multiple of the block length k): the session times the dispatch up
@@ -15,8 +18,7 @@ is the card's, and reports wall/steps for each logical step inside it.
 ``autotune=True`` tunes the session's own kernel on the card: the
 shot-batched block kernel's (tile, k) at the session's shot count
 (``kernels/stencil/tune.py::autotune_block``); on the CPU it raises, as
-the plain version has no tiles.  Striping the domain over several
-devices is not in this port yet: asking for it raises.
+the plain version has no tiles.
 """
 from __future__ import annotations
 
@@ -33,13 +35,15 @@ from repro_torch.checkpoint.manager import (
 )
 from repro_torch.core.orchestrator import Resources, Session, elastic_chips
 from repro_torch.device import resolve_device
+from repro_torch.fwi.domain import (
+    effective_block,
+    make_sharded_scan_runner,
+    pick_schedule,
+    stripe_mesh,
+)
 from repro_torch.fwi.solver import FWIConfig, ShotState, make_block_runner
-from repro_torch.kernels.stencil.kernel import HALO
 from repro_torch.kernels.stencil.ops import pick_k
 from repro_torch.kernels.stencil.tune import autotune_block
-
-_STRIPES_TODO = ("striping the domain over several devices is ROADMAP "
-                 "Queue 1 item 7 (multi-device), not yet in the port")
 
 
 @dataclasses.dataclass
@@ -86,14 +90,16 @@ class FWISession(Session):
         autotune: bool = False,
         device="cuda",
     ):
-        if n_stripes is not None and n_stripes > 1:
-            raise NotImplementedError(
-                f"n_stripes={n_stripes}: {_STRIPES_TODO}")
         self.cfg = cfg
         self.res = res
         self.tm = time_model
         self.rng = rng
         self.device = resolve_device(device)
+        devices = (torch.cuda.device_count()
+                   if self.device.type == "cuda" else 1)
+        n = n_stripes or min(devices, max(res.total_chips, 1))
+        while cfg.nx % n:
+            n -= 1
         #: the block kernel's CTA tile (None: the kernel's default)
         self.tile = None
         if autotune:
@@ -101,21 +107,34 @@ class FWISession(Session):
                 raise ValueError(
                     f"autotune times the CUDA kernel's tiles; the plain "
                     f"version on {self.device} has none")
-            # tuned at the session's own shot count, on the kernel it
-            # runs; memoized, so a rebuild after a resize does not re-time
-            self.tile, k = autotune_block(cfg.nz, cfg.nx, cfg.n_shots,
+            # tuned at the session's own shot count and stripe width, on
+            # the kernel it runs; memoized, so a rebuild after a resize
+            # does not re-time
+            self.tile, k = autotune_block(cfg.nz, cfg.nx // n, cfg.n_shots,
                                           device=self.device)
         else:
             k = exchange_interval if exchange_interval is not None \
                 else pick_k(cfg.nz)
-        # the JAX package clamps k to the stripe width (effective_block)
-        self.k = max(1, min(k, cfg.nx // (2 * HALO)))
-        self.runner = make_block_runner(
-            cfg, k=self.k, collect_traces=False, tile=self.tile,
-            device=self.device)
+        # the overlap windows must fit one stripe (as the JAX package)
+        self.k = effective_block(cfg, n, k)
+        if n == 1:
+            # one stripe exchanges nothing: the block engine, whole
+            run = make_block_runner(
+                cfg, k=self.k, collect_traces=False, tile=self.tile,
+                device=self.device)
+            self.runner = lambda p, pp, t, blocks: run(p, pp, t,
+                                                       blocks * self.k)
+            self._place = self._gather = lambda x: x
+            self._launches_per_block = 1
+        else:
+            self.runner, place, _ = make_sharded_scan_runner(
+                cfg, stripe_mesh(n, self.device), k=self.k, tile=self.tile,
+                overlap=pick_schedule(self.device), collect_traces=False)
+            self._place, self._gather = place, self.runner.gather
+            self._launches_per_block = self.runner.launches_per_block
         # timesteps per measured dispatch (a multiple of k)
         self.block = max(scan_block // self.k, 1) * self.k
-        #: k-step blocks this session has dispatched (kernel launches)
+        #: k-step blocks this session has dispatched
         self.blocks = 0
         if restored is not None:
             st = ShotState(
@@ -125,7 +144,8 @@ class FWISession(Session):
             )
         else:
             st = ShotState.init(cfg, self.device)
-        self.p, self.p_prev, self.t = st.p, st.p_prev, st.t
+        self._p, self._pp = self._place(st.p), self._place(st.p_prev)
+        self.t = st.t
         # logical steps already covered by the last dispatched block —
         # carried through checkpoints so a mid-block RESHARD resumes the
         # remaining steps instead of re-dispatching
@@ -137,9 +157,9 @@ class FWISession(Session):
         # measured under; a RESHARD onto a different fleet rescales the
         # estimate by the modeled effective-throughput ratio until the
         # next dispatched block re-measures it
-        self._n_stripes = 1
+        self._n_stripes = n
         self._res_sig = (
-            1, tuple((p.chips, round(p.slowdown, 9)) for p in res.pods)
+            n, tuple((p.chips, round(p.slowdown, 9)) for p in res.pods)
         )
         self._eff = sum(
             p.chips / max(p.slowdown, 1e-9) for p in res.pods
@@ -151,6 +171,24 @@ class FWISession(Session):
                     and old_eff > 0.0 and self._eff > 0.0):
                 self._amortized *= old_eff / self._eff
 
+    @property
+    def n_stripes(self) -> int:
+        return self._n_stripes
+
+    @property
+    def p(self) -> torch.Tensor:
+        """The whole (S, NZ, NX) wavefield, gathered from the stripes."""
+        return self._gather(self._p)
+
+    @property
+    def p_prev(self) -> torch.Tensor:
+        return self._gather(self._pp)
+
+    @property
+    def launches(self) -> int:
+        """Block-kernel launches this session has made."""
+        return self.blocks * self._launches_per_block
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -159,12 +197,13 @@ class FWISession(Session):
         """Dispatch one scan block; returns amortized wall s/step."""
         self._sync()
         t0 = time.monotonic()
-        p, pp = self.runner(self.p, self.p_prev, self.t, self.block)
+        blocks = self.block // self.k
+        p, pp = self.runner(self._p, self._pp, self.t, blocks)
         self._sync()
         dt = time.monotonic() - t0
-        self.p, self.p_prev = p, pp
+        self._p, self._pp = p, pp
         self.t += self.block
-        self.blocks += self.block // self.k
+        self.blocks += blocks
         return dt / self.block
 
     def run_step(self, step: int) -> float:
@@ -313,9 +352,8 @@ class PreemptionGuard:
 def elastic_stripes_for(base_stripes: int = 1, grown_stripes: int = 2):
     """``stripes_for`` mapping for the real elastic loop (DESIGN.md
     §14): ``grown_stripes`` while an elastic (cloud/burst) pod is
-    attached, ``base_stripes`` otherwise.  The port's session runs one
-    stripe, so it takes only a mapping that stays at 1 until the
-    multi-device slice lands."""
+    attached, ``base_stripes`` otherwise, so a GROW moves the burst
+    pod's stripes of the domain onto it and a RETIRE takes them back."""
 
     def stripes(res: Resources) -> int:
         return grown_stripes if elastic_chips(res) > 0 else base_stripes

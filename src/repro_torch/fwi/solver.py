@@ -16,7 +16,11 @@ Two engines, both Python loops where the JAX package has a
   (``fwi/calibrate.py``).
 * ``make_block_runner`` advances it through k-step fused blocks, one
   ``kernels.stencil.ops.wave_block`` per block, with a tail block of
-  ``steps % k`` steps.  It is what ``run_forward`` and the session use.
+  ``steps % k`` steps.  It is what ``run_forward`` and a one-stripe
+  session use.
+* ``make_shot_parallel_runner`` splits the shot axis over shards, each
+  a block runner on its own shots (an uneven split pads with copies of
+  shot 0); ``fwi/domain.py`` splits the x-axis instead.
 
 On CUDA tensors every step or block is one launch of a Hopper kernel;
 on CPU tensors it is the plain version.  Both do the same arithmetic in
@@ -228,6 +232,38 @@ def make_scan_runner(cfg: FWIConfig, *, collect_traces: bool = False,
     return run
 
 
+def _block_loop(cfg: FWIConfig, k: int, tile, collect_traces: bool,
+                dev: torch.device):
+    """run(p, p_prev, src_z, src_x, t0, steps): the k-step block loop
+    (with its tail block) for any shot batch and source positions."""
+    mf = model_fields(cfg, dev)
+
+    def block(p, p_prev, src_z, src_x, t0, kk):
+        return wave_block(
+            p, p_prev, mf.v2dt2, mf.sponge,
+            _block_amps(mf, t0, kk, cfg.timesteps), src_z, src_x,
+            receiver_row=cfg.receiver_depth, tile=tile,
+        )
+
+    def run(p, p_prev, src_z, src_x, t0: int, steps: int):
+        nblocks, tail = divmod(steps, k)
+        traces = []
+        for b in range(nblocks):
+            p, p_prev, tr = block(p, p_prev, src_z, src_x, t0 + b * k, k)
+            traces.append(tr)
+        if tail:
+            p, p_prev, tr = block(p, p_prev, src_z, src_x,
+                                  t0 + nblocks * k, tail)
+            traces.append(tr)
+        if not collect_traces:
+            return p, p_prev
+        if not traces:
+            return p, p_prev, p.new_zeros((p.shape[0], 0, cfg.nx))
+        return p, p_prev, torch.cat(traces, dim=1)
+
+    return run
+
+
 @functools.lru_cache(maxsize=32)
 def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
                       collect_traces: bool = True, tile=None,
@@ -243,31 +279,80 @@ def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
     if k is None:
         k = pick_k(cfg.nz)
     mf = model_fields(cfg, dev)
-
-    def block(p, p_prev, t0, kk):
-        return wave_block(
-            p, p_prev, mf.v2dt2, mf.sponge,
-            _block_amps(mf, t0, kk, cfg.timesteps), mf.src_z, mf.src_x,
-            receiver_row=cfg.receiver_depth, tile=tile,
-        )
+    loop = _block_loop(cfg, k, tile, collect_traces, dev)
 
     def run(p, p_prev, t0: int, steps: int):
-        nblocks, tail = divmod(steps, k)
-        traces = []
-        for b in range(nblocks):
-            p, p_prev, tr = block(p, p_prev, t0 + b * k, k)
-            traces.append(tr)
-        if tail:
-            p, p_prev, tr = block(p, p_prev, t0 + nblocks * k, tail)
-            traces.append(tr)
-        if not collect_traces:
-            return p, p_prev
-        if not traces:
-            return p, p_prev, p.new_zeros((p.shape[0], 0, cfg.nx))
-        return p, p_prev, torch.cat(traces, dim=1)
+        return loop(p, p_prev, mf.src_z, mf.src_x, t0, steps)
 
     run.k = k
     return run
+
+
+@functools.lru_cache(maxsize=16)
+def make_shot_parallel_runner(cfg: FWIConfig, n_devices: int, *,
+                              k: int | None = None,
+                              collect_traces: bool = True, tile=None,
+                              devices=None):
+    """Block runner with the SHOT axis split over ``n_devices`` shards:
+    the paper's first-level task-parallel split (shots are independent),
+    with no communication.  ``devices``: one device for every shard
+    (default the card, where all shards then run in turn) or one per
+    shard.  Returns (run, place): run(p, p_prev, t0, steps) as
+    ``make_block_runner``; ``place`` pads the (S, NZ, NX) fields.
+
+    An uneven split (``n_shots % n_devices != 0``) pads the batch to
+    the next multiple by repeating shot 0 (its source position too);
+    the padded shots propagate as throwaway copies and every output is
+    sliced back to ``n_shots``.  ``place`` and ``run`` take padded or
+    unpadded fields.  Each shot's arithmetic does not depend on its
+    batch, so the result is bitwise equal to ``make_block_runner``'s."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        devs = [resolve_device("cuda" if devices is None else devices)] \
+            * n_devices
+    else:
+        devs = [resolve_device(d) for d in devices][:n_devices]
+        if len(devs) < n_devices:
+            raise ValueError(f"{n_devices} shards on {len(devs)} devices")
+    if k is None:
+        k = pick_k(cfg.nz)
+    pad = (-cfg.n_shots) % n_devices
+    per = (cfg.n_shots + pad) // n_devices
+    pos = cfg.shot_positions()
+    if pad:
+        pos = np.concatenate([pos, np.repeat(pos[:1], pad, axis=0)])
+    shards = []
+    for i, dev in enumerate(devs):
+        sl = pos[i * per: (i + 1) * per]
+        shards.append((
+            dev,
+            torch.from_numpy(np.ascontiguousarray(sl[:, 0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(sl[:, 1])).to(dev),
+            _block_loop(cfg, k, tile, collect_traces, dev),
+        ))
+
+    def _pad_shots(f):
+        if pad and f.shape[0] == cfg.n_shots:
+            f = torch.cat([f, f[:1].expand(pad, *f.shape[1:])])
+        return f
+
+    def run(p, p_prev, t0: int, steps: int):
+        p, p_prev = _pad_shots(p), _pad_shots(p_prev)
+        outs = [loop(p[i * per: (i + 1) * per].to(dev),
+                     p_prev[i * per: (i + 1) * per].to(dev),
+                     sz, sx, t0, steps)
+                for i, (dev, sz, sx, loop) in enumerate(shards)]
+        home = devs[0]
+        return tuple(
+            torch.cat([o[j].to(home) for o in outs])[: cfg.n_shots]
+            for j in range(len(outs[0])))
+
+    def place(state_fields):
+        if isinstance(state_fields, torch.Tensor):
+            return _pad_shots(state_fields).to(devs[0])
+        return tuple(_pad_shots(f).to(devs[0]) for f in state_fields)
+
+    run.k = k
+    return run, place
 
 
 def run_forward(cfg: FWIConfig, *, state: ShotState | None = None,

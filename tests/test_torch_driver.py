@@ -9,6 +9,10 @@ checkpoint/restore path and the orchestrator's resizes are bitwise
 equal to an unscaled ``run_forward``.  Checkpoints cross between the
 two packages in both directions.
 """
+import os
+import signal
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -265,19 +269,195 @@ def test_manager_nested_layout_matches_jax(tmp_path):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _port_session(n_stripes=2)
     # the tile sweep times the CUDA kernel; the plain version has no tiles
     with pytest.raises(ValueError, match="autotune"):
         _port_session(autotune=True)
+    with pytest.raises(ValueError, match="autotune"):
+        _port_session(autotune=True, n_stripes=2)
+    # striping is ported: a GROW through elastic_stripes_for(1, 2) now
+    # runs the grown session on two stripes
     grown = ElasticOrchestrator.apply_scale(
         _res(chips=64), ScaleAction("grow", chips=32, slowdown=1.4))
     factory = driver.fwi_session_factory(
         solver.FWIConfig(**CFG), driver.TimeModel(),
         stripes_for=driver.elastic_stripes_for(1, 2), device="cpu")
-    assert factory(_res(chips=64), 0, None).t == 0
-    with pytest.raises(NotImplementedError):
-        factory(grown, 0, None)
+    base = factory(_res(chips=64), 0, None)
+    assert base.t == 0 and base.n_stripes == 1
+    s = factory(grown, 0, None)
+    assert s.n_stripes == 2 and s._res_sig[0] == 2 and s.k == 4
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_striped_session_bitwise_equals_one_stripe(n):
+    one, many = _port_session(), _port_session(n_stripes=n)
+    assert many.n_stripes == n and many._res_sig[0] == n
+    for i in range(21):
+        one.run_step(i)
+        many.run_step(i)
+    assert one.t == many.t == 24 and many.blocks == one.blocks == 6
+    assert many.launches == 6 * n        # "fused": one window a stripe
+    assert torch.equal(many.p, one.p)
+    assert torch.equal(many.p_prev, one.p_prev)
+
+
+def test_striped_session_k_clamped_to_stripe_width():
+    """nx = 64 over 8 stripes of 8 columns: k = 8 // (2·HALO) = 2."""
+    s = _port_session(n_stripes=8, exchange_interval=8)
+    assert s.k == 2 and s.block == 8
+    ref = _port_session(exchange_interval=2)
+    for i in range(8):
+        s.run_step(i)
+        ref.run_step(i)
+    assert torch.equal(s.p, ref.p)
+
+
+def test_orchestrated_grow_onto_two_stripes_equals_run_forward():
+    """The orchestrator's GROW moves half the domain onto a second
+    stripe (``elastic_stripes_for(1, 2)``), RETIRE brings it back; the
+    run ends bitwise equal to an unscaled ``run_forward``."""
+    cfg = solver.FWIConfig(**CFG)
+    base = driver.fwi_session_factory(
+        cfg, driver.TimeModel(chip_seconds_per_step=64.0, jitter=0.0),
+        stripes_for=driver.elastic_stripes_for(1, 2), device="cpu")
+    sessions = []
+
+    def factory(res, start_step, restored):
+        s = base(res, start_step, restored)
+        sessions.append(s)
+        return s
+
+    orch = ElasticOrchestrator(
+        planner=_planner(), predictor=DeadlinePredictor(10_000.0),
+        check_every=2, ckpt_every=10, cloud_slowdown=1.4)
+    rec = orch.run(session_factory=factory, initial=_res(chips=64),
+                   steps_total=40, autoscaler=_Scripted(10, 26))
+    kinds = [e.detail["kind"] for e in rec.events if e.kind == "scale"]
+    assert kinds == ["grow", "retire"] and rec.completed
+    assert [s.n_stripes for s in sessions] == [1, 2, 1]
+    assert sessions[1].blocks > 0
+    assert sessions[1].launches == 2 * sessions[1].blocks
+    last = sessions[-1]
+    ref, _ = solver.run_forward(cfg, steps=last.t, k=4, device="cpu")
+    assert torch.equal(last.p, ref.p) and torch.equal(last.p_prev,
+                                                      ref.p_prev)
+
+
+def test_two_stripe_snapshot_restores_into_one_stripe(tmp_path):
+    """A 2-stripe session's snapshot holds whole fields: it resumes on
+    one stripe in the port and in the JAX package."""
+    s2 = _port_session(n_stripes=2)
+    for i in range(5):
+        s2.run_step(i)
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    driver.save_session_snapshot(mgr, 5, s2.checkpoint(5))
+    restored, done = driver.load_session_snapshot(mgr)
+    assert done == 5 and restored["res_sig"][0] == 2
+    assert restored["p"].shape == (2, CFG["nz"], CFG["nx"])
+    one = _port_session(restored, start=5)
+    assert one.n_stripes == 1
+    for i in range(5, 16):
+        s2.run_step(i)
+        one.run_step(i)
+    assert torch.equal(one.p, s2.p) and torch.equal(one.p_prev, s2.p_prev)
+    back, _ = jdriver.load_session_snapshot(JManager(tmp_path,
+                                                     async_save=False))
+    js = _jax_session(back, start=5)
+    for i in range(5, 16):
+        js.run_step(i)
+    _close(js.p, s2.p)
+
+
+_SIGTERM_CHILD = """
+import sys, time
+import numpy as np
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import PodSpec, Resources
+from repro_torch.fwi.driver import (
+    FWISession, PreemptionGuard, TimeModel, load_session_snapshot,
+)
+from repro_torch.fwi.solver import FWIConfig
+
+mode, ckpt_dir, out = sys.argv[1], sys.argv[2], sys.argv[3]
+TOTAL = 20
+cfg = FWIConfig(nz=32, nx=64, timesteps=32, n_shots=2, sponge_width=4)
+res = Resources(pods=[PodSpec(chips=1, name="cluster")], shares=[1.0])
+mgr = CheckpointManager(ckpt_dir, async_save=False)
+kw = dict(time_model=TimeModel(jitter=0.0), rng=np.random.default_rng(0),
+          exchange_interval=4, scan_block=4, device="cpu")
+if mode == "run":
+    guard = PreemptionGuard(mgr).install()
+    session = FWISession(cfg, res, 0, None, n_stripes=2, **kw)
+    start = 0
+else:
+    restored, start = load_session_snapshot(mgr)
+    session = FWISession(cfg, res, start, restored, **kw)
+for step in range(start, TOTAL):
+    session.run_step(step)
+    if mode == "run":
+        guard.publish(session, step + 1)
+        print(f"STEP {step + 1}", flush=True)
+        time.sleep(0.2)
+np.save(out, session.p.numpy())
+print(f"DONE {start} {session.n_stripes}", flush=True)
+"""
+
+
+def test_sigterm_on_two_stripes_restores_on_one(tmp_path):
+    """The preemption chain across stripe counts: a 2-stripe session is
+    killed by SIGTERM mid-run, its guard persists the published
+    snapshot (whole fields) and the process exits 143; a fresh process
+    resumes it on one stripe and ends bitwise equal to an uninterrupted
+    run."""
+    child = tmp_path / "child.py"
+    child.write_text(_SIGTERM_CHILD)
+    ckpt, out = tmp_path / "ckpt", tmp_path / "resumed.npy"
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.Popen(
+        [sys.executable, str(child), "run", str(ckpt), str(out)],
+        stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        for line in proc.stdout:
+            if line.startswith("STEP") and int(line.split()[1]) >= 3:
+                proc.send_signal(signal.SIGTERM)
+                break
+        proc.stdout.read()
+        assert proc.wait(timeout=120) == 143
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert not out.exists()
+    second = subprocess.run(
+        [sys.executable, str(child), "resume", str(ckpt), str(out)],
+        capture_output=True, text=True, env=env, check=True, timeout=300)
+    _, resumed_from, stripes = second.stdout.split()
+    assert 3 <= int(resumed_from) < 20 and stripes == "1"
+    cfg = solver.FWIConfig(nz=32, nx=64, timesteps=32, n_shots=2,
+                           sponge_width=4)
+    ref, _ = solver.run_forward(cfg, steps=20, k=4, device="cpu")
+    np.testing.assert_array_equal(np.load(out), ref.p.numpy())
+
+
+@pytest.mark.gpu
+def test_striped_session_bitwise_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = solver.FWIConfig(**CFG)
+
+    def session(n):
+        return driver.FWISession(
+            cfg, _res(), 0, None, time_model=driver.TimeModel(jitter=0.0),
+            rng=np.random.default_rng(0), n_stripes=n, device="cuda")
+
+    one, two = session(1), session(2)
+    for i in range(21):
+        one.run_step(i)
+        two.run_step(i)
+    assert torch.equal(one.p, two.p) and torch.equal(one.p_prev,
+                                                     two.p_prev)
+    ref, _ = solver.run_forward(cfg, steps=two.t, k=4, device="cpu")
+    assert torch.equal(two.p.cpu(), ref.p)
 
 
 def test_cuda_session_raises_without_a_card():

@@ -60,6 +60,22 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) > 15
 
 
+#: the modules of the striped domain, the shot split and the seam probe
+STRIPED = ["fwi/domain.py", "fwi/solver.py", "fwi/driver.py",
+           "fwi/calibrate.py"]
+
+
+@pytest.mark.parametrize("name", STRIPED)
+def test_striped_modules_stand_alone(name):
+    """Each is among the files held to no JAX and no ``repro`` import
+    above, and runs its windows as plain calls: no ``torch.vmap``, which
+    the JAX lint's tracer-hygiene rule would treat as a traced root."""
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    test_no_jax_or_repro_imports(path)
+    assert "vmap" not in path.read_text()
+
+
 @pytest.mark.parametrize("name", CORE)
 def test_core_is_a_copy(name):
     orig = (ROOT / "src/repro/core" / f"{name}.py").read_text()
