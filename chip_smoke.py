@@ -38,6 +38,22 @@ Phases, each printing one JSON line:
 7. ``shot_split`` (4 shots over 3 shards, bitwise against the block
    runner) and ``seam`` (``measure_seam_latency`` at 600² and 4096², 2
    and 4 stripes).
+7b. ``deadline_squeeze``: the paper's deadline-aware loop at the
+   paper's size — ``PlanAutoscaler`` drives the session through a
+   mid-run deadline squeeze and its relaxation (``SQUEEZE``: the JAX
+   package's end-to-end schedule ×5), so it GROWs onto a cloud pod (2
+   stripes) and RETIREs back to 1.  Fails unless the deadline is met,
+   the decisions equal the same schedule's on the CPU at 48 x 96, the
+   launches equal the sessions' and the final field is bitwise equal to
+   the card's unscaled ``run_forward`` and the CPU's; prints the host
+   ms of the policy's ``decide``, the checkpoints, the restores and the
+   blocks.  ``fleet``: ``FleetSim`` over every default and queued
+   scenario under every per-job policy with the card's probe in
+   ``OVERHEADS``, and the fleet demo's claims.  ``shot_batch_probe``:
+   the seam probe at 600², 2 stripes, k = 4, and the block engine's
+   seconds a step at 600², k = 8, S = 1, 2, 4 and four S = 1 launches
+   a block, printed as ``repro_torch/sim/scenarios.py``'s
+   ``SEAM_PROBE`` and ``SHOT_BATCH_PROBE``, with the card's name.
 8. ``scan_vs_block``: the step-at-a-time engine (``make_scan_runner``,
    one step-kernel launch per step) against the block engine over all
    600 steps at the paper's size: bitwise, traces included.
@@ -106,8 +122,8 @@ Phases, each printing one JSON line:
 19. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
-    ``production``, ``striped``, ``striped_production`` and
-    ``shot_split``, and its device ms at each window shape; the step kernel's in the nz=600 and nz=4096 gamma
+    ``production``, ``striped``, ``striped_production``,
+    ``shot_split`` and ``deadline_squeeze``, and its device ms at each window shape; the step kernel's in the nz=600 and nz=4096 gamma
     sweeps and in ``scan_vs_block``, its device ms at every gamma-sweep
     shape beside the bound and the launch the wrapper made (``sweep``,
     each shape first held bitwise to the plain version) and its
@@ -461,7 +477,7 @@ def main() -> int:
           "tolerance": 0.0, "cases": cases})
 
     # 5. session: the main path
-    session_launches, session = run_session(dev)
+    session_launches, refs, session = run_session(dev)
     emit(session)
 
     # 6. striped: this slice's path, the domain split into stripes
@@ -471,7 +487,15 @@ def main() -> int:
     # 7. shot_split and seam
     split_launches, split = run_shot_split(dev)
     emit(split)
-    emit(run_seam(dev))
+    seam = run_seam(dev)
+    emit(seam)
+
+    # 7b. the paper's deadline-aware loop, the fleet and the probes
+    squeeze_launches, squeeze = run_deadline_squeeze(
+        dev, refs, session["engine_ms_per_step"])
+    emit(squeeze)
+    emit(run_fleet())
+    emit(run_shot_batch_probe(dev, smi, seam["probes"]))
 
     # 8. scan_vs_block
     scan = run_scan_vs_block(dev)
@@ -573,6 +597,7 @@ def main() -> int:
         "launches_striped": striped_launches,
         "launches_striped_production": sprod_launches,
         "launches_shot_split": split_launches,
+        "launches_deadline_squeeze": squeeze_launches,
         "max_abs_err": max(t["max_abs_err"]
                            for t in [*timings.values(), *windows]),
         "ms": t6["ms"],
@@ -801,10 +826,13 @@ def run_session(dev):
     run_forward(cfg, steps=8, k=last.k, device=dev)       # warm-up
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    run_forward(cfg, steps=steps, k=last.k, device=dev)
+    card, _ = run_forward(cfg, steps=steps, k=last.k, device=dev)
     torch.cuda.synchronize()
     engine_s = time.monotonic() - t0
-    return launches, {
+    # the unscaled final fields, on the CPU and on the card, that
+    # ``deadline_squeeze`` holds its run to
+    refs = {"cpu": ref.p, "card": card.p.cpu(), "k": last.k}
+    return launches, refs, {
         "phase": "session", "nz": cfg.nz, "nx": cfg.nx,
         "shots": cfg.n_shots, "steps": steps, "k": last.k,
         "scale_events": kinds, "sessions": len(sessions),
@@ -1045,6 +1073,301 @@ def run_seam(dev):
                   f"seam probe {cfg.nx}² n={n}: {r}")
             rows.append({"nz": cfg.nz, "nx": cfg.nx, **r})
     return {"phase": "seam", "probes": rows}
+
+
+#: the deadline squeeze at the paper's size: the schedule of the JAX
+#: package's end-to-end test (``tests/test_real_elastic.py``: 120 steps,
+#: 1 s a step on 64 chips) with every time and step count x5
+SQUEEZE = dict(
+    legal=[16, 32, 64, 128], chips=64, chip_s_per_step=64.0, slowdown=1.4,
+    ckpt_s=25.0, provision_s=50.0, restart_s=25.0, deadline_s=2000.0,
+    deadline_changes=[(100.0, 525.0), (300.0, 2000.0)], eval_interval_s=35.0,
+    ckpt_every=200, check_every=40,
+)
+
+
+class TimedPolicy:
+    """Wraps a policy and adds up the host time of its ``decide``."""
+
+    def __init__(self, policy):
+        self.policy, self.name = policy, policy.name
+        self.calls, self.seconds = 0, 0.0
+
+    def decide(self, ctx):
+        t0 = time.perf_counter()
+        action = self.policy.decide(ctx)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return action
+
+
+def squeeze_orchestrator(cfg, dev):
+    """``SQUEEZE``'s orchestrator, initial resources and session factory
+    for ``cfg`` on ``dev`` (sessions on ``elastic_stripes_for(1, 2)``)."""
+    from repro_torch.core import (
+        BurstPlanner,
+        DeadlinePredictor,
+        ElasticOrchestrator,
+        LogCapacityModel,
+        OverheadModel,
+        PodSpec,
+        Resources,
+    )
+    from repro_torch.fwi.driver import (
+        TimeModel,
+        elastic_stripes_for,
+        fwi_session_factory,
+    )
+
+    q = SQUEEZE
+    w, k_cloud, legal = q["chip_s_per_step"], q["slowdown"], q["legal"]
+    cs = sorted(set(legal) | {q["chips"]})
+    planner = BurstPlanner(
+        cluster_model=LogCapacityModel.fit(cs, [w / c for c in cs]),
+        cloud_model=LogCapacityModel.fit(cs, [k_cloud * w / c for c in cs]),
+        chips_cluster=q["chips"], legal_slices=legal,
+        overheads=OverheadModel(ckpt_s=q["ckpt_s"],
+                                provision_s=q["provision_s"],
+                                restart_s=q["restart_s"]),
+        price_per_chip_hour=3.0, cost_weight=0.5)
+    orch = ElasticOrchestrator(
+        planner=planner, predictor=DeadlinePredictor(q["deadline_s"]),
+        check_every=q["check_every"], ckpt_every=q["ckpt_every"],
+        eval_interval_s=q["eval_interval_s"], cloud_slowdown=k_cloud)
+    initial = Resources(pods=[PodSpec(q["chips"], name="cluster")],
+                        shares=[1.0])
+    base = fwi_session_factory(
+        cfg, TimeModel(chip_seconds_per_step=w, jitter=0.01), seed=SEED,
+        stripes_for=elastic_stripes_for(1, 2), device=dev)
+    return orch, initial, base
+
+
+def scale_events(rec) -> list[tuple[str, int, int]]:
+    return [(e.detail["kind"], e.step, e.detail["cloud_chips"])
+            for e in rec.events if e.kind == "scale"]
+
+
+def run_deadline_squeeze(dev, refs, engine_ms_per_step):
+    """The paper's decision loop on the card: ``PlanAutoscaler`` sizes a
+    burst when the deadline is squeezed mid-run and retires it when the
+    deadline relaxes, each resize a checkpoint, a new session on the
+    stripes ``elastic_stripes_for(1, 2)`` gives it and a restore.  Host
+    time goes to the policy's ``decide``, the sessions' checkpoints and
+    restores and their blocks, each timed by a wrapper here.  A step's
+    time comes from the platform model, so the decisions must equal
+    those of the same schedule on the CPU at a cut grid."""
+    from repro_torch.core import elastic_chips
+    from repro_torch.fwi.solver import FWIConfig
+    from repro_torch.kernels.stencil.kernel import wave_block_shots_cuda
+    from repro_torch.sim import PlanAutoscaler
+
+    q = SQUEEZE
+    cfg = FWIConfig()
+    steps = cfg.timesteps
+    orch, initial, base = squeeze_orchestrator(cfg, dev)
+    sessions, host = [], {"restore_s": 0.0, "first_session_s": 0.0,
+                          "checkpoint_s": 0.0, "checkpoints": 0,
+                          "blocks_s": 0.0}
+
+    def timed(fn, key, count=None):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key] += time.perf_counter() - t0
+            if count:
+                host[count] += 1
+            return out
+        return call
+
+    def factory(res, start_step, restored):
+        t0 = time.perf_counter()
+        s = base(res, start_step, restored)
+        host["restore_s" if restored is not None
+             else "first_session_s"] += time.perf_counter() - t0
+        s.checkpoint = timed(s.checkpoint, "checkpoint_s", "checkpoints")
+        s._advance_block = timed(s._advance_block, "blocks_s")
+        sessions.append(s)
+        return s
+
+    policy = TimedPolicy(PlanAutoscaler())
+    wave_block_shots_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = orch.run(session_factory=factory, initial=initial,
+                   steps_total=steps, autoscaler=policy,
+                   deadline_changes=q["deadline_changes"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wave_block_shots_cuda.launches
+
+    # the same schedule on the CPU, one shot of 48 x 96
+    small = FWIConfig(nz=48, nx=96, timesteps=steps, n_shots=1,
+                      sponge_width=8)
+    corch, cinit, cbase = squeeze_orchestrator(small, "cpu")
+    cpu_rec = corch.run(session_factory=cbase, initial=cinit,
+                        steps_total=steps, autoscaler=PlanAutoscaler(),
+                        deadline_changes=q["deadline_changes"])
+    scale = scale_events(rec)
+    check(scale == scale_events(cpu_rec)
+          and rec.elapsed_s == cpu_rec.elapsed_s,
+          f"decisions on the card {scale}, {rec.elapsed_s} s differ from "
+          f"the CPU's {scale_events(cpu_rec)}, {cpu_rec.elapsed_s} s")
+    kinds = [kind for kind, _, _ in scale]
+    stripes = [s.n_stripes for s in sessions]
+    check(rec.completed, "the plan-driven run did not complete")
+    check("grow" in kinds and ("retire" in kinds or "shrink" in kinds),
+          f"plan did not grow and retire under the squeeze: {scale}")
+    check(rec.met_deadline,
+          f"deadline missed: {rec.elapsed_s} s against {rec.deadline_s}")
+    check(elastic_chips(rec.final_resources) == 0,
+          "the cloud pod was not retired")
+    check(stripes[0] == 1 and max(stripes) == 2 and stripes[-1] == 1,
+          f"sessions ran on {stripes} stripes, expected 1, then 2, then 1")
+    blocks = sum(s.blocks for s in sessions)
+    want = sum(s.launches for s in sessions)
+    check(launches > 0 and launches == want,
+          f"kernel launches {launches} != {want} for {blocks} blocks on "
+          f"{stripes} stripes")
+    last = sessions[-1]
+    check(last.t == steps and last.k == refs["k"],
+          f"session ended at t={last.t}, k={last.k}")
+    p = last.p.cpu()
+    check(bool(torch.isfinite(p).all()), "non-finite wavefield")
+    err = float((p - refs["cpu"]).abs().max())
+    check(torch.equal(p, refs["card"]),
+          "final field vs the card's unscaled run_forward: not bitwise "
+          f"(max |diff| {float((p - refs['card']).abs().max())})")
+    check(torch.equal(p, refs["cpu"]),
+          f"final field vs the CPU plain run: not bitwise ({err})")
+    orch_ms = wall / steps * 1e3
+    other_s = wall - sum(host[key] for key in (
+        "restore_s", "first_session_s", "checkpoint_s", "blocks_s")) \
+        - policy.seconds
+    return launches, {
+        "phase": "deadline_squeeze", "nz": cfg.nz, "nx": cfg.nx,
+        "shots": cfg.n_shots, "steps": steps, "k": last.k,
+        "schedule": {key: q[key] for key in (
+            "chip_s_per_step", "chips", "slowdown", "ckpt_s",
+            "provision_s", "restart_s", "deadline_s", "deadline_changes",
+            "eval_interval_s", "ckpt_every")},
+        "scale_events": [{"kind": kd, "step": st, "cloud_chips": ch}
+                         for kd, st, ch in scale],
+        "met_deadline": rec.met_deadline, "elapsed_s": rec.elapsed_s,
+        "deadline_s": rec.deadline_s, "cloud_chip_s": rec.cloud_chip_s,
+        "stripes": stripes,
+        "sessions": [{"stripes": s.n_stripes, "blocks": s.blocks,
+                      "launches": s.launches} for s in sessions],
+        "kernel_launches": launches, "blocks_dispatched": blocks,
+        "decisions_equal_cpu_48x96": True,
+        "bitwise_vs_card_unscaled": True, "bitwise_vs_cpu": True,
+        "final_max_abs_diff_vs_cpu": err,
+        "orchestrated_ms_per_step": orch_ms,
+        "engine_ms_per_step": engine_ms_per_step,
+        "host_ms": {
+            "decide": policy.seconds * 1e3, "decide_calls": policy.calls,
+            "checkpoint": host["checkpoint_s"] * 1e3,
+            "checkpoints": host["checkpoints"],
+            "restore": host["restore_s"] * 1e3,
+            "first_session": host["first_session_s"] * 1e3,
+            "blocks": host["blocks_s"] * 1e3,
+            "other": other_s * 1e3, "wall": wall * 1e3,
+        },
+    }
+
+
+def run_fleet():
+    """The fleet simulator over every default and queued scenario under
+    every per-job policy, with the card's probe in ``OVERHEADS`` (the
+    scenarios' default), and the fleet demo's claims."""
+    from repro_torch.sim import POLICY_FACTORIES, FleetSim
+    from repro_torch.sim.scenarios import (
+        OVERHEADS,
+        default_scenarios,
+        queued_scenarios,
+    )
+
+    t0 = time.perf_counter()
+    cells, recs = [], {}
+    for sc in (*default_scenarios(0), *queued_scenarios(0)):
+        check(sc.overheads == OVERHEADS, f"{sc.name}: not the card's probe")
+        for pname, pf in POLICY_FACTORIES.items():
+            rec = FleetSim(sc, pf, seed=0).run()
+            recs[sc.name, pname] = rec
+            check(math.isfinite(rec.cloud_cost) and 0 <= rec.hit_rate <= 1,
+                  f"{sc.name}/{pname}: {rec.hit_rate}, {rec.cloud_cost}")
+            cells.append({"scenario": sc.name, "policy": pname,
+                          "hit_rate": rec.hit_rate,
+                          "cloud_usd": rec.cloud_cost,
+                          "makespan_s": rec.makespan_s})
+    host_s = time.perf_counter() - t0
+    plan, nb, ab = (recs["overload_ramp", x]
+                    for x in ("plan", "no-burst", "always-burst"))
+    check(plan.hit_rate > nb.hit_rate,
+          f"overload_ramp: plan {plan.hit_rate} <= no-burst {nb.hit_rate}")
+    check(plan.cloud_cost < ab.cloud_cost,
+          f"overload_ramp: plan ${plan.cloud_cost} >= always-burst "
+          f"${ab.cloud_cost}")
+    spike = recs["transient_spike", "plan"].cloud_timeline
+    check(spike[-1][1] == 0, "transient_spike: the cloud pod was not "
+                             "retired once the spike cleared")
+    return {"phase": "fleet", "cells": cells, "host_s": host_s,
+            "seam_latency_s": OVERHEADS.seam_latency_s,
+            "seam_s_per_step": OVERHEADS.seam_s_per_step()}
+
+
+def time_block_runs(runs, steps: int, reps: int = 4) -> float:
+    """Best of ``reps`` host-clock runs of ``steps`` steps, each run
+    calling every ``(runner, p, p_prev)`` of ``runs`` once per k-step
+    block, to the card's end; seconds per step."""
+    k = runs[0][0].k
+    best = math.inf
+    for _ in range(reps + 1):                   # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(0, steps, k):
+            for run, p, pp in runs:
+                run(p, pp, t, k)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / steps
+
+
+def run_shot_batch_probe(dev, smi, seam_rows):
+    """The planner's two probes as the card gives them, in the form of
+    the literals in ``repro_torch/sim/scenarios.py``: the seam probe at
+    600², 2 stripes, k = 4 (from phase ``seam``) and the block engine's
+    seconds per step at 600², k = 8, for S = 1, 2, 4 shots a launch and
+    for four S = 1 launches a block."""
+    from repro_torch.fwi.solver import FWIConfig, ShotState, \
+        make_block_runner
+    from repro_torch.kernels.stencil.kernel import BLOCK_TILE
+
+    seam = next(dict(r) for r in seam_rows
+                if r["nx"] == 600 and r["n_stripes"] == 2)
+    del seam["nz"], seam["nx"]
+    k, steps = 8, FWIConfig().timesteps
+
+    def runner(ns):
+        cfg = FWIConfig(n_shots=ns)
+        st = ShotState.init(cfg, dev)
+        run = make_block_runner(cfg, k=k, collect_traces=False, device=dev)
+        return run, st.p, st.p_prev
+
+    s_values = (1, 2, 4)
+    t_step = tuple(time_block_runs([runner(ns)], steps) for ns in s_values)
+    t_vmapped = time_block_runs([runner(1) for _ in range(4)], steps)
+    for t in (*t_step, t_vmapped):
+        check(math.isfinite(t) and t > 0, f"shot-batch probe: {t}")
+    batch = {
+        "config": {"nz": 600, "nx": 600, "k": k, "bz": BLOCK_TILE[0],
+                   "engine": "wave_block_shots_cuda", "backend": "cuda"},
+        "s_values": s_values,
+        "t_step_s": t_step,
+        "t_step_vmapped_s4": t_vmapped,
+        "batched_vs_vmapped": t_vmapped / t_step[-1],
+    }
+    return {"phase": "shot_batch_probe", "card": smi,
+            "SEAM_PROBE": seam, "SHOT_BATCH_PROBE": batch}
 
 
 def window_timings(dev, rng, bw, f32) -> list[dict]:

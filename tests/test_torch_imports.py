@@ -1,7 +1,10 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package, and the port's copy
-of ``repro.core`` differs from the original only in its imports."""
+import neither JAX nor anything of the JAX package, and the port's
+copies of ``repro.core`` and ``repro.sim`` differ from the originals
+only in their imports (and ``sim/scenarios.py`` in its two probe
+literals, which hold the card's own measurements)."""
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,8 +16,13 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-CORE = ["__init__", "allocator", "capacity", "deadline", "gamma",
-        "monitor", "orchestrator", "planner"]
+CORE = ["__init__", "allocator", "capacity", "deadline", "events", "gamma",
+        "monitor", "orchestrator", "planner", "sim_session"]
+SIM = ["__init__", "autoscalers", "faults", "fleet", "queue", "scenarios",
+       "schedulers"]
+#: the module-level literals of ``sim/scenarios.py`` that the port
+#: measures on the card instead of copying
+PROBES = ("SEAM_PROBE", "SHOT_BATCH_PROBE")
 
 
 def _banned(mod: str) -> bool:
@@ -81,3 +89,76 @@ def test_core_is_a_copy(name):
     orig = (ROOT / "src/repro/core" / f"{name}.py").read_text()
     port = (ROOT / "src/repro_torch/core" / f"{name}.py").read_text()
     assert port == orig.replace("repro.core.", "repro_torch.core.")
+
+
+def _ported(text: str) -> str:
+    """``text`` with every ``repro.`` module path turned into the
+    port's (a word-bounded rewrite: ``from repro.core import`` too)."""
+    return re.sub(r"\brepro\.", "repro_torch.", text)
+
+
+def _without_probes(text: str) -> str:
+    """``text`` without the assignments of ``PROBES`` and the comment
+    block right above each, cut by the lines ``ast`` gives them."""
+    lines = text.splitlines(keepends=True)
+    cut = set()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id in PROBES
+                for t in node.targets):
+            first = node.lineno - 1
+            while first > 0 and lines[first - 1].lstrip().startswith("#"):
+                first -= 1
+            cut.update(range(first, node.end_lineno))
+    assert len(cut) > 2 * len(PROBES), "probe literals not found"
+    return "".join(ln for i, ln in enumerate(lines) if i not in cut)
+
+
+@pytest.mark.parametrize("name", SIM)
+def test_sim_is_a_copy(name):
+    orig = (ROOT / "src/repro/sim" / f"{name}.py").read_text()
+    port = (ROOT / "src/repro_torch/sim" / f"{name}.py").read_text()
+    if name == "scenarios":
+        orig, port = _without_probes(orig), _without_probes(port)
+    assert port == _ported(orig)
+
+
+def _probes(path: Path) -> tuple[dict, str]:
+    """The probe literals of a ``scenarios.py`` and the comments above
+    them."""
+    text = path.read_text()
+    values, comments = {}, []
+    lines = text.splitlines()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.Assign) and isinstance(
+                node.targets[0], ast.Name) and node.targets[0].id in PROBES:
+            values[node.targets[0].id] = ast.literal_eval(node.value)
+            i = node.lineno - 1
+            while i > 0 and lines[i - 1].lstrip().startswith("#"):
+                i -= 1
+                comments.append(lines[i])
+    return values, "\n".join(comments)
+
+
+def _keys(d):
+    return {k: _keys(v) if isinstance(v, dict) else None
+            for k, v in d.items()}
+
+
+def test_sim_probes_are_the_cards():
+    """The port's two probe literals carry the JAX package's keys, were
+    taken on the card (``backend`` "cuda", one device under the seam
+    probe) and say which card, at which power limit."""
+    port, comment = _probes(ROOT / "src/repro_torch/sim/scenarios.py")
+    orig, _ = _probes(ROOT / "src/repro/sim/scenarios.py")
+    assert set(port) == set(PROBES)
+    for name in PROBES:
+        assert _keys(port[name]) == _keys(orig[name]), name
+    seam, batch = port["SEAM_PROBE"], port["SHOT_BATCH_PROBE"]
+    assert seam["backend"] == "cuda" and seam["mesh_devices"] == 1
+    assert seam["n_stripes"] == 2 and seam["plan"]["k"] == 4
+    assert batch["config"]["backend"] == "cuda"
+    assert tuple(batch["s_values"]) == (1, 2, 4)
+    assert all(t > 0 for t in batch["t_step_s"])
+    assert re.search(r"NVIDIA H100", comment)
+    assert re.search(r"\d+\.\d+ W", comment)
