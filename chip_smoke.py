@@ -119,7 +119,35 @@ Phases, each printing one JSON line:
     Every SSD and norm call of one prefill and decode step is held to
     its plain version on the served activations, and the 48-layer bf16
     invariant within 0.1·max|logit| under the init rule itself.
-19. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
+19. ``train_grad_vs_plain``: each autograd Function of the LM kernels
+    (the kernel forward, the plain backward) against autograd through
+    the plain version on the same inputs and output gradients: Yi-6B's
+    (2048, 4096) bf16 norm rows and (4, 32, 4, 512, 128) bf16 attention
+    in the model's layout, mamba2's bf16 SSD shape with stride-0 B and C,
+    and one f32 case each, within the forwards' tolerances; the
+    Function's forward must launch its kernel once.
+20. ``train_vs_cpu``: Yi-6B and mamba2-370m at full width, 2 layers, f32
+    (no TF32), B=2, S=256: loss and every gradient leaf on the card
+    (kernels through their Functions, remat "full") against the CPU
+    (plain versions): loss within 1e-4 relative, each leaf within
+    1e-3·max|g| (the worst leaf printed), launches as
+    ``launches_per_pass(cfg, "train", "full")`` predicts.
+21. ``train``: Yi-6B at full width cut to 4 layers, f32 parameters and
+    bf16 compute, train_4k's sequence of 4096 with the global batch cut
+    to 8 in microbatches of 2, loss chunks of 512, remat "full", AdamW,
+    8 steps through ``launch/train.py::train``: each step's loss (all
+    finite), host ms a step, tokens/s, peak memory, launches a step
+    (equal to ``launches_per_pass``'s prediction: each layer's twice,
+    the final norm once, per microbatch) and a profile of one
+    microbatch's step (device ms by kind, and the device ms inside the
+    Functions' ``*_plain_backward`` ranges).  Then 4 steps through
+    ``train`` into a checkpoint, its restore by the port's manager and 4
+    more steps, against the 8 straight: ``bitwise`` or the largest
+    difference of the state.
+22. ``mamba_train``: mamba2-370m whole (48 layers), f32 parameters and
+    bf16 compute, B=4, S=2048 in microbatches of 1, remat "full", AdamW,
+    4 steps: the same prints and checks.
+23. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
     ``production``, ``striped``, ``striped_production``,
@@ -132,8 +160,11 @@ Phases, each printing one JSON line:
     ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
     its bf16 ``design``; the SSD kernel also with per-head B and C
     (``ms_per_head``, ``bound_ms_per_head``), the heads a CTA took at
-    the served shape (``heads_per_cta``) and its ``design``.
+    the served shape (``heads_per_cta``) and its ``design``; each LM
+    kernel also its launches in ``train`` and ``mamba_train``
+    (``launches_train``, ``launches_train_per_step``, ...).
 
+Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before it; without a CUDA card, or outside the repository, the script
@@ -224,7 +255,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+#: the script's start on the host clock; each phase line carries the
+#: seconds since (``elapsed_s``)
+T0 = time.monotonic()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.monotonic() - T0, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -530,11 +568,26 @@ def main() -> int:
     emit(run_mamba_vs_cpu(dev))
     mserved = run_mamba_serve(dev)
     emit(mserved)
+
+    # 19.-22. the training slice
+    emit(run_train_grad_vs_plain(dev))
+    emit(run_train_vs_cpu(dev))
+    trained = run_train(dev, smi)
+    emit(trained)
+    mtrained = run_mamba_train(dev, smi)
+    emit(mtrained)
+
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
+    for entry in lm_entries:
+        for key, cell in (("train", trained), ("mamba_train", mtrained)):
+            if entry["name"] in cell["launches_predicted"]:
+                entry[f"launches_{key}"] = cell["launches"][entry["name"]]
+                entry[f"launches_{key}_per_step"] = \
+                    cell["launches_per_step"][entry["name"]]
 
-    # 19. kernels
+    # 23. kernels
     windows = window_timings(dev, rng, bw, f32)
     timings = {}
     for label, (ns, nz, nx, k) in (("600", (4, 600, 600, 4)),
@@ -1464,10 +1517,16 @@ def run_scan_vs_block(dev):
     }
 
 
+#: the profiler ranges of the LM kernels' plain backward
+#: (``kernels/autograd.py``): their device ms are the kernels' inside them
+PLAIN_BACKWARD = "_plain_backward"
+
+
 def profile_device(fn, calls: int) -> dict:
     """``torch.profiler`` over one synchronised call of ``fn`` (warmed
     up first): wall ms, the kernels' device ms and launches per call
-    (``calls`` steps or blocks), and the device's busy share."""
+    (``calls`` steps or blocks), the device's busy share, and the device
+    ms inside each ``*_plain_backward`` range."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1478,8 +1537,13 @@ def profile_device(fn, calls: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.endswith(PLAIN_BACKWARD)]
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.key.endswith(PLAIN_BACKWARD)}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(device_ms > 0, "the profiler saw no device time")
     # names cut to 48 characters: kernels that share a prefix are summed
@@ -1488,10 +1552,13 @@ def profile_device(fn, calls: int) -> dict:
         key = e.key[:48]
         by_kernel[key] = by_kernel.get(key, 0.0) \
             + e.self_device_time_total / 1e3
-    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
-            "busy_share": device_ms / (wall * 1e3),
-            "kernels_per_call": sum(e.count for e in kernels) / calls,
-            "by_kernel_ms": by_kernel}
+    out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+           "busy_share": device_ms / (wall * 1e3),
+           "kernels_per_call": sum(e.count for e in kernels) / calls,
+           "by_kernel_ms": by_kernel}
+    if ranges:
+        out["plain_backward_ms"] = ranges
+    return out
 
 
 def time_index_put_scan(cfg, dev, steps, want) -> float:
@@ -2632,6 +2699,368 @@ def ssd_kernel_entry(ssd, mserved):
         "max_abs_err_served": mserved["kernels_on_activations"][
             "ssd_chunk"]["max_abs_diff"],
     }
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+#: train_vs_cpu: f32 loss on the card within this relative share of the
+#: CPU's, each gradient leaf within this share of its max |g|
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_SHARE = 1e-3
+#: the train cell: Yi-6B at full width cut to TRAIN_LAYERS layers,
+#: train_4k's sequence, the global batch cut to TRAIN_BATCH in
+#: microbatches of TRAIN_MB
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_MB = 2
+TRAIN_STEPS = 8
+
+
+def _grad_case(label, fn, ref, args, kw, tols, seed):
+    """One Function against autograd through its plain version on the
+    same inputs and output gradients: the forward within the forward's
+    tolerance, each input gradient within ``tols`` (atol, rtol), and the
+    kernel launched by the Function's forward."""
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    leaves = [a.detach().requires_grad_() for a in args]
+    before = _counts()
+    outs = fn(*leaves, **kw)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    check(all(o.grad_fn is not None for o in outs),
+          f"{label}: the kernel's output has no grad_fn")
+    seeds = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+             for o in outs]
+    got = torch.autograd.grad(outs, leaves, seeds)
+    plain = [a.detach().requires_grad_() for a in args]
+    want_outs = ref(*plain, **kw)
+    want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+    want = torch.autograd.grad(want_outs, plain, seeds)
+    torch.cuda.synchronize()
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    ok = all(bool(((a.float() - b.float()).abs()
+                   <= tols[0] + tols[1] * b.float().abs()).all())
+             for a, b in zip(got, want))
+    fwd_err = max(float((a.detach().float() - b.detach().float())
+                        .abs().max()) for a, b in zip(outs, want_outs))
+    check(ok, f"{label}: backward vs plain autograd {errs} outside {tols}")
+    return {"case": label, "grad_max_abs_diff": errs,
+            "forward_max_abs_diff": fwd_err,
+            "launches": {k: v for k, v in launched.items() if v},
+            "tolerance": list(tols)}
+
+
+def run_train_grad_vs_plain(dev):
+    """Each autograd Function on the card (the kernel forward, the plain
+    backward) against autograd through the plain version: Yi-6B's norm
+    rows and attention, mamba2's SSD on the model's stride-0 views, bf16,
+    and one f32 case each.  Tolerances: the forwards' (``RMS_TOL``,
+    ``ATTN_TOL``, ``SSD_TOL`` / ``SSD_BF16_Y``)."""
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import ops as ro
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_residual_ref
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    rng = np.random.default_rng(SEED + 7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for n, d, dtype in ((2048, 4096, bf16), (256, 1024, f32)):
+        x, r = (torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
+                                 ).to(dev, dtype) for _ in range(2))
+        sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+            np.float32)).to(dev)
+        cases.append(_grad_case(
+            f"rmsnorm ({n}, {d}) {dtype}", ro.rmsnorm_residual,
+            rmsnorm_residual_ref, (x, r, sc), {}, RMS_TOL[dtype], 1))
+    for shape, dtype in ((FLASH_SHAPE, bf16), ((2, 8, 2, 256, 64), f32)):
+        b, h, kh, s, d = shape
+        q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d,
+                               model_layout=True)
+        # scores of unit-normal q, k scaled by D^-1/2 keep the softmax
+        # broad; the gradient of bf16 probabilities is held like them
+        cases.append(_grad_case(
+            f"attention {shape} {dtype}", fo.attention, attention_ref,
+            (q, k, v), {"causal": True}, (ATTN_TOL[dtype], 0.0), 2))
+    for shape, dtype in ((SSD_SERVED, bf16), ((4, 2, 64, 32, 64), f32)):
+        xdt, b, c, csum = _ssd_inputs(rng, dev, dtype, *shape,
+                                      layout="model")
+        tols = (SSD_TOL, 0.0) if dtype == f32 else (
+            SSD_BF16_Y[0], SSD_BF16_Y[1])
+        cases.append(_grad_case(
+            f"ssd {shape} {dtype}, B/C stride 0", so.ssd_chunk,
+            ssd_chunk_ref, (xdt, b, c, csum), {}, tols, 3))
+        del xdt, b, c, csum
+    torch.cuda.empty_cache()
+    for c in cases:
+        check(len(c["launches"]) == 1 and sum(c["launches"].values()) == 1,
+              f"{c['case']}: the Function's forward launched "
+              f"{c['launches']}")
+    return {"phase": "train_grad_vs_plain", "cases": cases}
+
+
+def _train_cfg(name, layers=None, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockDef
+
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers,
+            blocks=tuple(BlockDef(b.pattern, layers) for b in cfg.blocks))
+    return dataclasses.replace(cfg, **kw)
+
+
+def _grads_vs_cpu(cfg, params, batch, dev, label):
+    """One set of weights on the card (kernels through their Functions,
+    remat "full") and on the CPU (plain versions, remat "none"): the
+    losses, each leaf's max |diff| as a share of its max |g|, the
+    launches against ``launches_per_pass``."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.runtime import train_step as ts
+
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    _counts_zero()
+    gl, _, gg = ts.loss_and_grads(
+        cfg, RunConfig(loss_chunk=256, remat="full"), params,
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = _counts()
+    t0 = time.monotonic()
+    wl, _, wg = ts.loss_and_grads(
+        cfg, RunConfig(loss_chunk=256, remat="none"), cpu_params, batch)
+    cpu_s = time.monotonic() - t0
+    shares = {}
+    for nm, g, w in zip(_leaf_names(M.train_schema(cfg)), tree_leaves(gg),
+                        tree_leaves(wg)):
+        scale = float(w.abs().max())
+        shares[nm] = float((g.cpu() - w).abs().max()) / scale if scale \
+            else 0.0
+    worst = max(shares, key=shares.get)
+    want = M.launches_per_pass(cfg, "train", remat="full")
+    check(math.isfinite(gl.item()) and all(
+        bool(torch.isfinite(g).all()) for g in tree_leaves(gg)),
+        f"{label}: non-finite loss or gradients on the card")
+    check({k: launches[k] for k in want} == want,
+          f"{label}: launches {launches}, predicted {want}")
+    return {"weights": label, "loss_card": gl.item(), "loss_cpu": wl.item(),
+            "loss_rel_diff": abs(gl.item() - wl.item()) / abs(wl.item()),
+            "worst_leaf": worst, "worst_leaf_share": shares[worst],
+            "leaf_shares": shares, "launches": launches,
+            "launches_predicted": want, "cpu_s": cpu_s}
+
+
+def run_train_vs_cpu(dev):
+    """Yi-6B and mamba2-370m at full width, 2 layers, f32 (no TF32), B=2,
+    S=256: the card's loss and every gradient leaf (kernels in the
+    forward through their Functions, remat "full") against the CPU's
+    (plain versions, remat "none"; the CPU's remat modes are bitwise
+    equal).  Yi-6B's weights as drawn give near one-hot attention
+    (scores with a std ~120, ROADMAP caveat 6), whose gradient with
+    respect to k amplifies the forward's roundings; its leaves are held
+    to TRAIN_GRAD_SHARE with ``well_conditioned`` attention weights, and
+    the weights as drawn are reported with their loss held."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+
+    out = []
+    for name in ("yi-6b", "mamba2-370m"):
+        cfg = _train_cfg(name, layers=2, compute_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(M.train_schema(cfg), gen, dev)
+        batch = SyntheticLMPipeline(cfg, ShapeConfig("t", "train", 256, 2)
+                                    ).batch_at(0)
+        runs = [_grads_vs_cpu(cfg, params, batch, dev, "as drawn")]
+        if name == "yi-6b":
+            runs.append(_grads_vs_cpu(cfg, well_conditioned(cfg, params),
+                                      batch, dev, "well_conditioned"))
+        for rec in runs:
+            check(rec["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+                  f"{name} {rec['weights']}: loss {rec}")
+        held = runs[-1]
+        check(held["worst_leaf_share"] <= TRAIN_GRAD_SHARE,
+              f"{name} {held['weights']}: gradients {held}")
+        out.append({"arch": name, "layers": 2, "d_model": cfg.d_model,
+                    "batch": 2, "seq": 256, "held": held["weights"],
+                    "runs": runs})
+        del params
+        torch.cuda.empty_cache()
+    return {"phase": "train_vs_cpu",
+            "tolerance": {"loss_rel": TRAIN_LOSS_TOL,
+                          "grad_share_of_max": TRAIN_GRAD_SHARE},
+            "archs": out}
+
+
+def _leaf_names(schema) -> list[str]:
+    from repro_torch.models.params import map_specs, tree_leaves
+
+    return tree_leaves(map_specs(lambda path, _: "/".join(path), schema))
+
+
+def _state_diff(a, b) -> float:
+    """Largest |a - b| over the leaves of two states (a on the card, b on
+    the host; each leaf of b brought over in turn)."""
+    from repro_torch.models.params import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.to(x.device, non_blocking=True)
+        if not torch.equal(x, y):
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def _train_cell(dev, cfg, run, shape, steps, smi):
+    """``launch.train.train`` on ``cfg``: losses, host ms a step (the
+    first step, which warms the caches, left out of the mean), tokens/s,
+    peak memory, launches per step against ``launches_per_pass``, and a
+    profile of one microbatch's forward and backward and the optimizer's
+    update (``profile_device``, by kind)."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts_zero()
+    res = train_mod.train(cfg, run, shape, steps=steps, device=dev,
+                          log_every=1)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_mb = shape.global_batch // (run.microbatch or shape.global_batch)
+    per_mb = M.launches_per_pass(cfg, "train", remat=run.remat)
+    want = {k: steps * n_mb * v for k, v in per_mb.items()}
+    check(res.launches == launches, f"launches {res.launches} vs {launches}")
+    check({k: launches[k] for k in want} == want,
+          f"train launches {launches}, predicted {want}")
+    check(all(math.isfinite(x) for x in res.losses),
+          f"non-finite losses {res.losses}")
+    tokens = shape.global_batch * shape.seq_len
+    host_ms = [s * 1e3 for s in res.step_s]
+    steady = host_ms[1:] if len(host_ms) > 1 else host_ms
+    ms = sum(steady) / len(steady)
+    opt = make_optimizer(run.optimizer or cfg.optimizer,
+                         warmup_cosine(total_steps=steps))
+    batch = SyntheticLMPipeline(cfg, shape, device=dev).batch_at(steps)
+    mb = {k: v[:run.microbatch or shape.global_batch]
+          for k, v in batch.items()}
+    step_fn = ts.build_train_step(cfg, run, opt)
+    t0 = time.monotonic()
+    prof = by_kind(profile_device(lambda: step_fn(res.state, mb), 1), 1)
+    prof["host_s_with_trace"] = time.monotonic() - t0
+    return res, {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": count_params(M.train_schema(cfg)),
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "seq": shape.seq_len, "global_batch": shape.global_batch,
+        "microbatch": run.microbatch, "loss_chunk": run.loss_chunk,
+        "remat": run.remat, "optimizer": run.optimizer or cfg.optimizer,
+        "steps": steps, "losses": res.losses, "host_ms_per_step": host_ms,
+        "host_ms_per_step_mean": ms, "tokens_per_s": tokens / ms * 1e3,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "launches_predicted": want, "profile_step": prof,
+        "nvidia_smi": smi}
+
+
+def run_train(dev, smi):
+    """Yi-6B at full width, 4 layers, f32 params and bf16 compute, S=4096,
+    B=8 in microbatches of 2, remat "full", AdamW, 8 steps through
+    ``launch.train.train``; then 4 steps into a checkpoint, a restore
+    and 4 more against the 8 straight (``_resume_check``)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models.params import tree_map
+
+    cfg = _train_cfg("yi-6b", layers=TRAIN_LAYERS)
+    run = RunConfig(microbatch=TRAIN_MB, loss_chunk=512, remat="full",
+                    optimizer="adamw")
+    shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
+    res, rec = _train_cell(dev, cfg, run, shape, TRAIN_STEPS, smi)
+    straight = tree_map(lambda t: t.to("cpu", non_blocking=True), res.state)
+    torch.cuda.synchronize()
+    del res
+    torch.cuda.empty_cache()
+    rec["resume"] = _resume_check(dev, cfg, run, shape, straight,
+                                  rec["losses"])
+    del straight
+    torch.cuda.empty_cache()
+    check(math.isfinite(rec["resume"]["state_max_abs_diff"]),
+          f"resume diverged: {rec['resume']}")
+    return {"phase": "train", **rec}
+
+
+def _resume_check(dev, cfg, run, shape, straight, losses) -> dict:
+    """``launch.train.train`` for half the steps into a checkpoint, then
+    that checkpoint restored by the port's manager (the newest intact
+    generation, as ``train(resume=True)`` restores it) and the other half
+    run from it: the state against the straight run's (on the host)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import train_step as ts
+
+    steps = len(losses)
+    half = steps // 2
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as ckpt:
+        train_mod.train(cfg, run, shape, steps=half, device=dev,
+                        ckpt_dir=ckpt, log_every=half)
+        saved_s = time.monotonic() - t0
+        t1 = time.monotonic()
+        opt = make_optimizer(run.optimizer or cfg.optimizer,
+                             warmup_cosine(total_steps=steps))
+        state, extra = CheckpointManager(ckpt).restore(
+            ts.state_schema(cfg, run, opt))
+        state = tree_map(lambda t: t.to(dev), state)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t1
+    check(int(extra["data_step"]) == half, f"restored {extra}")
+    pipe = SyntheticLMPipeline(cfg, shape, device=dev)
+    step_fn = ts.build_train_step(cfg, run, opt)
+    resumed = []
+    for i in range(half, steps):
+        state, m = step_fn(state, pipe.batch_at(i))
+        resumed.append(float(m["loss"]))
+    diff = _state_diff(state, straight)
+    return {"bitwise": diff == 0.0, "state_max_abs_diff": diff,
+            "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                     zip(resumed, losses[half:])),
+            "train_and_save_s": saved_s, "restore_s": restore_s}
+
+
+def run_mamba_train(dev, smi):
+    """mamba2-370m whole (48 layers), f32 params and bf16 compute, B=4,
+    S=2048, microbatch 1, remat "full", AdamW, 4 steps through
+    ``launch.train.train``."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+
+    cfg = _train_cfg("mamba2-370m")
+    run = RunConfig(microbatch=1, loss_chunk=512, remat="full",
+                    optimizer="adamw")
+    shape = ShapeConfig("mamba_train", "train", 2048, 4)
+    res, rec = _train_cell(dev, cfg, run, shape, 4, smi)
+    del res
+    torch.cuda.empty_cache()
+    return {"phase": "mamba_train", **rec}
 
 
 if __name__ == "__main__":

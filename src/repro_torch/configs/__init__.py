@@ -9,6 +9,7 @@ from repro_torch.configs.base import (
     REGISTRY,
     BlockDef,
     ModelConfig,
+    RunConfig,
     dense_blocks,
     get_config,
     register,
@@ -25,6 +26,7 @@ __all__ = [
     "MAMBA2_370M",
     "ModelConfig",
     "REGISTRY",
+    "RunConfig",
     "YI_6B",
     "dense_blocks",
     "get_config",

@@ -1,6 +1,7 @@
 """Model configuration dataclasses, as the JAX package declares them.
 
-One ``ModelConfig`` describes an architecture.  The fields and their
+One ``ModelConfig`` describes an architecture and ``RunConfig`` the
+runtime knobs of a training cell.  The fields and their
 defaults are the JAX package's (``repro/configs/base.py``), so a config
 reads the same in both packages; only ``pdtype`` / ``cdtype`` map the
 dtype strings to ``torch`` dtypes here.  ``MoEConfig``, ``SSMConfig``
@@ -160,6 +161,24 @@ class ModelConfig:
 
 def dense_blocks(n: int) -> tuple[BlockDef, ...]:
     return (BlockDef(pattern=(("attn", "dense"),), repeat=n),)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Per-cell runtime knobs, field for field the JAX package's.  On one
+    card ``zero1``, ``seq_shard``, ``gradient_compression`` and the
+    pipeline fields have nothing to act on and are not read."""
+
+    microbatch: int | None = None    # global microbatch size (None = no accum)
+    remat: str | None = None         # override ModelConfig.remat
+    optimizer: str | None = None
+    grad_dtype: str = "float32"      # gradient accumulation dtype
+    zero1: bool = True               # shard optimizer state over data axis
+    seq_shard: bool = False          # Megatron-SP residuals
+    loss_chunk: int = 512            # chunked xent over seq
+    gradient_compression: str = "none"   # none | int8  (cross-pod)
+    pipeline_stages: int = 1         # >1: GPipe over the "pod" axis
+    pp_microbatches: int = 8
 
 
 REGISTRY: dict[str, ModelConfig] = {}

@@ -10,7 +10,8 @@ K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores.
 ``attention_flops`` and ``attention_bytes`` give its least work and
 traffic.
 
-The wrapper checks what the kernel takes and raises on anything else,
+The wrapper checks what the kernel takes and raises on anything else
+(an input that requires grad included: ``kernels/autograd.py``),
 allocates the output, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.  Inputs may carry any strides with a
@@ -26,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import check_no_grad
 
 HEAD_DIMS = (32, 64, 128)
 #: the bf16 kernel's design in one word: ``ring+mma.sync`` or ``wgmma``
@@ -83,6 +85,7 @@ def flash_attention_cuda(
     causal: bool = True,
 ) -> torch.Tensor:
     """Attention on the card; returns (B, H, S, D) in q's dtype."""
+    check_no_grad("flash_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")

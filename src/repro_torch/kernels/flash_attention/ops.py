@@ -1,19 +1,45 @@
 """Dispatch of attention by the device of the tensors.
 
-CPU tensors take the plain version (``ref.py``); CUDA tensors take the
-Hopper kernel (``kernel.py::flash_attention_cuda``), or the call
-raises.  Nothing falls back from one to the other.  The JAX package's
-TPU knobs (``bq``, ``bk``, ``use_pallas``, ``interpret``) have no
-meaning on Hopper and are not taken.
+CPU tensors take the plain version (``ref.py``) under plain autograd;
+CUDA tensors take the Hopper kernel (``kernel.py::flash_attention_cuda``),
+or the call raises.  Nothing falls back from one to the other.  Where
+grad is enabled and an input requires it, the kernel runs inside
+``FlashAttention``, whose backward is the plain version's
+(``kernels/autograd.py``).  The JAX package's TPU knobs (``bq``, ``bk``,
+``use_pallas``, ``interpret``) have no meaning on Hopper and are not
+taken.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import needs_graph, plain_backward
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["attention"]
+__all__ = ["FlashAttention", "attention"]
+
+
+def _kernel(q, k, v, causal):
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``impl(q, k, v, causal)`` forward (the kernel on the card; the
+    plain version in a test), the plain version's backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, impl):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return impl(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_backward("flash_attention", attention_ref,
+                               ctx.saved_tensors, ctx.needs_input_grad[:3],
+                               (g,), causal=ctx.causal)
+        return (*grads, None, None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,5 +49,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal)
+        if needs_graph(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, _kernel)
+        return _kernel(q, k, v, causal)
     raise ValueError(f"attention: no kernel for device {q.device}")

@@ -1,7 +1,8 @@
 """Plain PyTorch version of causal GQA attention (full softmax).
 
 A copy of the JAX package's ``kernels/flash_attention/ref.py``: scores
-in f32, probabilities cast to q's dtype before the product with v.
+in f32 (f64 for f64 inputs), probabilities cast to q's dtype before the
+product with v.
 """
 from __future__ import annotations
 
@@ -23,9 +24,8 @@ def attention_ref(
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=1)
         v = torch.repeat_interleave(v, rep, dim=1)
-    s = torch.einsum(
-        "bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32)
-    ) * (D ** -0.5)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (D ** -0.5)
     if causal:
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=q.device))

@@ -6,7 +6,8 @@
 per row, f32 sum and norm, both outputs in x's dtype.  It is bound by
 memory; its least traffic is ``rmsnorm_bytes(N, d, itemsize)``.
 
-The wrapper checks what the kernel takes and raises on anything else,
+The wrapper checks what the kernel takes and raises on anything else
+(an input that requires grad included: ``kernels/autograd.py``),
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.
@@ -19,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import check_no_grad
 
 #: shared memory one CTA may use on Hopper (the row's f32 copy)
 MAX_SMEM_BYTES = 232448
@@ -60,6 +62,7 @@ def rmsnorm_residual_cuda(
 ):
     """(normed(x + res), x + res) on the card, both (N, d) in x's
     dtype."""
+    check_no_grad("rmsnorm_residual_cuda", x, res, scale)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_residual_cuda needs CUDA tensors, "
                          f"got {x.device}")

@@ -10,7 +10,8 @@ block of heads (``launch_rule``).  bf16 runs on the tensor cores
 bound by memory; ``ssd_bytes`` and ``ssd_flops`` give its least traffic
 and work.
 
-The wrapper checks what the kernel takes and raises on anything else,
+The wrapper checks what the kernel takes and raises on anything else
+(an input that requires grad included: ``kernels/autograd.py``),
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.  Inputs may carry any strides with a
@@ -28,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import check_no_grad
 
 HEAD_DIMS = (16, 32, 64, 128)
 #: the largest d_state whose f32 tiles fit one CTA's shared memory
@@ -135,6 +137,7 @@ def ssd_chunk_cuda(
 ):
     """(y_intra (BC, H, Q, P) in xdt's dtype, state (BC, H, N, P) f32)
     on the card."""
+    check_no_grad("ssd_chunk_cuda", xdt, b, c, csum)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_chunk_cuda needs CUDA tensors, got "
                          f"{xdt.device}")

@@ -1,8 +1,11 @@
 """Dispatch of the SSD intra-chunk block by the device of the tensors.
 
-CPU tensors take the plain version (``ref.py``); CUDA tensors take the
-Hopper kernel (``kernel.py::ssd_chunk_cuda``), or the call raises.
-Nothing falls back from one to the other.  The JAX package's TPU knobs
+CPU tensors take the plain version (``ref.py``) under plain autograd;
+CUDA tensors take the Hopper kernel (``kernel.py::ssd_chunk_cuda``), or
+the call raises.  Nothing falls back from one to the other.  Where grad
+is enabled and an input requires it, the kernel runs inside
+``SSDChunk``, whose backward is the plain version's
+(``kernels/autograd.py``).  The JAX package's TPU knobs
 (``use_pallas``, ``interpret``) have no meaning on Hopper and are not
 taken.
 """
@@ -10,10 +13,29 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import needs_graph, plain_backward
 from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
-__all__ = ["ssd_chunk"]
+__all__ = ["SSDChunk", "ssd_chunk"]
+
+
+class SSDChunk(torch.autograd.Function):
+    """``impl(xdt, b, c, csum)`` forward (the kernel on the card; the
+    plain version in a test), the plain version's backward.  b and c may
+    be stride-0 views over the heads; their gradients come back dense
+    and the view's backward sums them over the heads."""
+
+    @staticmethod
+    def forward(ctx, xdt, b, c, csum, impl):
+        ctx.save_for_backward(xdt, b, c, csum)
+        return impl(xdt, b, c, csum)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        grads = plain_backward("ssd_chunk", ssd_chunk_ref, ctx.saved_tensors,
+                               ctx.needs_input_grad[:4], (g_y, g_state))
+        return (*grads, None)
 
 
 def ssd_chunk(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -23,5 +45,7 @@ def ssd_chunk(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, b, c, csum)
     if xdt.device.type == "cuda":
+        if needs_graph(xdt, b, c, csum):
+            return SSDChunk.apply(xdt, b, c, csum, ssd_chunk_cuda)
         return ssd_chunk_cuda(xdt, b, c, csum)
     raise ValueError(f"ssd_chunk: no kernel for device {xdt.device}")

@@ -8,7 +8,11 @@ cumulative decay csum (Q,):
 which is the attention-form dual of the selective-scan recurrence
 (arXiv:2405.21060 §5) restricted to one chunk.  ``C·Bᵀ`` is taken in
 f32, ``(C·Bᵀ)∘L`` is rounded to xdt's dtype before its product with
-xdt, and the state is f32.
+xdt, and the state is f32 (f64 for f64 inputs).  The mask is applied
+before the exponential (``exp(-inf) = 0``, the same values as the JAX
+package's ``where(mask, exp(diff), 0)``), so the positions above the
+diagonal, where ``diff`` can exceed f32's range, give no ``inf·0`` in a
+backward through this function.
 """
 from __future__ import annotations
 
@@ -20,18 +24,18 @@ def ssd_chunk_ref(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """xdt (..., Q, P); b/c (..., Q, N); csum (..., Q) f32.
 
     Returns (y_intra (..., Q, P) in xdt's dtype, state (..., N, P) f32)."""
-    f32 = torch.float32
-    cb = torch.einsum("...qn,...tn->...qt", c.to(f32), b.to(f32))
+    acc = torch.promote_types(xdt.dtype, torch.float32)
+    cb = torch.einsum("...qn,...tn->...qt", c.to(acc), b.to(acc))
     diff = csum[..., :, None] - csum[..., None, :]          # (..., Q, Q)
     Q = xdt.shape[-2]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=xdt.device))
-    decay = torch.where(mask, torch.exp(diff), 0.0)
+    decay = torch.exp(torch.where(mask, diff, -torch.inf))
     y = torch.einsum("...qt,...tp->...qp", (cb * decay).to(xdt.dtype), xdt)
     to_end = torch.exp(csum[..., -1:] - csum)               # (..., Q)
     state = torch.einsum(
         "...tn,...tp->...np",
-        (b * to_end[..., None]).to(f32),
-        xdt.to(f32),
+        (b * to_end[..., None]).to(acc),
+        xdt.to(acc),
     )
     return y, state

@@ -1,0 +1,143 @@
+"""End-to-end training driver on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        --smoke --steps 50 --deadline 120 --device cpu
+
+The JAX package's ``launch/train.py`` for any architecture the port
+serves: config -> model -> train step -> synthetic pipeline ->
+optimizer, with step-time monitoring, deadline prediction (the paper's
+loop), periodic checkpoints (the state and the pipeline's position) and
+auto-resume.  ``--smoke`` shrinks the arch; without it the full config
+is used.  ``--device`` defaults to ``cuda`` and raises without a card;
+``--device cpu`` runs the plain versions of the kernels.  Weights come
+from a seeded ``torch.Generator`` on the device.  The elastic path
+(re-sizing mid-run across devices) waits for the port's sharding.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import RunConfig, get_config, smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.core import DeadlinePredictor, StepTimeMonitor
+from repro_torch.data.pipeline import SyntheticLMPipeline
+from repro_torch.device import resolve_device
+from repro_torch.launch.serve import KERNELS
+from repro_torch.models.params import tree_map
+from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.runtime import train_step as ts
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: dict                  # {"params", "opt", "step"} after the run
+    start_step: int              # the step the run started from
+    losses: list                 # each step's loss, host floats
+    step_s: list                 # each step's seconds (host clock, synced)
+    launches: dict               # {kernel: launches over the run's steps}
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def train(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig, *,
+          steps: int, device, deadline: float | None = None,
+          ckpt_dir=None, ckpt_every: int = 25, resume: bool = False,
+          log_every: int = 10, seed: int = 0) -> TrainResult:
+    """Train ``cfg`` on ``shape``'s synthetic batches up to step
+    ``steps``, from step 0 or, with ``resume``, from the newest intact
+    checkpoint in ``ckpt_dir``; prints the JAX driver's lines."""
+    dev = resolve_device(device)
+    opt = make_optimizer(run.optimizer or cfg.optimizer,
+                         warmup_cosine(total_steps=steps))
+    sch = ts.state_schema(cfg, run, opt)
+    step_fn = ts.build_train_step(cfg, run, opt)
+    pipeline = SyntheticLMPipeline(cfg, shape, device=dev)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if resume and mgr and mgr.latest_step() is not None:
+        state, extra = mgr.restore(sch)
+        state = tree_map(lambda t: t.to(dev), state)
+        pipeline.restore(extra)
+        start_step = int(extra.get("data_step", 0))
+        print(f"[train] resumed from step {start_step}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = ts.new_state(ts.init_state(sch, gen, dev), opt)
+
+    monitor = StepTimeMonitor()
+    predictor = DeadlinePredictor(deadline) if deadline else None
+    losses, times = [], []
+    c0 = _launches()
+    t_start = time.monotonic()
+    for step in range(start_step, steps):
+        batch = pipeline.batch_at(step)
+        t0 = time.monotonic()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])  # waits for the step
+        dt = time.monotonic() - t0
+        losses.append(loss)
+        times.append(dt)
+        monitor.observe(dt)
+        pipeline.state.step = step + 1
+        if mgr and (step + 1) % ckpt_every == 0:
+            mgr.save(step + 1, state, extra=pipeline.state.to_extra())
+        if (step + 1) % log_every == 0 or step == start_step:
+            msg = (f"[train] step {step + 1}/{steps} "
+                   f"loss={loss:.4f} {dt*1000:.0f}ms")
+            if predictor:
+                est = predictor.estimate(
+                    monitor, step + 1, steps, time.monotonic() - t_start,
+                )
+                msg += (f" est_total={est.estimated_total_s:.0f}s "
+                        f"slack={est.slack_s:+.0f}s"
+                        + (" [DEADLINE AT RISK — would burst]"
+                           if est.will_miss else ""))
+            print(msg, flush=True)
+    c1 = _launches()
+    if mgr:
+        mgr.save(steps, state, extra=pipeline.state.to_extra(), wait=True)
+    print(f"[train] done in {time.monotonic() - t_start:.1f}s")
+    return TrainResult(state=state, start_step=start_step, losses=losses,
+                       step_s=times,
+                       launches={k: c1[k] - c0[k] for k in c1})
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatch", type=int, default=None)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="seconds; enables the monitoring/prediction loop")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    shape = ShapeConfig("cli", "train", args.seq, args.batch)
+    run = RunConfig(microbatch=args.microbatch,
+                    loss_chunk=min(512, args.seq))
+    return train(cfg, run, shape, steps=args.steps, device=args.device,
+                 deadline=args.deadline, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every, resume=args.resume,
+                 log_every=args.log_every)
+
+
+if __name__ == "__main__":
+    main()

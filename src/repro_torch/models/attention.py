@@ -12,9 +12,10 @@ The JAX package's ``models/attention.py`` for the dense path:
   the ``pos`` mask, softmax, probs·V.  The JAX package computes decode
   attention outside any Pallas kernel too (its kernel needs Sq == Sk).
 
-The decode cache is updated in place (``cache[:, pos] = ...``), where
-the JAX package donates the buffer for the same effect.  A logit
-soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
+Each weight is cast to the compute dtype at its use, as in the JAX
+package.  The decode cache is updated in place (``cache[:, pos] =
+...``), where the JAX package donates the buffer for the same effect.
+A logit soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
 """
 from __future__ import annotations
 
@@ -79,17 +80,18 @@ def apply_attn_full(
     """Prefill attention over a full sequence.  When ``cache`` is given,
     this layer's k and v are written to its first S positions."""
     _no_softcap(cfg)
-    x = x.to(cfg.cdtype)
-    q = _project(x, p["wq"])
-    kk = _project(x, p["wk"])
-    vv = _project(x, p["wv"])
+    dt = cfg.cdtype
+    x = x.to(dt)
+    q = _project(x, p["wq"].to(dt))
+    kk = _project(x, p["wk"].to(dt))
+    vv = _project(x, p["wv"].to(dt))
     if rope_cs is not None:
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
         kk = apply_rope(kk, cos, sin)
     out = attention(q.transpose(1, 2), kk.transpose(1, 2),
                     vv.transpose(1, 2), causal=causal).transpose(1, 2)
-    y = _out(out, p["wo"])
+    y = _out(out, p["wo"].to(dt))
     if cache is not None:
         S = x.shape[1]
         cache["k"][:, :S] = kk
@@ -112,9 +114,9 @@ def apply_attn_decode(
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rep = H // KH
     x = x.to(dt)
-    q = _project(x, p["wq"])                      # (B, H, Dh)
-    k_new = _project(x, p["wk"])
-    v_new = _project(x, p["wv"])
+    q = _project(x, p["wq"].to(dt))               # (B, H, Dh)
+    k_new = _project(x, p["wk"].to(dt))
+    v_new = _project(x, p["wv"].to(dt))
     if rope_cs is not None:
         cos, sin = rope_cs                            # (1, 1, D/2)
         q = apply_rope(q[:, None], cos, sin)[:, 0]
@@ -132,4 +134,4 @@ def apply_attn_decode(
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bgrs,bsgd->bgrd", probs, v).reshape(B, H, Dh)
-    return _out(ctx, p["wo"])
+    return _out(ctx, p["wo"].to(dt))

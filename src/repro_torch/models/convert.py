@@ -5,9 +5,12 @@ parameters as numpy arrays — ``jax.tree.map(np.asarray,
 init_params(M.schema(cfg), key))``, layers stacked on a leading axis
 under ``b0`` — and returns the port's parameter dict, leaf for leaf, so
 both packages compute the same logits.  Each leaf is checked against
-the port's schema (keys, shape) and stored in the schema's dtype: the
-compute dtype for matrices and embeddings, which the JAX package keeps
-in the parameter dtype and casts at every use to the same values.
+the port's schema (keys, shape) and stored in the schema's dtype:
+serving's ``schema`` keeps matrices and embeddings in the compute dtype,
+which the JAX package keeps in the parameter dtype and casts at every
+use to the same values; with ``train=True`` the tree goes into
+``train_schema``, every leaf in the parameter dtype as in the JAX
+package, so training starts from the same f32 master leaves.
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ def _count_leaves(tree) -> int:
     return 1
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device):
-    sch = M.schema(cfg)
+def params_from_numpy(cfg: ModelConfig, tree, device, *, train=False):
+    sch = M.train_schema(cfg) if train else M.schema(cfg)
     n_spec = 0
 
     def take(path, spec):

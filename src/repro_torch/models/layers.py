@@ -2,11 +2,12 @@
 embeddings and the token embeddings.
 
 The JAX package's ``models/layers.py`` for the pieces the dense path
-uses, op for op.  M-RoPE, sinusoidal positions, layernorm and the
-non-SwiGLU activations raise ``NotImplementedError``.  The residual →
-norm seams of the decoder do not call ``apply_norm``: they go through
-the fused kernel (``kernels/rmsnorm/ops.py``), see
-``models/transformer.py``.
+uses, op for op, each weight cast to the compute dtype at its use as
+there (a no-op for serving's leaves, stored in it).  M-RoPE, sinusoidal
+positions, layernorm and the non-SwiGLU activations raise
+``NotImplementedError``.  The residual → norm seams of the decoder do
+not call ``apply_norm``: they go through the fused kernel
+(``kernels/rmsnorm/ops.py``), see ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -68,9 +69,10 @@ def mlp_schema(cfg: ModelConfig, d_ff: int | None = None):
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     _swiglu_only(cfg)
-    x = x.to(cfg.cdtype)
-    h = F.silu(x @ p["gate"]) * (x @ p["up"])
-    return h @ p["down"]
+    dt = cfg.cdtype
+    x = x.to(dt)
+    h = F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
+    return h @ p["down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -121,10 +123,10 @@ def embed_schema(cfg: ModelConfig):
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    return p["embed"][tokens].to(cfg.cdtype)
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) -> logits (..., V), fp32."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    return (x.to(cfg.cdtype) @ w).to(torch.float32)
+    return (x.to(cfg.cdtype) @ w.to(cfg.cdtype)).to(torch.float32)

@@ -48,10 +48,12 @@ def _dims(cfg: ModelConfig):
 
 
 def mamba_schema(cfg: ModelConfig):
-    """The JAX package's schema.  Leaves the JAX package casts to the
-    compute dtype at every use are stored in it; ``A_log`` and
-    ``dt_bias`` (used in f32) and the norm scale in the parameter
-    dtype."""
+    """The JAX package's schema for serving.  Leaves the JAX package
+    casts to the compute dtype at every use (``CAST_AT_USE``) are stored
+    in it; ``A_log`` and ``dt_bias`` (used in f32) and the norm scale in
+    the parameter dtype.  The mixer casts each leaf at its use, as the
+    JAX package does, so it also takes the training schema's leaves, all
+    in the parameter dtype (``models/model.py::train_schema``)."""
     s, d_in, H, G, N, P = _dims(cfg)
     d = cfg.d_model
     pd, cd = cfg.pdtype, cfg.cdtype
@@ -95,6 +97,17 @@ def mamba_cache_schema(cfg: ModelConfig, batch: int):
     }
 
 
+#: the leaves the JAX package casts to the compute dtype at every use
+#: (``A_log``, ``dt_bias`` and the norm scale are used in f32)
+CAST_AT_USE = ("wz", "wx", "wb", "wc", "wdt", "conv_x", "conv_b", "conv_c",
+               "conv_x_bias", "conv_b_bias", "conv_c_bias", "D", "out")
+
+
+def _weights(p, dt) -> dict:
+    """The ``CAST_AT_USE`` leaves of ``p`` in the compute dtype ``dt``."""
+    return {k: p[k].to(dt) for k in CAST_AT_USE}
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv as shifted adds.  x (B,S,C), w (W,C)."""
@@ -128,14 +141,15 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     dt_c = cfg.cdtype
     B_, S, _ = x.shape
     x = x.to(dt_c)
-    z = x @ p["wz"]
-    xs_raw = x @ p["wx"]
-    b_raw = x @ p["wb"]
-    c_raw = x @ p["wc"]
-    dt_in = x @ p["wdt"]
-    xs = F.silu(_causal_conv(xs_raw, p["conv_x"], p["conv_x_bias"]))
-    bs = F.silu(_causal_conv(b_raw, p["conv_b"], p["conv_b_bias"]))
-    cs = F.silu(_causal_conv(c_raw, p["conv_c"], p["conv_c_bias"]))
+    w = _weights(p, dt_c)
+    z = x @ w["wz"]
+    xs_raw = x @ w["wx"]
+    b_raw = x @ w["wb"]
+    c_raw = x @ w["wc"]
+    dt_in = x @ w["wdt"]
+    xs = F.silu(_causal_conv(xs_raw, w["conv_x"], w["conv_x_bias"]))
+    bs = F.silu(_causal_conv(b_raw, w["conv_b"], w["conv_b_bias"]))
+    cs = F.silu(_causal_conv(c_raw, w["conv_c"], w["conv_c_bias"]))
     xs = xs.reshape(B_, S, H, P)
     bs = bs.reshape(B_, S, G, N)
     cs = cs.reshape(B_, S, G, N)
@@ -145,10 +159,10 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
 
     y, final_state = ssd_chunked(xs, bs, cs, dt, dA,
                                  chunk=min(s.chunk, S), n_heads=H)
-    y = y + xs * p["D"][None, None, :, None]
+    y = y + xs * w["D"][None, None, :, None]
     y = y.reshape(B_, S, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out"]
+    out = y @ w["out"]
     if cache is not None:
         cw = s.d_conv - 1
         cache["conv_x"].copy_(_tail(xs_raw, cw))
@@ -227,17 +241,18 @@ def apply_mamba_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     dt_c = cfg.cdtype
     B_ = x.shape[0]
     x = x.to(dt_c)
-    z = x @ p["wz"]
-    x_raw = x @ p["wx"]
-    b_raw = x @ p["wb"]
-    c_raw = x @ p["wc"]
-    dt_in = x @ p["wdt"]
-    xs, conv_x = _conv_step(x_raw, cache["conv_x"], p["conv_x"],
-                            p["conv_x_bias"])
-    bs, conv_b = _conv_step(b_raw, cache["conv_b"], p["conv_b"],
-                            p["conv_b_bias"])
-    cs, conv_c = _conv_step(c_raw, cache["conv_c"], p["conv_c"],
-                            p["conv_c_bias"])
+    w = _weights(p, dt_c)
+    z = x @ w["wz"]
+    x_raw = x @ w["wx"]
+    b_raw = x @ w["wb"]
+    c_raw = x @ w["wc"]
+    dt_in = x @ w["wdt"]
+    xs, conv_x = _conv_step(x_raw, cache["conv_x"], w["conv_x"],
+                            w["conv_x_bias"])
+    bs, conv_b = _conv_step(b_raw, cache["conv_b"], w["conv_b"],
+                            w["conv_b_bias"])
+    cs, conv_c = _conv_step(c_raw, cache["conv_c"], w["conv_c"],
+                            w["conv_c_bias"])
     xs, bs, cs = F.silu(xs), F.silu(bs), F.silu(cs)
     xs = xs.reshape(B_, H, P)
     bs = bs.reshape(B_, G, N).repeat_interleave(H // G, dim=1)  # (B,H,N)
@@ -249,10 +264,10 @@ def apply_mamba_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     upd = torch.einsum("bhn,bhp->bhnp", bs.float(), xs.float() * dt[..., None])
     h = h * dA[..., None, None] + upd
     y = torch.einsum("bhn,bhnp->bhp", cs.float(), h).to(dt_c)
-    y = y + xs * p["D"][None, :, None]
+    y = y + xs * w["D"][None, :, None]
     y = y.reshape(B_, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out"]
+    out = y @ w["out"]
     cache["conv_x"].copy_(conv_x)
     cache["conv_b"].copy_(conv_b)
     cache["conv_c"].copy_(conv_c)

@@ -1,23 +1,26 @@
-"""Public model API of the port: schema, prefill and decode for the
-dense GQA decoder and the Mamba-2 (SSD) stack.
+"""Public model API of the port: schema, training loss, prefill and
+decode for the dense GQA decoder and the Mamba-2 (SSD) stack.
 
-The JAX package's ``models/model.py`` for the serving path, as plain
-functions on a parameter dict laid out as the JAX pytree.  prefill runs
+The JAX package's ``models/model.py``, as plain functions on a parameter
+dict laid out as the JAX pytree.  prefill and the training forward run
 the flash-attention kernel once per attention layer, the SSD chunk
 kernel once per mamba layer and the fused residual-norm kernel at every
 seam (``launches_per_pass``); a decode step runs the norm kernel as
 often, and attention and the O(1) state update as torch ops.
 
-Matrices and embeddings are declared in the compute dtype, norm scales
-in the parameter dtype.  The JAX package keeps every leaf in the
-parameter dtype and casts each use (``w.astype(dt)``); the values the
-matmuls see are the same.
+Serving's ``schema`` declares matrices and embeddings in the compute
+dtype, norm scales in the parameter dtype.  ``train_schema`` is the JAX
+package's: every leaf in the parameter dtype (the f32 master leaves
+AdamW updates).  Every use casts its weight to the compute dtype
+(``w.astype(dt)`` in the JAX package), a no-op on serving's leaves, so
+the values the matmuls see are the same under both schemas.
 
 Configs that need MoE, MLA, an encoder, M-RoPE, sinusoidal positions,
 embedding inputs or the MTP head raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -30,7 +33,11 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     unembed,
 )
-from repro_torch.models.params import count_params, zeros_like_schema
+from repro_torch.models.params import (
+    count_params,
+    map_specs,
+    zeros_like_schema,
+)
 from repro_torch.models.transformer import (
     apply_block_decode,
     apply_block_full,
@@ -70,6 +77,13 @@ def schema(cfg: ModelConfig):
     return s
 
 
+def train_schema(cfg: ModelConfig):
+    """The JAX package's ``schema``: serving's shapes and inits, every
+    leaf in ``cfg.pdtype``."""
+    return map_specs(lambda _, s: dataclasses.replace(s, dtype=cfg.pdtype),
+                     schema(cfg))
+
+
 def cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
     check_supported(cfg)
     return {
@@ -89,25 +103,31 @@ def _layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
             for kind in b.pattern]
 
 
-def launches_per_pass(cfg: ModelConfig, phase: str) -> dict[str, int]:
-    """Kernel launches of one prefill or one decode step, counted from
-    the layer pattern, for the kernels the config's layers run: the
-    fused residual-norm at every seam (``norm1``, ``norm2`` where the
-    layer has an MLP, and the final norm) in both phases; in prefill,
+def launches_per_pass(cfg: ModelConfig, phase: str,
+                      remat: str = "none") -> dict[str, int]:
+    """Kernel launches of one prefill, one decode step or one training
+    forward and backward of a (micro)batch, counted from the layer
+    pattern, for the kernels the config's layers run: the fused
+    residual-norm at every seam (``norm1``, ``norm2`` where the layer has
+    an MLP, and the final norm) in every phase; in prefill and training,
     flash attention once per attention layer and the SSD chunk kernel
-    once per mamba layer (decode runs neither)."""
-    if phase not in ("prefill", "decode"):
+    once per mamba layer (decode runs neither).  In training the
+    backward runs the plain versions, and under a ``remat`` other than
+    ``none`` it recomputes each layer's forward, kernels included: every
+    layer's launches twice, the final norm's once."""
+    if phase not in ("prefill", "decode", "train"):
         raise ValueError(f"phase {phase!r}")
     kinds = _layer_kinds(cfg)
+    rep = 2 if phase == "train" and remat != "none" else 1
     out = {}
     n_attn = sum(mixer == "attn" for mixer, _ in kinds)
     n_mamba = sum(mixer == "mamba" for mixer, _ in kinds)
     if n_attn:
-        out["flash_attention"] = n_attn if phase == "prefill" else 0
-    out["rmsnorm_residual"] = sum(1 + (mlp != "none")
-                                  for _, mlp in kinds) + 1
+        out["flash_attention"] = rep * n_attn if phase != "decode" else 0
+    out["rmsnorm_residual"] = rep * sum(1 + (mlp != "none")
+                                        for _, mlp in kinds) + 1
     if n_mamba:
-        out["ssd_chunk"] = n_mamba if phase == "prefill" else 0
+        out["ssd_chunk"] = rep * n_mamba if phase != "decode" else 0
     return out
 
 
@@ -133,6 +153,82 @@ def rope_decode(cfg: ModelConfig, pos: int, device):
     cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=device),
                             cfg.head_dim, cfg.rope_theta)    # (1,D2)
     return cos[None], sin[None]                              # (1,1,D2)
+
+
+def backbone_full(cfg: ModelConfig, params, x, *, rope_cs,
+                  remat: str | None = None):
+    """The training forward of every block, no cache: x (B,S,d) ->
+    (x, res), the stream and the last layer's output, which the final
+    fused norm adds."""
+    res = torch.zeros_like(x)
+    for i, bdef in enumerate(cfg.blocks):
+        x, res = apply_block_full(
+            cfg, bdef, params[f"b{i}"], x, res, rope_cs=rope_cs, causal=True,
+            remat=remat,
+        )
+    return x, res
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor,
+                 loss_chunk: int = 512):
+    """Memory-bounded cross-entropy: a loop over sequence chunks, so the
+    (B, chunk, V) f32 logits are the largest ever held, never (B, S, V).
+    Returns (sum_nll, sum_mask)."""
+    B, S, _ = h.shape
+
+    def piece(h_c, lab_c, m_c):
+        logits = unembed(cfg, params, h_c)                   # (B,c,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, lab_c[..., None].long())[..., 0]
+        return torch.sum((lse - lab) * m_c), torch.sum(m_c)
+
+    if S <= loss_chunk:
+        return piece(h, labels, mask)
+    if S % loss_chunk:
+        raise ValueError(f"sequence {S} is not a multiple of loss_chunk "
+                         f"{loss_chunk}")
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, loss_chunk):
+        sl = slice(c, c + loss_chunk)
+        n, m = piece(h[:, sl], labels[:, sl], mask[:, sl])
+        nll, cnt = nll + n, cnt + m
+    return nll, cnt
+
+
+def _shift_left(x: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """x[:, n:] padded with n zeros at the end of axis 1."""
+    return torch.cat([x[:, n:], torch.zeros_like(x[:, :n])], dim=1)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
+            remat: str | None = None):
+    """Next-token cross-entropy of ``batch`` ({"tokens": (B,S) int,
+    optional "loss_mask": (B,S) f32}), normalised by its token count.
+    Returns (loss, metrics) with the JAX package's keys: ``loss``,
+    ``nll_sum``, ``token_count`` and ``aux_loss`` (0: no MoE)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    x = embed_tokens(cfg, params, tokens)
+    rope_cs = rope_full(cfg, S, tokens.device)
+    x, res = backbone_full(cfg, params, x, rope_cs=rope_cs, remat=remat)
+    h, _ = fused_norm(cfg, params["final_norm"], x, res)
+    nll, cnt = chunked_xent(cfg, params, h, _shift_left(tokens),
+                            _shift_left(mask), loss_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    loss = nll / torch.clamp(cnt, min=1.0) + aux
+    metrics = {"nll_sum": nll.detach(), "token_count": cnt.detach(),
+               "aux_loss": aux, "loss": loss.detach()}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,31 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_zip(fn, tree, *rest):
+    """``fn(leaf, *others)`` at every leaf of ``tree``; each tree of
+    ``rest`` has ``tree``'s dict structure down to its leaves and may
+    hold anything there (an optimizer's moment dict, say)."""
+    if isinstance(tree, dict):
+        return {k: tree_zip(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+    out = _fill(tree, it)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def _fill(tree, it):
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def stack_schema(schema, n: int, axis_name: str | None = "layers"):
     """Add a leading stacked-layers dim to every spec in a schema."""
     return map_specs(lambda _, s: dataclasses.replace(

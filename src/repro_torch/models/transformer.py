@@ -21,10 +21,22 @@ zero tensor.
 A mamba layer has ``norm1`` and ``mixer`` and no ``norm2`` / ``mlp``,
 as in the JAX package.  Other mixers (MLA), MoE and cross-attention
 raise ``NotImplementedError``.
+
+Training runs the same layers with no cache, each repeat unit of a
+block under ``remat_wrap`` (the JAX package's ``jax.checkpoint`` of its
+scan body): ``full`` recomputes the unit in the backward, ``dots``
+keeps the outputs of its 2-D matrix products and recomputes the rest.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_residual
@@ -43,6 +55,34 @@ def _served(mixer: str, mlp: str) -> None:
         raise NotImplementedError(
             f"layer ({mixer!r}, {mlp!r}): the port serves {LAYER_KINDS} "
             f"layers only")
+
+
+#: the 2-D products "dots" saves: ``dots_with_no_batch_dims_saveable``
+#: (the attention's batched products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(cfg: ModelConfig, fn, override: str | None = None):
+    """``fn`` under the remat mode ``override`` (default ``cfg.remat``):
+    ``none`` as it is, ``full`` checkpointed (nothing saved), ``dots``
+    checkpointed saving the 2-D matrix products' outputs."""
+    mode = override if override is not None else cfg.remat
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"remat {mode!r}: expected none, dots or full")
 
 
 def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
@@ -151,20 +191,35 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views: one ``unbind`` per
+    leaf, so a backward stacks the layers' gradients once."""
+    leaves = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t, r=r: t[r], leaves) for r in range(n)]
+
+
 def apply_block_full(
     cfg: ModelConfig, bdef: BlockDef, params, x, res, *,
-    rope_cs, causal=True, cache=None,
+    rope_cs, causal=True, cache=None, remat: str | None = "none",
 ):
     """x, res (B,S,d) -> (x, res) after the block's layers; ``cache``
-    (stacked) is filled in place."""
-    for r in range(bdef.repeat):
-        lp = _layer(params, r)
-        lc = None if cache is None else _layer(cache, r)
+    (stacked) is filled in place.  Each repeat unit runs under
+    ``remat_wrap(cfg, ·, remat)``: serving passes ``"none"`` and a
+    cache, training its remat mode and no cache."""
+
+    def unit(lp, x, res, lc):
         for i, (mixer, mlp) in enumerate(bdef.pattern):
             x, res = apply_layer_full(
                 cfg, lp[f"l{i}"], x, res, mixer, mlp, rope_cs=rope_cs,
                 causal=causal, cache=None if lc is None else lc[f"l{i}"],
             )
+        return x, res
+
+    body = remat_wrap(cfg, unit, remat)
+    layers = _unstack(params, bdef.repeat)
+    for r in range(bdef.repeat):
+        x, res = body(layers[r], x, res,
+                      None if cache is None else _layer(cache, r))
     return x, res
 
 

@@ -11,7 +11,10 @@ EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 DEMOS = {
     "torch_fwi_seismic_demo": ["--size", "96", "--cal-nz", "48"],
     "torch_fleet_autoscale_demo": ["--probe-size", "64"],
+    "torch_quickstart": [],
 }
+#: the line each demo ends with
+OK_LINE = {"torch_quickstart": "quickstart OK"}
 
 
 def _load(name):
@@ -26,7 +29,8 @@ def _load(name):
 def test_demo_runs_on_the_cpu(name, capsys):
     _load(name).main(["--device", "cpu", *DEMOS[name]])
     out = capsys.readouterr().out
-    assert out.rstrip().endswith(f"{name} OK"), out[-2000:]
+    assert out.rstrip().endswith(OK_LINE.get(name, f"{name} OK")), \
+        out[-2000:]
 
 
 @pytest.mark.parametrize("name", sorted(DEMOS))

@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package, and the port's
+"""The port stands alone: ``src/repro_torch``, its demos
+(``examples/torch_*.py``) and ``chip_smoke.py`` import neither JAX nor
+anything of the JAX package, and the port's
 copies of ``repro.core`` and ``repro.sim`` differ from the originals
 only in their imports (and ``sim/scenarios.py`` in its two probe
 literals, which hold the card's own measurements)."""
@@ -14,8 +15,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 CORE = ["__init__", "allocator", "capacity", "deadline", "events", "gamma",
         "monitor", "orchestrator", "planner", "sim_session"]
 SIM = ["__init__", "autoscalers", "faults", "fleet", "queue", "scenarios",
