@@ -73,13 +73,15 @@ Phases, each printing one JSON line:
    at 600 x 600, and a short ``FWISession(autotune=True)`` run.
 12. ``rmsnorm_vs_plain``: the fused residual-add + RMSNorm kernel
     against its plain version (the shapes of ``tests/test_kernels.py``,
-    Yi-6B's prefill and decode rows, a ragged row count; f32 and bf16):
+    Yi-6B's prefill and decode rows, a ragged row count, Jamba-v0.1's
+    8192 prefill rows; f32 and bf16):
     |got - want| <= atol + rtol·|want| with (1e-6, 1e-6) in f32 and
     (2e-2, 2^-8) in bf16 on both outputs.
 13. ``attention_vs_plain``: the flash-attention kernel against its
     plain version (the shapes of ``tests/test_kernels.py``, non-causal,
     Yi-6B's prefill in the model's layout, ragged S=300, S=1 and S=64
-    at D=32 and 128, non-causal in the model's layout): atol 2e-5 in
+    at D=32 and 128, non-causal in the model's layout, Jamba-v0.1's
+    prefill (4, 32, 8, 2048, 128) in the model's layout): atol 2e-5 in
     f32, 3e-2 in bf16.
 14. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
@@ -102,9 +104,11 @@ Phases, each printing one JSON line:
     prefill in bf16 on the model's views (B and C stride-0 head
     broadcasts, xdt the model's permuted view) and with per-head B and
     C, ragged Q and odd H on the model's views, two groups repeated per
-    head): atol 1e-5 in f32; in bf16 y within 2^-8·max|y| + 2^-7·|y| and
-    the state within 1e-5; device ms at the served shape in both
-    layouts against their bounds, the launch the wrapper made and the
+    head, Jamba-v0.1's served prefill (32, 128, 256, 16, 64) on the
+    model's views, N = 16 with one group stride-0 over 128 heads): atol
+    1e-5 in f32; in bf16 y within 2^-8·max|y| + 2^-7·|y| and the state
+    within 1e-5; device ms at mamba2's served shape in both layouts and
+    at Jamba's against their bounds, the launch the wrapper made and the
     plain version's ms.
 17. ``mamba_vs_cpu``: mamba2-370m at full width and all 48 layers, f32
     (no TF32): the same weights serve on the card (kernels) and on the
@@ -119,6 +123,33 @@ Phases, each printing one JSON line:
     Every SSD and norm call of one prefill and decode step is held to
     its plain version on the served activations, and the 48-layer bf16
     invariant within 0.1·max|logit| under the init rule itself.
+18b. ``dense_vs_cpu``: Yi-9B, Granite-8B and Minitron-8B (squared-ReLU
+    MLP) each at full width, 2 layers, f32, in ``serve_vs_cpu``'s form:
+    logits within 1e-3·max|logit|, identical tokens, the launch counts.
+18c. ``jamba_vs_cpu``: Jamba-v0.1 at full width, f32 (no TF32), cut to
+    3 layers that keep one of each kind of its period, (mamba, dense),
+    (mamba, moe) and (attn, dense), as one block: the same weights serve
+    on the card and on the CPU, B=2, prompt 300, 4 greedy steps: logits
+    within 1e-3·max|logit|, identical tokens, identical expert choices
+    wherever the k-th and (k+1)-th router probabilities part by more
+    than 1e-5 (the count below printed), equal dropped (token, expert)
+    assignments, the launch counts, and the card's prefill vs
+    prefill(S-1) + decode within 1e-4·max|logit| on the requests that
+    lost no assignment in either prefill (at least one).
+18d. ``jamba_serve``: Jamba-v0.1 at full width in bf16 cut to one
+    period (8 layers: ``reduced`` 32 -> 8; 103 GB in bf16 do not fit 80)
+    through ``launch/serve.py``'s functions: 4 requests of 2048 prompt
+    tokens (two MoE groups of 4096, C = 640) and 32 greedy tokens, with
+    prefill and decode times against their bounds (the prefill's
+    products counted by ``jamba_prefill_flops``, the weights' bytes per
+    decode step), tokens/s, peak memory, launches per prefill and per
+    step, dropped assignments per MoE layer and request, and a profile
+    of each phase by kind (with the MoE ranges' device ms: dispatch,
+    experts, combine).  Every flash, SSD and norm call of one prefill
+    and one decode step is held to its plain version on the served
+    activations, and the 8-layer bf16 invariant within 5e-2·max|logit|
+    with ``well_conditioned`` attention weights on the requests that
+    lost no assignment (the figure under the init rule printed).
 19. ``train_grad_vs_plain``: each autograd Function of the LM kernels
     (the kernel forward, the plain backward) against autograd through
     the plain version on the same inputs and output gradients: Yi-6B's
@@ -162,7 +193,10 @@ Phases, each printing one JSON line:
     (``ms_per_head``, ``bound_ms_per_head``), the heads a CTA took at
     the served shape (``heads_per_cta``) and its ``design``; each LM
     kernel also its launches in ``train`` and ``mamba_train``
-    (``launches_train``, ``launches_train_per_step``, ...).
+    (``launches_train``, ``launches_train_per_step``, ...) and in
+    ``jamba_serve`` (``launches_jamba``, ``..._per_prefill``,
+    ``..._per_step``), and its device ms, plain ms, bound and library ms
+    at Jamba-v0.1's served shape (``ms_jamba``, ...).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -244,6 +278,20 @@ MAMBA_F32_INV = 1e-4
 #: mamba_serve: the 48-layer bf16 invariant as a share of max|logit|
 #: (the JAX package: 3.5 % at B=2, S=300 under the same init rule)
 MAMBA_INV_TOL = 0.1
+#: Jamba-v0.1 served at 4 x 2048 tokens: the flash call (B, H, KH, S, D),
+#: causal, no RoPE; the SSD chunk call (BC, H, Q, N, P) on the model's
+#: views (B and C one group, stride 0 over 128 heads); the norm's rows
+FLASH_SHAPE_JAMBA = (4, 32, 8, 2048, 128)
+SSD_JAMBA = (32, 128, 256, 16, 64)
+RMS_ROWS_JAMBA = (8192, 4096)
+#: jamba_vs_cpu: f32 logits on the card within this share of max|logit|
+#: of the CPU's, and the card's own prefill-vs-decode invariant; expert
+#: choices are compared where the k-th and (k+1)-th router probabilities
+#: part by more than ROUTER_GAP (f32 roundings move a probability by
+#: ~1e-7, so a closer pair may swap on either device)
+JAMBA_F32_TOL = 1e-3
+JAMBA_F32_INV = 1e-4
+ROUTER_GAP = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -569,6 +617,12 @@ def main() -> int:
     mserved = run_mamba_serve(dev)
     emit(mserved)
 
+    # 18b.-18d. the other dense archs, and the Jamba hybrid with MoE
+    emit(run_dense_vs_cpu(dev))
+    emit(run_jamba_vs_cpu(dev))
+    jserved = run_jamba_serve(dev)
+    emit(jserved)
+
     # 19.-22. the training slice
     emit(run_train_grad_vs_plain(dev))
     emit(run_train_vs_cpu(dev))
@@ -580,6 +634,9 @@ def main() -> int:
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
+    jfields = jamba_kernel_fields(dev, bw, f32, bf16, ssd, jserved)
+    for entry in lm_entries:
+        entry.update(jfields[entry["name"]])
     for entry in lm_entries:
         for key, cell in (("train", trained), ("mamba_train", mtrained)):
             if entry["name"] in cell["launches_predicted"]:
@@ -1526,8 +1583,14 @@ def profile_device(fn, calls: int) -> dict:
     """``torch.profiler`` over one synchronised call of ``fn`` (warmed
     up first): wall ms, the kernels' device ms and launches per call
     (``calls`` steps or blocks), the device's busy share, and the device
-    ms inside each ``*_plain_backward`` range."""
+    ms inside each ``*_plain_backward`` range and each MoE range
+    (``models/moe.py::MOE_RANGES``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.moe import MOE_RANGES
+
+    def is_range(key):
+        return key.endswith(PLAIN_BACKWARD) or key in MOE_RANGES
 
     fn()
     torch.cuda.synchronize()
@@ -1540,10 +1603,10 @@ def profile_device(fn, calls: int) -> dict:
     events = prof.key_averages()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.endswith(PLAIN_BACKWARD)]
+               and not is_range(e.key)]
     ranges = {e.key: e.device_time_total / 1e3 for e in events
               if e.device_type == torch.autograd.DeviceType.CPU
-              and e.key.endswith(PLAIN_BACKWARD)}
+              and is_range(e.key)}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(device_ms > 0, "the profiler saw no device time")
     # names cut to 48 characters: kernels that share a prefix are summed
@@ -1556,8 +1619,12 @@ def profile_device(fn, calls: int) -> dict:
            "busy_share": device_ms / (wall * 1e3),
            "kernels_per_call": sum(e.count for e in kernels) / calls,
            "by_kernel_ms": by_kernel}
-    if ranges:
-        out["plain_backward_ms"] = ranges
+    backward = {k: v for k, v in ranges.items() if k.endswith(PLAIN_BACKWARD)}
+    if backward:
+        out["plain_backward_ms"] = backward
+    moe = {k: v / calls for k, v in ranges.items() if k in MOE_RANGES}
+    if moe:
+        out["moe_ms_per_call"] = moe
     return out
 
 
@@ -1808,6 +1875,7 @@ def run_rmsnorm_vs_plain(dev, rng):
         ("Yi-6B prefill rows", (2048, 4096), True),
         ("Yi-6B decode rows", (4, 4096), True),
         ("ragged rows", (37, 4096), True),
+        ("Jamba-v0.1 prefill rows", RMS_ROWS_JAMBA, True),
     ):
         x = rng.standard_normal((n, d), dtype=np.float32)
         r = rng.standard_normal((n, d), dtype=np.float32)
@@ -1867,6 +1935,8 @@ def run_attention_vs_plain(dev, rng):
              for s in (1, 64) for d in (32, 128) for dt in (f32, bf16)]
     plan += [("non-causal, model layout", (2, 32, 4, 300, 128), bf16,
               False, True)]
+    plan += [("Jamba-v0.1 prefill (KH=8, no RoPE), model layout",
+              FLASH_SHAPE_JAMBA, bf16, True, True)]
     for label, (b, h, kh, s, d), dtype, causal, layout in plan:
         q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout)
         want = ref.attention_ref(q, k, v, causal=causal)
@@ -1898,9 +1968,10 @@ def _counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def run_serve_vs_cpu(dev):
-    """Yi-6B at full width cut to 2 layers, f32: one set of weights from
-    one generator serves on the card and on the CPU."""
+def run_serve_vs_cpu(dev, arch="yi-6b"):
+    """``arch`` (a dense decoder) at full width cut to 2 layers, f32: one
+    set of weights from one generator serves on the card and on the
+    CPU."""
     import dataclasses
 
     from repro_torch.configs import dense_blocks, get_config
@@ -1908,7 +1979,7 @@ def run_serve_vs_cpu(dev):
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params, tree_map
 
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               blocks=dense_blocks(2),
                               compute_dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1941,7 +2012,9 @@ def run_serve_vs_cpu(dev):
     check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
           f"counted launches {launches}")
     return {"phase": "serve_vs_cpu", "arch": cfg.name, "layers": 2,
-            "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+            "mlp_act": cfg.mlp_act, "vocab": cfg.vocab_size,
+            "compute_dtype": cfg.compute_dtype,
             "batch": 2, "prompt": 128, "decode_steps": steps,
             "max_abs_logit": scale, "logit_max_abs_diff": errs,
             "tolerance": SERVE_F32_TOL * scale,
@@ -2025,7 +2098,8 @@ def run_serve(dev):
     check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
           "token ids out of range")
 
-    on_acts = kernels_on_activations(cfg, params, prompts)
+    on_acts = kernels_on_activations(cfg, params, prompts,
+                                     "kernels_on_activations")
 
     # the serving invariant: full prefill vs prefill(S-1) + one decode
     # step, all 32 layers, bf16, well-conditioned attention weights
@@ -2090,48 +2164,80 @@ def run_serve(dev):
 
 
 def well_conditioned(cfg, params):
-    """``params`` with the attention projections rescaled to the fan-in
-    of their contraction: d for wq, wk and wv, heads·head_dim for wo.
-    The init rule takes axis -2, the head count or head_dim."""
+    """``params`` with every attention layer's projections rescaled to
+    the fan-in of their contraction: d for wq, wk and wv, heads·head_dim
+    for wo.  The init rule takes axis -2, the head count or head_dim."""
     H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
     gain = {"wq": (H / d) ** 0.5, "wk": (KH / d) ** 0.5,
             "wv": (KH / d) ** 0.5, "wo": H ** -0.5}
-    b0 = params["b0"]
-    l0 = dict(b0["l0"], mixer={k: w * gain[k]
-                               for k, w in b0["l0"]["mixer"].items()})
-    return dict(params, b0=dict(b0, l0=l0))
+    out = dict(params)
+    for i, bdef in enumerate(cfg.blocks):
+        blk = dict(params[f"b{i}"])
+        for j, (mixer, _) in enumerate(bdef.pattern):
+            if mixer == "attn":
+                lp = blk[f"l{j}"]
+                blk[f"l{j}"] = dict(lp, mixer={
+                    k: w * gain[k] for k, w in lp["mixer"].items()})
+        out[f"b{i}"] = blk
+    return out
 
 
-def kernels_on_activations(cfg, params, prompts):
-    """One prefill and one decode step of the served model, each kernel
-    call also run through its plain version on the same inputs: the
-    worst error and the number of calls per kernel."""
+def kernels_on_activations(cfg, params, prompts, phase):
+    """One prefill and one decode step of the served model, each call of
+    the LM kernels its layers run also made through its plain version on
+    the same inputs: flash held to ``ATTN_ACT_SHARE``·max|v|, SSD to
+    ``SSD_ACT_*`` against the bounds ``_ssd_bounds`` computes from the
+    same inputs, the norm to ``RMS_TOL``.  Emits the phase line
+    ``phase`` with every call's error; returns the calls and the worst
+    error per kernel."""
     from repro_torch.kernels.flash_attention import ref as fr
     from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.ssd import ref as sr
     from repro_torch.models import attention as am
+    from repro_torch.models import mamba2 as mm
+    from repro_torch.models import model as M
     from repro_torch.models import transformer as tm
     from repro_torch.runtime import serve_step
 
-    attn0, norm0 = am.attention, tm.rmsnorm_residual
-    seen = {"flash_attention": [], "rmsnorm_residual": []}
+    attn0, ssd0, norm0 = am.attention, mm.ssd_chunk, tm.rmsnorm_residual
+    pre, dec = (M.launches_per_pass(cfg, ph) for ph in ("prefill", "decode"))
+    # (error, within tolerance, extra figures) per call
+    seen = {name: [] for name in pre}
 
     def attention(q, k, v, *, causal=True):
         out = attn0(q, k, v, causal=causal)
         want = fr.attention_ref(q, k, v, causal=causal)
         vmax = float(v.abs().max())
         err, ok = _close([out], [want], ATTN_ACT_SHARE * vmax)
-        seen["flash_attention"].append((err, ok, vmax))
+        seen["flash_attention"].append((err, ok, {"max_abs_v": vmax}))
+        return out
+
+    def ssd_chunk(xdt, b, c, csum):
+        out = ssd0(xdt, b, c, csum)
+        want = sr.ssd_chunk_ref(xdt, b, c, csum)
+        ya, sa = _ssd_bounds(xdt, b, c, csum)
+        dy = (out[0].float() - want[0].float()).abs()
+        ds = (out[1] - want[1]).abs()
+        ok = bool((dy <= SSD_ACT_Y[0] * want[0].float().abs()
+                   + SSD_ACT_Y[1] * ya).all()) \
+            and bool((ds <= SSD_ACT_STATE * sa).all())
+        seen["ssd_chunk"].append(
+            ([float(dy.max()), float(ds.max())], ok,
+             {"max_abs_y_state": [float(want[0].float().abs().max()),
+                                  float(want[1].abs().max())]}))
+        del want, ya, sa, dy, ds
         return out
 
     def rmsnorm_residual(x, res, scale, eps=1e-5):
         out = norm0(x, res, scale, eps)
-        want = rr.rmsnorm_residual_ref(x, res, scale, eps)
-        err, ok = _close(out, want, *RMS_TOL[x.dtype])
-        seen["rmsnorm_residual"].append((err, ok, None))
+        err, ok = _close(out, rr.rmsnorm_residual_ref(x, res, scale, eps),
+                         *RMS_TOL[x.dtype])
+        seen["rmsnorm_residual"].append((err, ok, {}))
         return out
 
     P = prompts.shape[1]
-    am.attention, tm.rmsnorm_residual = attention, rmsnorm_residual
+    am.attention, mm.ssd_chunk, tm.rmsnorm_residual = \
+        attention, ssd_chunk, rmsnorm_residual
     try:
         _, cache = serve_step.build_prefill(cfg, max_seq=P + 1)(
             params, {"tokens": prompts})
@@ -2139,27 +2245,31 @@ def kernels_on_activations(cfg, params, prompts):
                                      {"token": prompts[:, -1], "pos": P})
         torch.cuda.synchronize()
     finally:
-        am.attention, tm.rmsnorm_residual = attn0, norm0
-    want = {"flash_attention": cfg.num_layers,
-            "rmsnorm_residual": 2 * (2 * cfg.num_layers + 1)}
-    out = {"tolerance": {"flash_attention_share_of_max_abs_v":
-                         ATTN_ACT_SHARE,
-                         "rmsnorm_residual": RMS_TOL[cfg.cdtype]}}
+        am.attention, mm.ssd_chunk, tm.rmsnorm_residual = \
+            attn0, ssd0, norm0
+    tolerance = {"flash_attention": {
+        "flash_attention_share_of_max_abs_v": ATTN_ACT_SHARE},
+        "ssd_chunk": {"ssd_chunk_y": SSD_ACT_Y,
+                      "ssd_chunk_state": SSD_ACT_STATE},
+        "rmsnorm_residual": {"rmsnorm_residual": RMS_TOL[cfg.cdtype]}}
+    out = {"tolerance": {k: v for name in seen
+                         for k, v in tolerance[name].items()}}
     for name, calls in seen.items():
         out[name] = {"calls": len(calls),
                      "max_abs_diff": [e for e, _, _ in calls],
                      "bad_calls": [i for i, c in enumerate(calls)
                                    if not c[1]]}
-        if name == "flash_attention":
-            out[name]["max_abs_v"] = [m for _, _, m in calls]
-    emit({"phase": "kernels_on_activations", **out})
+        for key in (calls[0][2] if calls else {}):
+            out[name][key] = [x[key] for _, _, x in calls]
+    emit({"phase": phase, **out})
     for name, calls in seen.items():
-        check(len(calls) == want[name],
-              f"{name}: {len(calls)} calls checked, expected {want[name]}")
+        want = pre[name] + dec[name]
+        check(len(calls) == want,
+              f"{name}: {len(calls)} calls checked, expected {want}")
         check(not out[name]["bad_calls"], f"{name} vs plain on the served "
                                          f"activations: {out[name]}")
     return {name: {"calls": len(calls),
-                   "max_abs_diff": max(e for e, _, _ in calls)}
+                   "max_abs_diff": max(np.max(e) for e, _, _ in calls)}
             for name, calls in seen.items()} | {"tolerance": out["tolerance"]}
 
 
@@ -2299,6 +2409,8 @@ SSD_CASES = [
      ("bfloat16",), "contiguous", 1e-6),
     ("mamba2-370m prefill, model views", (32, 32, 256, 128, 64),
      ("bfloat16",), "model", 1e-6),
+    ("Jamba-v0.1 prefill, model views", SSD_JAMBA, ("bfloat16",), "model",
+     1e-6),
 ]
 #: the served shape (mamba2-370m, 4 x 2048 tokens), timed in both layouts
 SSD_SERVED = (32, 32, 256, 128, 64)
@@ -2391,6 +2503,13 @@ def run_ssd_vs_plain(dev, rng, bw, bf16):
                          kernel.ssd_flops(BC, H, Q, N, P), bw, bf16)
     bound_ph, by_ph = bound_ms(kernel.ssd_bytes(BC, H, Q, N, P, 2, H),
                                kernel.ssd_flops(BC, H, Q, N, P), bw, bf16)
+    jamba = _ssd_inputs(rng, dev, torch.bfloat16, *SSD_JAMBA, layout="model")
+    ms_j = device_time_ms(lambda: kernel.ssd_chunk_cuda(*jamba), 50)
+    launch_j = kernel.ssd_chunk_cuda.last_launch
+    plain_j = device_time_ms(lambda: ref.ssd_chunk_ref(*jamba), 5)
+    del jamba
+    bound_j, by_j = bound_ms(kernel.ssd_bytes(*SSD_JAMBA, 2, 1),
+                             kernel.ssd_flops(*SSD_JAMBA), bw, bf16)
     torch.cuda.empty_cache()
     return {"phase": "ssd_vs_plain",
             "tolerance": {"float32": SSD_TOL, "bfloat16_y": SSD_BF16_Y,
@@ -2406,7 +2525,14 @@ def run_ssd_vs_plain(dev, rng, bw, bf16):
                       "bound_by_per_head": by_ph,
                       "launch_per_head": launch_per_head,
                       "bytes": kernel.ssd_bytes(BC, H, Q, N, P, 2, 1),
-                      "flops": kernel.ssd_flops(BC, H, Q, N, P)}}
+                      "flops": kernel.ssd_flops(BC, H, Q, N, P)},
+            "timed_jamba": {"shape": "BC=32, H=128, Q=256, N=16, P=64, "
+                                     "bf16, B/C one group stride-0 over "
+                                     "128 heads, xdt the model's view "
+                                     "(Jamba-v0.1, 4 x 2048 tokens)",
+                            "ms": ms_j, "plain_ms": plain_j,
+                            "bound_ms": bound_j, "bound_by": by_j,
+                            "launch": launch_j}}
 
 
 def _mamba_invariant(cfg, params, prompts):
@@ -2541,7 +2667,8 @@ def run_mamba_serve(dev):
     check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
           "token ids out of range")
 
-    on_acts = mamba_kernels_on_activations(cfg, params, prompts)
+    on_acts = kernels_on_activations(cfg, params, prompts,
+                                     "mamba_kernels_on_activations")
 
     inv = _mamba_invariant(cfg, params, prompts)
     inv["tolerance_share"] = MAMBA_INV_TOL
@@ -2603,76 +2730,6 @@ def _ssd_bounds(xdt, b, c, csum):
     return ya, sa
 
 
-def mamba_kernels_on_activations(cfg, params, prompts):
-    """One prefill and one decode step of the served model, each SSD and
-    norm call also run through its plain version on the same inputs:
-    the worst error, its bound and the number of calls per kernel."""
-    from repro_torch.kernels.rmsnorm import ref as rr
-    from repro_torch.kernels.ssd import ref as sr
-    from repro_torch.models import mamba2 as mm
-    from repro_torch.models import transformer as tm
-    from repro_torch.runtime import serve_step
-
-    ssd0, norm0 = mm.ssd_chunk, tm.rmsnorm_residual
-    seen = {"ssd_chunk": [], "rmsnorm_residual": []}
-
-    def ssd_chunk(xdt, b, c, csum):
-        out = ssd0(xdt, b, c, csum)
-        want = sr.ssd_chunk_ref(xdt, b, c, csum)
-        ya, sa = _ssd_bounds(xdt, b, c, csum)
-        dy = (out[0].float() - want[0].float()).abs()
-        ds = (out[1] - want[1]).abs()
-        ok_y = bool((dy <= SSD_ACT_Y[0] * want[0].float().abs()
-                     + SSD_ACT_Y[1] * ya).all())
-        ok_s = bool((ds <= SSD_ACT_STATE * sa).all())
-        seen["ssd_chunk"].append(
-            ([float(dy.max()), float(ds.max())], ok_y and ok_s,
-             [float(want[0].float().abs().max()), float(want[1].abs().max())]))
-        del want, ya, sa, dy, ds
-        return out
-
-    def rmsnorm_residual(x, res, scale, eps=1e-5):
-        out = norm0(x, res, scale, eps)
-        want = rr.rmsnorm_residual_ref(x, res, scale, eps)
-        err, ok = _close(out, want, *RMS_TOL[x.dtype])
-        seen["rmsnorm_residual"].append((err, ok, None))
-        return out
-
-    P = prompts.shape[1]
-    mm.ssd_chunk, tm.rmsnorm_residual = ssd_chunk, rmsnorm_residual
-    try:
-        _, cache = serve_step.build_prefill(cfg, max_seq=P + 1)(
-            params, {"tokens": prompts})
-        serve_step.build_decode(cfg)(params, cache,
-                                     {"token": prompts[:, -1], "pos": P})
-        torch.cuda.synchronize()
-    finally:
-        mm.ssd_chunk, tm.rmsnorm_residual = ssd0, norm0
-    want = {"ssd_chunk": cfg.num_layers,
-            "rmsnorm_residual": 2 * (cfg.num_layers + 1)}
-    out = {"tolerance": {"ssd_chunk_y": SSD_ACT_Y,
-                         "ssd_chunk_state": SSD_ACT_STATE,
-                         "rmsnorm_residual": RMS_TOL[cfg.cdtype]}}
-    for name, calls in seen.items():
-        out[name] = {"calls": len(calls),
-                     "max_abs_diff": [e for e, _, _ in calls],
-                     "bad_calls": [i for i, c in enumerate(calls)
-                                   if not c[1]]}
-        if name == "ssd_chunk":
-            out[name]["max_abs_y_state"] = [m for _, _, m in calls]
-    emit({"phase": "mamba_kernels_on_activations", **out})
-    for name, calls in seen.items():
-        check(len(calls) == want[name],
-              f"{name}: {len(calls)} calls checked, expected {want[name]}")
-        check(not out[name]["bad_calls"], f"{name} vs plain on the served "
-                                         f"activations: {out[name]}")
-    worst = {"ssd_chunk": max(max(e) for e, _, _ in seen["ssd_chunk"]),
-             "rmsnorm_residual": max(e for e, _, _ in
-                                     seen["rmsnorm_residual"])}
-    return {name: {"calls": len(seen[name]), "max_abs_diff": worst[name]}
-            for name in seen} | {"tolerance": out["tolerance"]}
-
-
 def ssd_kernel_entry(ssd, mserved):
     """The kernels-line entry of the SSD chunk kernel, timed at
     mamba2-370m's served prefill shape in ``ssd_vs_plain``; launches from
@@ -2699,6 +2756,439 @@ def ssd_kernel_entry(ssd, mserved):
         "max_abs_err_served": mserved["kernels_on_activations"][
             "ssd_chunk"]["max_abs_diff"],
     }
+
+
+# ---------------------------------------------------------------------------
+# the Jamba slice: MoE and the hybrid period, and the other dense archs
+# ---------------------------------------------------------------------------
+
+
+class MoERecorder:
+    """While active, records what every MoE layer's routing did, beside
+    the layer's own computation: ``models/moe.py``'s grouped path and
+    its einsum group function are wrapped (the model's arithmetic is
+    untouched; the routing is computed again from the same inputs).  Per
+    layer call: (B, S), each group's capacity C, each token's expert ids
+    and the gap between its k-th and (k+1)-th router probability, and
+    the (token, expert) assignments dropped, per request."""
+
+    def __init__(self):
+        self.layers = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe = moe
+        self._grouped = moe._apply_moe_grouped
+        self._group = moe._GROUP_FNS["einsum"]
+
+        def grouped(cfg, p, x):
+            self.layers.append({"B": x.shape[0], "S": x.shape[1],
+                                "calls": []})
+            return self._grouped(cfg, p, x)
+
+        def group(cfg, p, x_g, C):
+            k = cfg.moe.top_k
+            xf = x_g.to(torch.float32)
+            _, idx, mask, _, _ = moe.route(cfg, p, xf)
+            probs = torch.softmax(xf @ p["router"].to(torch.float32), -1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            dropped = (moe._positions_in_expert(mask) >= C).sum(-1)
+            self.layers[-1]["calls"].append(
+                (idx.reshape(-1, k), (top[..., k - 1] - top[..., k])
+                 .reshape(-1), dropped.reshape(-1), C))
+            return self._group(cfg, p, x_g, C)
+
+        moe._apply_moe_grouped = grouped
+        moe._GROUP_FNS["einsum"] = group
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._apply_moe_grouped = self._grouped
+        self._moe._GROUP_FNS["einsum"] = self._group
+        return False
+
+    def summary(self) -> list[dict]:
+        """Per layer call, on the host: ``idx`` (B·S, k), ``gap``
+        (B·S), ``C`` per group, ``dropped`` in all and per request."""
+        out = []
+        for layer in self.layers:
+            calls = layer["calls"]
+            drop = torch.cat([c[2] for c in calls]).cpu().reshape(
+                layer["B"], layer["S"])
+            out.append({"idx": torch.cat([c[0] for c in calls]).cpu(),
+                        "gap": torch.cat([c[1] for c in calls]).cpu(),
+                        "C": [c[3] for c in calls],
+                        "dropped": int(drop.sum()),
+                        "dropped_per_request": drop.sum(1).tolist()})
+        return out
+
+
+def _held_invariant(cfg, params, prompts, tol_share):
+    """The serving invariant (full prefill against prefill(S-1) + one
+    decode step) on the requests that lost no MoE assignment in either
+    prefill: a drop changes its own request's output and no other's, and
+    the two prefills group their tokens differently.  Returns the figures
+    and the drops of each pass per MoE layer."""
+    from repro_torch.runtime import serve_step
+
+    B, P = prompts.shape
+    with MoERecorder() as full_rec:
+        lf, _ = serve_step.build_prefill(cfg)(params, {"tokens": prompts})
+    with MoERecorder() as short_rec:
+        _, cache = serve_step.build_prefill(cfg, max_seq=P)(
+            params, {"tokens": prompts[:, :P - 1]})
+    ld, cache = serve_step.build_decode(cfg)(
+        params, cache, {"token": prompts[:, P - 1], "pos": P - 1})
+    del cache
+    full_moe, short_moe = full_rec.summary(), short_rec.summary()
+    drops = {name: [x["dropped_per_request"] for x in rec]
+             for name, rec in (("prefill", full_moe),
+                               ("prefill_s_minus_1", short_moe))}
+    lost = {r for per_layer in drops.values() for layer in per_layer
+            for r, n in enumerate(layer) if n}
+    held = [r for r in range(B) if r not in lost]
+    check(len(held) >= 1, f"every request lost an MoE assignment: {drops}")
+    lf, ld = lf[held].float(), ld[held].float()
+    inv = {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
+           "batch": B, "prompt": P, "requests_held": held,
+           "requests_left_out": B - len(held),
+           "max_abs_diff": float((lf - ld).abs().max()),
+           "max_abs_logit": float(lf.abs().max()),
+           "tolerance_share": tol_share,
+           "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
+                                     .float().mean()),
+           "dropped_per_layer": drops,
+           "capacity": {"prefill": full_moe[0]["C"],
+                        "prefill_s_minus_1": short_moe[0]["C"]}}
+    return inv
+
+
+def _jamba_cut(layers: int, dtype: str):
+    """Jamba-v0.1 at full width: the whole period (8 layers) or a
+    3-layer cut of it with one layer of each kind, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockDef
+
+    cfg = get_config("jamba-v0.1-52b")
+    if layers == 8:
+        blocks = (BlockDef(pattern=cfg.blocks[0].pattern, repeat=1),)
+    else:
+        blocks = (BlockDef(pattern=(("mamba", "dense"), ("mamba", "moe"),
+                                    ("attn", "dense")), repeat=1),)
+    return dataclasses.replace(cfg, num_layers=layers, blocks=blocks,
+                               compute_dtype=dtype, param_dtype=dtype)
+
+
+def run_jamba_vs_cpu(dev):
+    """Jamba-v0.1 at full width, f32 (no TF32), cut to 3 layers that keep
+    one of each kind ((mamba, dense), (mamba, moe), (attn, dense), one
+    BlockDef): one set of weights from one generator serves on the card
+    and on the CPU, B=2, prompt 300 (one full SSD chunk and one padded),
+    4 greedy steps."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import tree_map
+
+    cfg = _jamba_cut(3, "float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(M.schema(cfg), gen, dev)
+    t0 = time.monotonic()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    copy_s = time.monotonic() - t0
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 300)))
+    steps = 4
+    _counts_zero()
+    with MoERecorder() as card_rec:
+        got = serve.serve(cfg, params, prompts.to(dev), steps + 1)
+    launches = _counts()
+    t0 = time.monotonic()
+    with MoERecorder() as cpu_rec:
+        want = serve.serve(cfg, cpu_params, prompts, steps + 1)
+    cpu_s = time.monotonic() - t0
+    del cpu_params
+    scale = float(want.first_logits.abs().max())
+    errs = [float((g.cpu() - w).abs().max()) for g, w in (
+        (got.first_logits, want.first_logits),
+        (got.last_logits, want.last_logits))]
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = {k: steps * v for k, v in M.launches_per_pass(cfg, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)), "non-finite logits on the card")
+    check(max(errs) <= JAMBA_F32_TOL * scale,
+          f"card vs CPU logits: {errs} > {JAMBA_F32_TOL} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(pre == {"flash_attention": 1, "rmsnorm_residual": 7,
+                  "ssd_chunk": 2}, f"launches_per_pass {pre}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"launches {got.launches}, predicted prefill {pre} decode {dec}")
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
+          f"counted launches {launches}")
+    # routing: the same experts wherever the choice is not a near-tie,
+    # the same drops
+    card, cpu = card_rec.summary(), cpu_rec.summary()
+    check(len(card) == len(cpu) == 1 + steps,
+          f"MoE layer calls {len(card)} card, {len(cpu)} CPU")
+    near, compared, drops = 0, 0, []
+    for a, b in zip(card, cpu):
+        clear = (a["gap"] > ROUTER_GAP) & (b["gap"] > ROUTER_GAP)
+        near += int((~clear).sum())
+        compared += int(clear.sum())
+        check(torch.equal(a["idx"][clear], b["idx"][clear]),
+              "expert choices differ between the card and the CPU")
+        check(a["dropped"] == b["dropped"] and a["C"] == b["C"],
+              f"drops {a['dropped']} (C {a['C']}) on the card, "
+              f"{b['dropped']} (C {b['C']}) on the CPU")
+        drops.append(a["dropped_per_request"])
+    inv = _held_invariant(cfg, params, prompts.to(dev), JAMBA_F32_INV)
+    check(inv["max_abs_diff"] <= JAMBA_F32_INV * inv["max_abs_logit"],
+          f"f32 prefill vs prefill+decode: {inv}")
+    return {"phase": "jamba_vs_cpu", "arch": cfg.name,
+            "layers": cfg.num_layers,
+            "pattern": [list(k) for k in cfg.blocks[0].pattern],
+            "d_model": cfg.d_model, "params": count_params(M.schema(cfg)),
+            "compute_dtype": cfg.compute_dtype, "batch": 2, "prompt": 300,
+            "decode_steps": steps, "max_abs_logit": scale,
+            "logit_max_abs_diff": errs,
+            "tolerance": JAMBA_F32_TOL * scale, "tokens_equal": True,
+            "launches": got.launches,
+            "routing": {"tokens_compared": compared,
+                        "near_ties_below_gap": near,
+                        "gap": ROUTER_GAP, "experts_equal": True,
+                        "capacity_prefill": card[0]["C"],
+                        "dropped_per_request_prefill": drops[0],
+                        "dropped_decode": sum(map(sum, drops[1:])),
+                        "drops_equal": True},
+            "invariant": inv, "invariant_tolerance_share": JAMBA_F32_INV,
+            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s,
+            "copy_to_host_s": copy_s}
+
+
+def jamba_prefill_flops(cfg, B: int, S: int) -> dict:
+    """The matrix products of one prefill of B x S tokens, by part, as
+    the model computes them: the experts over every slot of every group
+    (2 x 3 x d x d_ff per slot), the dispatch and combine einsums (2 x
+    T x E x C x d each per group), the dense MLPs, the Mamba and
+    attention projections, causal attention and the last token's
+    unembedding."""
+    from repro_torch.models import moe
+
+    m, d, N = cfg.moe, cfg.d_model, B * S
+    g_eff = min(m.group_size, N)
+    n_iter = N // g_eff
+    if N % g_eff:
+        n_iter, g_eff = 1, N
+    C = moe.expert_capacity(g_eff, cfg)
+    kinds = [k for b in cfg.blocks for _ in range(b.repeat)
+             for k in b.pattern]
+    n_moe = sum(mlp == "moe" for _, mlp in kinds)
+    n_dense = sum(mlp == "dense" for _, mlp in kinds)
+    n_mamba = sum(mix == "mamba" for mix, _ in kinds)
+    n_attn = sum(mix == "attn" for mix, _ in kinds)
+    d_in = cfg.ssm.d_inner(d)
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {
+        "experts": n_moe * n_iter * m.num_experts * C * 6 * d * m.d_ff,
+        "dispatch_combine": n_moe * n_iter * 2 * 2 * g_eff
+        * m.num_experts * C * d,
+        "dense_mlp": n_dense * N * 6 * d * cfg.d_ff,
+        "mamba_projections": n_mamba * N * 2 * d * (
+            3 * d_in + 2 * gn + cfg.ssm.n_heads(d)),
+        "attention": n_attn * (N * 2 * d * Dh * (2 * H + 2 * KH)
+                               + 4 * B * H * Dh * S * (S + 1) // 2),
+        "unembed": B * 2 * d * cfg.vocab_size,
+    }
+    out["total"] = sum(out.values())
+    out["groups"], out["capacity"] = n_iter, C
+    return out
+
+
+def run_jamba_serve(dev):
+    """Jamba-v0.1 at full width in bf16 cut to one period (8 layers; 32
+    in bf16 are ~103 GB, more than the card holds), 4 requests of 2048
+    prompt tokens and 32 greedy tokens through launch/serve.py's
+    functions."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime import serve_step
+
+    cfg = _jamba_cut(8, "bfloat16")
+    B, P, G = 4, 2048, 32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated(dev) - base
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    serve.serve(cfg, params, prompts, 2)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    _counts_zero()
+    res = serve.serve(cfg, params, prompts, G)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = M.launches_per_pass(cfg, "decode")
+    steps = res.decode_steps
+    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
+    check(pre == {"flash_attention": 1, "rmsnorm_residual": 17,
+                  "ssd_chunk": 7}, f"launches_per_pass {pre}")
+    check(res.launches["prefill"] == pre,
+          f"prefill launches {res.launches['prefill']}, predicted {pre}")
+    check(per_step == dec, f"decode launches per step {per_step}, "
+                           f"predicted {dec}")
+    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
+                       for k in launches},
+          f"counted launches {launches}")
+    V = cfg.vocab_size
+    check(tuple(res.first_logits.shape) == (B, V)
+          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
+    check(bool(torch.isfinite(res.first_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()),
+          "non-finite serve logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          "token ids out of range")
+
+    on_acts = kernels_on_activations(cfg, params, prompts,
+                                     "jamba_kernels_on_activations")
+
+    # the invariant under the init rule (one attention layer makes its
+    # attention near one-hot, ROADMAP caveat 6: printed), then held with
+    # well-conditioned attention weights
+    inv_drawn = _held_invariant(cfg, params, prompts, SERVE_INV_TOL)
+    wc = well_conditioned(cfg, params)
+    inv = _held_invariant(cfg, wc, prompts, SERVE_INV_TOL)
+    del wc
+    torch.cuda.empty_cache()
+    check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
+          f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
+          f"{inv}")
+
+    # where the time goes
+    full = serve_step.build_prefill(cfg, max_seq=P + G)
+    decode = serve_step.build_decode(cfg)
+    _, cache = full(params, {"tokens": prompts})
+    tok = res.tokens[:, 0]
+    prof_prefill = by_kind(profile_device(
+        lambda: full(params, {"tokens": prompts}), 1), 1)
+    prof_decode = by_kind(profile_device(
+        lambda: [decode(params, cache, {"token": tok, "pos": P})
+                 for _ in range(4)], 4), 4)
+    del cache
+    flops = jamba_prefill_flops(cfg, B, P)
+    bw, _, bf16 = peaks_for(torch.cuda.get_device_name(0))
+    total_s = res.prefill_s + res.decode_s
+    return {
+        "phase": "jamba_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "reduced": {"num_layers": "32 -> 8 (blocks repeat 4 -> 1: one "
+                                  "whole period; 32 layers in bf16 are "
+                                  "~103 GB)"},
+        "pattern": [list(k) for k in cfg.blocks[0].pattern],
+        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+        "params": count_params(M.schema(cfg)),
+        "weights_bytes": weights_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms_per_step": res.decode_s / steps * 1e3,
+        "decode_tokens_per_s": steps * B / res.decode_s,
+        "end_to_end_tokens_per_s": G * B / total_s,
+        "prefill_tokens_per_s": P * B / res.prefill_s,
+        "prefill_flops": flops,
+        "prefill_bound_ms": flops["total"] / bf16 * 1e3,
+        "decode_bound_ms": weights_bytes / bw * 1e3,
+        "peak_memory_bytes": peak,
+        "launches_per_prefill": res.launches["prefill"],
+        "launches_per_decode_step": per_step,
+        "launches": launches,
+        "kernels_on_activations": on_acts,
+        "dropped_per_moe_layer_prefill": inv_drawn["dropped_per_layer"][
+            "prefill"],
+        "invariant": inv, "invariant_weights": "well_conditioned",
+        "invariant_init_rule": inv_drawn,
+        "profile_prefill": prof_prefill,
+        "profile_decode_step": prof_decode,
+        "sample_ids": res.tokens[0, :12].tolist(),
+    }
+
+
+def jamba_kernel_fields(dev, bw, f32, bf16, ssd, jserved) -> dict:
+    """Each LM kernel's kernels-line fields at Jamba-v0.1's served
+    shapes: its launches in ``jamba_serve`` (all, per prefill, per
+    decode step), its device ms, the plain version's, the bound and,
+    for flash, SDPA's (``enable_gqa``)."""
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    flash = flash_timing(dev, FLASH_SHAPE_JAMBA, bw, bf16, g)
+    flash["shape"] = "B=4, H=32, KH=8, S=2048, D=128, bf16, causal, no " \
+                     "RoPE (Jamba-v0.1 prefill, the model's strided views)"
+    N, d = RMS_ROWS_JAMBA
+    bt = torch.bfloat16
+    x = torch.randn((N, d), generator=g, device=dev).to(bt)
+    r = torch.randn((N, d), generator=g, device=dev).to(bt)
+    sc = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+    err, ok = _close(rk.rmsnorm_residual_cuda(x, r, sc),
+                     rr.rmsnorm_residual_ref(x, r, sc), *RMS_TOL[bt])
+    check(ok, f"rmsnorm at Jamba's rows: {err}")
+    rb, rby = bound_ms(rk.rmsnorm_bytes(N, d, 2), rk.rmsnorm_flops(N, d),
+                       bw, f32)
+    norm = {"ms": device_time_ms(lambda: rk.rmsnorm_residual_cuda(x, r, sc),
+                                 100),
+            "plain_ms": device_time_ms(
+                lambda: rr.rmsnorm_residual_ref(x, r, sc), 20),
+            "bound_ms": rb, "bound_by": rby, "library_ms": None,
+            "max_abs_err": err,
+            "shape": "N=8192, d=4096, bf16 (Jamba-v0.1 prefill rows)"}
+    del x, r
+    t = ssd["timed_jamba"]
+    ssd_f = {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "shape")} | {"library_ms": None}
+    out = {}
+    for name, f in (("flash_attention", flash), ("rmsnorm_residual", norm),
+                    ("ssd_chunk", ssd_f)):
+        out[name] = {f"{k}_jamba": v for k, v in f.items()} | {
+            "launches_jamba": jserved["launches"][name],
+            "launches_jamba_per_prefill":
+                jserved["launches_per_prefill"][name],
+            "launches_jamba_per_step":
+                jserved["launches_per_decode_step"][name],
+            "max_abs_err_jamba_served":
+                jserved["kernels_on_activations"][name]["max_abs_diff"]}
+    torch.cuda.empty_cache()
+    return out
+
+
+#: dense_vs_cpu: the dense archs beside Yi-6B, each in serve_vs_cpu's form
+DENSE_ARCHS = ("yi-9b", "granite-8b", "minitron-8b")
+
+
+def run_dense_vs_cpu(dev):
+    """Yi-9B, Granite-8B and Minitron-8B (squared ReLU) at full width, 2
+    layers, f32: card against CPU as ``serve_vs_cpu``."""
+    out = []
+    for arch in DENSE_ARCHS:
+        rec = run_serve_vs_cpu(dev, arch)
+        rec.pop("phase")
+        out.append(rec)
+        torch.cuda.empty_cache()
+    return {"phase": "dense_vs_cpu", "tolerance_share": SERVE_F32_TOL,
+            "archs": out}
 
 
 # ---------------------------------------------------------------------------

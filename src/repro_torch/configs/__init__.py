@@ -1,7 +1,10 @@
 """Architecture registry of the port.
 
-Only the architectures the port can serve are registered: Yi-6B, the
-dense GQA decoder, and mamba2-370m, the pure Mamba-2 (SSD) stack.
+Only the architectures the port can serve are registered: the dense GQA
+decoders Yi-6B, Yi-9B, Granite-8B and Minitron-8B (squared-ReLU MLP),
+mamba2-370m, the pure Mamba-2 (SSD) stack, and Jamba-v0.1, the hybrid
+of attention, Mamba-2 and mixture-of-experts layers.  Each module is the
+JAX package's ``repro/configs/`` file with only its imports changed.
 ``get_config("<id>")`` resolves one;
 ``smoke_config(cfg)`` shrinks it for CPU tests.
 """
@@ -14,20 +17,29 @@ from repro_torch.configs.base import (
     get_config,
     register,
 )
+from repro_torch.configs.granite_8b import GRANITE_8B
+from repro_torch.configs.jamba_v0_1_52b import JAMBA_V01_52B
 from repro_torch.configs.mamba2_370m import MAMBA2_370M
+from repro_torch.configs.minitron_8b import MINITRON_8B
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.configs.yi_6b import YI_6B
+from repro_torch.configs.yi_9b import YI_9B
 
-ALL_ARCHS = ["yi-6b", "mamba2-370m"]
+ALL_ARCHS = ["granite-8b", "yi-6b", "yi-9b", "minitron-8b", "mamba2-370m",
+             "jamba-v0.1-52b"]
 
 __all__ = [
     "ALL_ARCHS",
     "BlockDef",
+    "GRANITE_8B",
+    "JAMBA_V01_52B",
     "MAMBA2_370M",
+    "MINITRON_8B",
     "ModelConfig",
     "REGISTRY",
     "RunConfig",
     "YI_6B",
+    "YI_9B",
     "dense_blocks",
     "get_config",
     "register",

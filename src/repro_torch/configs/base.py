@@ -6,8 +6,8 @@ defaults are the JAX package's (``repro/configs/base.py``), so a config
 reads the same in both packages; only ``pdtype`` / ``cdtype`` map the
 dtype strings to ``torch`` dtypes here.  ``MoEConfig``, ``SSMConfig``
 and ``MLAConfig`` are plain copies; the port's model serves Mamba-2
-(``SSMConfig``) and raises ``NotImplementedError`` for a config that
-needs MoE or MLA.
+(``SSMConfig``) and MoE (``MoEConfig``) and raises
+``NotImplementedError`` for a config that needs MLA.
 """
 from __future__ import annotations
 

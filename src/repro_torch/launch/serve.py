@@ -4,13 +4,18 @@
         --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --smoke --device cpu
 
 The JAX package's ``launch/serve.py`` on one card, for any architecture
 the port serves (the decode cache is a KV cache for attention layers and
-the O(1) conv tails and SSD state for mamba layers).  Weights come from
-a seeded ``torch.Generator`` on the device, prompts and samples from a second one.  ``--device``
-defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
-the plain versions of the kernels.
+the O(1) conv tails and SSD state for mamba layers; MoE layers keep no
+cache).  Weights are drawn on the device from a seeded
+``torch.Generator`` there (Jamba's 13.3 B-parameter period in 0.11 s on
+an H100), never on the host and copied; prompts and samples come from a
+second generator.  ``--device`` defaults to ``cuda`` and
+raises without a card; ``--device cpu`` runs the plain versions of the
+kernels.
 """
 from __future__ import annotations
 

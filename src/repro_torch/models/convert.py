@@ -10,7 +10,10 @@ serving's ``schema`` keeps matrices and embeddings in the compute dtype,
 which the JAX package keeps in the parameter dtype and casts at every
 use to the same values; with ``train=True`` the tree goes into
 ``train_schema``, every leaf in the parameter dtype as in the JAX
-package, so training starts from the same f32 master leaves.
+package, so training starts from the same f32 master leaves.  A MoE
+layer's leaves come across the same way: the router in f32 under both
+schemas (its spec is pinned), the experts in the compute or the
+parameter dtype, as the schema says.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
-"""Shared layers of the dense decoder: norms, the SwiGLU MLP, rotary
-embeddings and the token embeddings.
+"""Shared layers of the decoder: norms, the MLPs, rotary embeddings and
+the token embeddings.
 
-The JAX package's ``models/layers.py`` for the pieces the dense path
-uses, op for op, each weight cast to the compute dtype at its use as
-there (a no-op for serving's leaves, stored in it).  M-RoPE, sinusoidal
-positions, layernorm and the non-SwiGLU activations raise
-``NotImplementedError``.  The residual → norm seams of the decoder do
-not call ``apply_norm``: they go through the fused kernel
+The JAX package's ``models/layers.py`` for the pieces the port's models
+use, op for op, each weight cast to the compute dtype at its use as
+there (a no-op for serving's leaves, stored in it).  The MLP takes all
+three activations: SwiGLU, squared ReLU (``relu2``, no gate) and the
+tanh-approximated GELU.  M-RoPE, sinusoidal positions and layernorm
+raise ``NotImplementedError``.  The residual → norm seams of the decoder
+do not call ``apply_norm``: they go through the fused kernel
 (``kernels/rmsnorm/ops.py``), see ``models/transformer.py``.
 """
 from __future__ import annotations
@@ -47,31 +48,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Dense MLP (SwiGLU)
+# Dense MLP (SwiGLU / squared-ReLU / GELU)
 # ---------------------------------------------------------------------------
 
 
-def _swiglu_only(cfg: ModelConfig) -> None:
-    if cfg.mlp_act != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: mlp_act {cfg.mlp_act!r}; the port has swiglu only")
-
-
 def mlp_schema(cfg: ModelConfig, d_ff: int | None = None):
-    _swiglu_only(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {
-        "down": param((f, d), ("mlp", "embed"), cfg.cdtype),
-        "gate": param((d, f), ("embed", "mlp"), cfg.cdtype),
-        "up": param((d, f), ("embed", "mlp"), cfg.cdtype),
-    }
+    s = {"down": param((f, d), ("mlp", "embed"), cfg.cdtype),
+         "up": param((d, f), ("embed", "mlp"), cfg.cdtype)}
+    if cfg.mlp_act == "swiglu":
+        s["gate"] = param((d, f), ("embed", "mlp"), cfg.cdtype)
+    return s
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    _swiglu_only(cfg)
     dt = cfg.cdtype
     x = x.to(dt)
-    h = F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
+    if cfg.mlp_act == "swiglu":
+        h = F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
+    elif cfg.mlp_act == "relu2":
+        h = torch.square(F.relu(x @ p["up"].to(dt)))
+    else:  # gelu
+        h = F.gelu(x @ p["up"].to(dt), approximate="tanh")
     return h @ p["down"].to(dt)
 
 

@@ -1,5 +1,6 @@
 """Public model API of the port: schema, training loss, prefill and
-decode for the dense GQA decoder and the Mamba-2 (SSD) stack.
+decode for the dense GQA decoders, the Mamba-2 (SSD) stack and the
+hybrid of attention, Mamba-2 and mixture-of-experts layers (Jamba).
 
 The JAX package's ``models/model.py``, as plain functions on a parameter
 dict laid out as the JAX pytree.  prefill and the training forward run
@@ -11,11 +12,13 @@ often, and attention and the O(1) state update as torch ops.
 Serving's ``schema`` declares matrices and embeddings in the compute
 dtype, norm scales in the parameter dtype.  ``train_schema`` is the JAX
 package's: every leaf in the parameter dtype (the f32 master leaves
-AdamW updates).  Every use casts its weight to the compute dtype
-(``w.astype(dt)`` in the JAX package), a no-op on serving's leaves, so
-the values the matmuls see are the same under both schemas.
+AdamW updates) but a pinned one, the MoE router, which is f32 in both
+schemas as in the JAX package.  Every use casts its weight to the
+compute dtype (``w.astype(dt)`` in the JAX package), a no-op on
+serving's leaves, so the values the matmuls see are the same under both
+schemas.
 
-Configs that need MoE, MLA, an encoder, M-RoPE, sinusoidal positions,
+Configs that need MLA, an encoder, M-RoPE, sinusoidal positions,
 embedding inputs or the MTP head raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -51,7 +54,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot
     serve."""
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("mla", cfg.mla is not None),
         ("cross_attention", cfg.cross_attention),
         ("encoder_layers", cfg.encoder_layers > 0), ("mtp", cfg.mtp),
         ("rope_type=mrope", cfg.rope_type == "mrope"),
@@ -79,9 +82,9 @@ def schema(cfg: ModelConfig):
 
 def train_schema(cfg: ModelConfig):
     """The JAX package's ``schema``: serving's shapes and inits, every
-    leaf in ``cfg.pdtype``."""
-    return map_specs(lambda _, s: dataclasses.replace(s, dtype=cfg.pdtype),
-                     schema(cfg))
+    leaf in ``cfg.pdtype`` but the pinned ones (the MoE router's f32)."""
+    return map_specs(lambda _, s: s if s.pinned else dataclasses.replace(
+        s, dtype=cfg.pdtype), schema(cfg))
 
 
 def cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
@@ -93,9 +96,19 @@ def cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
 
 
 def param_counts(cfg: ModelConfig) -> tuple[int, int]:
-    """(total, active) parameter counts; equal for a dense model."""
+    """(total, active) parameter counts: a MoE layer's active count has
+    ``top_k`` of its experts (the JAX package's rule)."""
     total = count_params(schema(cfg))
-    return total, total
+    active = total
+    if cfg.moe is not None:
+        m = cfg.moe
+        n_moe_layers = sum(
+            b.repeat * sum(1 for _, mlp in b.pattern if mlp == "moe")
+            for b in cfg.blocks
+        )
+        per_expert = 3 * cfg.d_model * m.d_ff
+        active -= n_moe_layers * per_expert * (m.num_experts - m.top_k)
+    return total, active
 
 
 def _layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
@@ -109,7 +122,8 @@ def launches_per_pass(cfg: ModelConfig, phase: str,
     forward and backward of a (micro)batch, counted from the layer
     pattern, for the kernels the config's layers run: the fused
     residual-norm at every seam (``norm1``, ``norm2`` where the layer has
-    an MLP, and the final norm) in every phase; in prefill and training,
+    an MLP, dense or MoE, whatever its mixer, and the final norm) in
+    every phase; in prefill and training,
     flash attention once per attention layer and the SSD chunk kernel
     once per mamba layer (decode runs neither).  In training the
     backward runs the plain versions, and under a ``remat`` other than
@@ -158,15 +172,17 @@ def rope_decode(cfg: ModelConfig, pos: int, device):
 def backbone_full(cfg: ModelConfig, params, x, *, rope_cs,
                   remat: str | None = None):
     """The training forward of every block, no cache: x (B,S,d) ->
-    (x, res), the stream and the last layer's output, which the final
-    fused norm adds."""
+    (x, res, aux), the stream, the last layer's output, which the final
+    fused norm adds, and the sum of the MoE layers' aux terms (0.0
+    without MoE)."""
     res = torch.zeros_like(x)
+    aux = 0.0
     for i, bdef in enumerate(cfg.blocks):
-        x, res = apply_block_full(
-            cfg, bdef, params[f"b{i}"], x, res, rope_cs=rope_cs, causal=True,
-            remat=remat,
+        x, res, aux = apply_block_full(
+            cfg, bdef, params[f"b{i}"], x, res, aux, rope_cs=rope_cs,
+            causal=True, remat=remat,
         )
-    return x, res
+    return x, res, aux
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +227,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     """Next-token cross-entropy of ``batch`` ({"tokens": (B,S) int,
     optional "loss_mask": (B,S) f32}), normalised by its token count.
     Returns (loss, metrics) with the JAX package's keys: ``loss``,
-    ``nll_sum``, ``token_count`` and ``aux_loss`` (0: no MoE)."""
+    ``nll_sum``, ``token_count`` and ``aux_loss``; ``loss`` is the mean
+    next-token NLL plus ``aux_loss``, the MoE layers' load-balance and
+    z terms (0 without MoE)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -220,14 +238,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
         mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
     x = embed_tokens(cfg, params, tokens)
     rope_cs = rope_full(cfg, S, tokens.device)
-    x, res = backbone_full(cfg, params, x, rope_cs=rope_cs, remat=remat)
+    x, res, aux = backbone_full(cfg, params, x, rope_cs=rope_cs,
+                                remat=remat)
     h, _ = fused_norm(cfg, params["final_norm"], x, res)
     nll, cnt = chunked_xent(cfg, params, h, _shift_left(tokens),
                             _shift_left(mask), loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
     loss = nll / torch.clamp(cnt, min=1.0) + aux
     metrics = {"nll_sum": nll.detach(), "token_count": cnt.detach(),
-               "aux_loss": aux, "loss": loss.detach()}
+               "aux_loss": aux.detach(), "loss": loss.detach()}
     return loss, metrics
 
 
@@ -253,7 +272,7 @@ def prefill(cfg: ModelConfig, params, inputs, max_seq: int | None = None):
     cache = zeros_like_schema(cache_schema(cfg, B, max_seq), dev)
     res = torch.zeros_like(x)
     for i, bdef in enumerate(cfg.blocks):
-        x, res = apply_block_full(
+        x, res, _ = apply_block_full(
             cfg, bdef, params[f"b{i}"], x, res, rope_cs=rope_cs,
             causal=True, cache=cache[f"b{i}"],
         )

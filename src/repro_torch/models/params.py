@@ -40,6 +40,7 @@ class ParamSpec:
     std: float = 0.0          # NORMAL only
     dt_range: tuple[float, float] = (0.0, 0.0)   # DT_BIAS only: (min, max)
     stacked: int = 0          # leading stacked-layer axes (fan-in skips them)
+    pinned: bool = False      # dtype fixed whatever the config's (the router)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -65,8 +66,10 @@ def scale_param(shape, axes, dtype=torch.float32) -> ParamSpec:
     return ParamSpec(tuple(shape), tuple(axes), dtype, ONES)
 
 
-def normal_param(shape, axes, std, dtype=torch.float32) -> ParamSpec:
-    return ParamSpec(tuple(shape), tuple(axes), dtype, NORMAL, float(std))
+def normal_param(shape, axes, std, dtype=torch.float32, *,
+                 pinned=False) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, NORMAL, float(std),
+                     pinned=pinned)
 
 
 def a_log_param(shape, axes, dtype=torch.float32) -> ParamSpec:

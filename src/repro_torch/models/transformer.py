@@ -1,5 +1,6 @@
-"""Decoder stack for the dense ``("attn", "dense")`` and the Mamba-2
-``("mamba", "none")`` layers.
+"""Decoder stack: attention and Mamba-2 layers, each with a dense MLP, a
+mixture-of-experts MLP or (Mamba) none, in any pattern of the config's
+blocks.
 
 The JAX package's ``models/transformer.py``, with a Python loop over the
 stacked layers in place of ``lax.scan`` / ``fori_loop``.  Parameters
@@ -16,11 +17,14 @@ layer's ``norm1`` adds it; the last layer's is added by the model's
 residual: ``x + 0`` is ``x`` exactly, so that norm equals
 ``apply_norm``, and every norm of the path runs on the one kernel —
 ``Σ(1 + [mlp ≠ none]) + 1`` launches per pass — for one extra read of a
-zero tensor.
+zero tensor.  A layer with an MLP, attention or Mamba, takes its
+``norm2`` seam the same way.
 
-A mamba layer has ``norm1`` and ``mixer`` and no ``norm2`` / ``mlp``,
-as in the JAX package.  Other mixers (MLA), MoE and cross-attention
-raise ``NotImplementedError``.
+A MoE layer's aux terms (``lb_loss + z_loss``) are carried out of each
+layer and block in the order the JAX package sums them, one running
+sum over the layers; a dense layer adds nothing.  Decode drops them, as
+the JAX package does.  Other mixers (MLA) and cross-attention raise
+``NotImplementedError``.
 
 Training runs the same layers with no cache, each repeat unit of a
 block under ``remat_wrap`` (the JAX package's ``jax.checkpoint`` of its
@@ -42,12 +46,14 @@ from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_residual
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, mlp_schema, norm_schema
 from repro_torch.models.params import stack_schema, tree_map
 
 
 #: the (mixer, mlp) layer kinds the port serves
-LAYER_KINDS = (("attn", "dense"), ("mamba", "none"))
+LAYER_KINDS = (("attn", "dense"), ("attn", "moe"), ("mamba", "none"),
+               ("mamba", "dense"), ("mamba", "moe"))
 
 
 def _served(mixer: str, mlp: str) -> None:
@@ -106,14 +112,16 @@ def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
 
 def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
     _served(mixer, mlp)
-    if mixer == "mamba":
-        return {"norm1": norm_schema(cfg), "mixer": mamba2.mamba_schema(cfg)}
-    return {
-        "norm1": norm_schema(cfg),
-        "mixer": attn.attn_schema(cfg),
-        "norm2": norm_schema(cfg),
-        "mlp": mlp_schema(cfg),
-    }
+    s = {"norm1": norm_schema(cfg)}
+    s["mixer"] = (mamba2.mamba_schema(cfg) if mixer == "mamba"
+                  else attn.attn_schema(cfg))
+    if mlp == "dense":
+        s["norm2"] = norm_schema(cfg)
+        s["mlp"] = mlp_schema(cfg)
+    elif mlp == "moe":
+        s["norm2"] = norm_schema(cfg)
+        s["mlp"] = moe_mod.moe_schema(cfg)
+    return s
 
 
 def layer_cache_schema(cfg: ModelConfig, mixer: str, batch: int,
@@ -130,38 +138,48 @@ def apply_layer_full(
     cfg: ModelConfig, p, x, res, mixer: str, mlp: str, *,
     rope_cs, causal=True, cache=None,
 ):
-    """Prefill layer.  ``x`` (B,S,d) is the residual stream before the
-    previous layer's last output ``res`` is added.  Returns ``(x, y)``:
-    the stream after this layer's attention residual (after ``res`` in a
-    mamba layer), and this layer's MLP output (its mixer output), which
-    the next fused norm adds."""
+    """Prefill / training layer.  ``x`` (B,S,d) is the residual stream
+    before the previous layer's last output ``res`` is added.  Returns
+    ``(x, y, aux)``: the stream after this layer's mixer residual (after
+    ``res`` in a layer without an MLP), this layer's MLP output (its
+    mixer output), which the next fused norm adds, and its aux term
+    (``lb_loss + z_loss`` of a MoE layer, else 0.0)."""
     _served(mixer, mlp)
     h, x = fused_norm(cfg, p["norm1"], x, res)
+    c = None if cache is None else cache["mixer"]
     if mixer == "mamba":
-        return x, mamba2.apply_mamba_full(
-            cfg, p["mixer"], h,
-            cache=None if cache is None else cache["mixer"])
-    y = attn.apply_attn_full(
-        cfg, p["mixer"], h, rope_cs=rope_cs, causal=causal,
-        cache=None if cache is None else cache["mixer"],
-    )
+        y = mamba2.apply_mamba_full(cfg, p["mixer"], h, cache=c)
+    else:
+        y = attn.apply_attn_full(cfg, p["mixer"], h, rope_cs=rope_cs,
+                                 causal=causal, cache=c)
+    if mlp == "none":
+        return x, y, 0.0
     h2, x = fused_norm(cfg, p["norm2"], x, y)
-    return x, apply_mlp(cfg, p["mlp"], h2)
+    if mlp == "moe":
+        y2, moe_aux = moe_mod.apply_moe(cfg, p["mlp"], h2)
+        return x, y2, moe_aux["lb_loss"] + moe_aux["z_loss"]
+    return x, apply_mlp(cfg, p["mlp"], h2), 0.0
 
 
 def apply_layer_decode(
     cfg: ModelConfig, p, x, res, cache, pos: int, mixer: str, mlp: str, *,
     rope_cs,
 ):
-    """Decode layer.  x and res (B,d), as in ``apply_layer_full``; the
-    layer's cache is updated in place."""
+    """Decode layer.  x and res (B,d), as in ``apply_layer_full``, no aux
+    term; the layer's cache is updated in place."""
     _served(mixer, mlp)
     h, x = fused_norm(cfg, p["norm1"], x, res)
     if mixer == "mamba":
-        return x, mamba2.apply_mamba_decode(cfg, p["mixer"], h, cache["mixer"])
-    y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
-                               rope_cs=rope_cs)
+        y = mamba2.apply_mamba_decode(cfg, p["mixer"], h, cache["mixer"])
+    else:
+        y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
+                                   rope_cs=rope_cs)
+    if mlp == "none":
+        return x, y
     h2, x = fused_norm(cfg, p["norm2"], x, y)
+    if mlp == "moe":
+        y2, _ = moe_mod.apply_moe(cfg, p["mlp"], h2[:, None])
+        return x, y2[:, 0]
     return x, apply_mlp(cfg, p["mlp"], h2)
 
 
@@ -199,28 +217,30 @@ def _unstack(tree, n: int) -> list:
 
 
 def apply_block_full(
-    cfg: ModelConfig, bdef: BlockDef, params, x, res, *,
+    cfg: ModelConfig, bdef: BlockDef, params, x, res, aux=0.0, *,
     rope_cs, causal=True, cache=None, remat: str | None = "none",
 ):
-    """x, res (B,S,d) -> (x, res) after the block's layers; ``cache``
-    (stacked) is filled in place.  Each repeat unit runs under
-    ``remat_wrap(cfg, ·, remat)``: serving passes ``"none"`` and a
-    cache, training its remat mode and no cache."""
+    """x, res (B,S,d) -> (x, res, aux) after the block's layers, ``aux``
+    the running sum of the layers' aux terms; ``cache`` (stacked) is
+    filled in place.  Each repeat unit runs under ``remat_wrap(cfg, ·,
+    remat)``: serving passes ``"none"`` and a cache, training its remat
+    mode and no cache."""
 
-    def unit(lp, x, res, lc):
+    def unit(lp, x, res, aux, lc):
         for i, (mixer, mlp) in enumerate(bdef.pattern):
-            x, res = apply_layer_full(
+            x, res, a = apply_layer_full(
                 cfg, lp[f"l{i}"], x, res, mixer, mlp, rope_cs=rope_cs,
                 causal=causal, cache=None if lc is None else lc[f"l{i}"],
             )
-        return x, res
+            aux = aux + a
+        return x, res, aux
 
     body = remat_wrap(cfg, unit, remat)
     layers = _unstack(params, bdef.repeat)
     for r in range(bdef.repeat):
-        x, res = body(layers[r], x, res,
-                      None if cache is None else _layer(cache, r))
-    return x, res
+        x, res, aux = body(layers[r], x, res, aux,
+                           None if cache is None else _layer(cache, r))
+    return x, res, aux
 
 
 def apply_block_decode(

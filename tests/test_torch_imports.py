@@ -85,6 +85,34 @@ def test_striped_modules_stand_alone(name):
     assert "vmap" not in path.read_text()
 
 
+#: the mixture-of-experts module and the configs of the Jamba and dense
+#: slice
+MOE = ["models/moe.py", "models/transformer.py", "configs/jamba_v0_1_52b.py",
+       "configs/yi_9b.py", "configs/granite_8b.py", "configs/minitron_8b.py"]
+CONFIGS = ["jamba_v0_1_52b", "yi_9b", "granite_8b", "minitron_8b"]
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_modules_stand_alone(name):
+    """Each is among the files held to no JAX and no ``repro`` import
+    above, and loops over its token groups where the JAX package scans
+    or maps: no ``torch.vmap``, which the JAX lint's tracer-hygiene rule
+    would treat as a traced root."""
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    test_no_jax_or_repro_imports(path)
+    assert "vmap" not in path.read_text()
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_configs_are_copies(name):
+    """The port's config module is the JAX package's with only its
+    imports changed."""
+    orig = (ROOT / "src/repro/configs" / f"{name}.py").read_text()
+    port = (ROOT / "src/repro_torch/configs" / f"{name}.py").read_text()
+    assert port == _ported(orig)
+
+
 @pytest.mark.parametrize("name", CORE)
 def test_core_is_a_copy(name):
     orig = (ROOT / "src/repro/core" / f"{name}.py").read_text()

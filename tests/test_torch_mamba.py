@@ -38,7 +38,7 @@ from repro.models import mamba2 as JMB  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.sharding.rules import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import BlockDef, MoEConfig  # noqa: E402
+from repro_torch.configs.base import BlockDef, MLAConfig  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -375,16 +375,19 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 def test_unported_configs_raise():
     t = smoke_config(get_config(ARCH))
-    with pytest.raises(NotImplementedError):
-        M.schema(dataclasses.replace(t, moe=MoEConfig(num_experts=2)))
-    with pytest.raises(NotImplementedError):
+    for change in (dict(mla=MLAConfig()), dict(mtp=True),
+                   dict(rope_type="mrope")):
+        with pytest.raises(NotImplementedError):
+            M.schema(dataclasses.replace(t, **change))
+    # a MoE layer with no MoE config
+    with pytest.raises(ValueError, match="needs cfg.moe"):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("mamba", "moe"),), repeat=1),)))
     with pytest.raises(NotImplementedError):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("mla", "dense"),), repeat=1),)))
     with pytest.raises(KeyError):
-        get_config("jamba-v0.1-52b")
+        get_config("deepseek-v2-236b")
 
 
 def test_serve_cli_on_the_cpu(capsys):

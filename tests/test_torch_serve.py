@@ -33,7 +33,7 @@ from repro.configs.base import dense_blocks as jdense_blocks  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.sharding.rules import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import MoEConfig, dense_blocks  # noqa: E402
+from repro_torch.configs.base import MLAConfig, dense_blocks  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -224,6 +224,15 @@ def test_schema_and_param_counts_match_jax():
     assert tshapes == jshapes
     total, _ = M.param_counts(t)
     assert 6.0e9 < total < 6.1e9
+    # jamba: (total, active) and, its parameters being bf16, serving's
+    # schema dtypes leaf for leaf, the MoE router f32 in both packages
+    j, t = jget_config("jamba-v0.1-52b"), get_config("jamba-v0.1-52b")
+    assert M.param_counts(t) == JM.param_counts(j)
+    jspecs = jax.tree.map(lambda s: (s.shape, jnp.dtype(s.dtype).name),
+                          JM.schema(j), is_leaf=lambda x: hasattr(x, "init"))
+    assert map_specs(lambda _, s: (s.shape, str(s.dtype).split(".")[-1]),
+                     M.schema(t)) == jspecs
+    assert jspecs["b0"]["l1"]["mlp"]["router"][1] == "float32"
 
 
 def test_weights_in_compute_dtype_equal_jax_casts(models):
@@ -248,12 +257,100 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 def test_unported_configs_raise():
     t = smoke_config(get_config("yi-6b"))
-    for change in (dict(moe=MoEConfig(num_experts=2)), dict(mtp=True),
+    for change in (dict(mla=MLAConfig()), dict(mtp=True),
                    dict(rope_type="mrope"), dict(norm="layernorm")):
         with pytest.raises(NotImplementedError):
             M.schema(dataclasses.replace(t, **change))
     with pytest.raises(KeyError):
         get_config("deepseek-v3-671b")
+
+
+# ---------------------------------------------------------------------------
+# the other dense archs: Yi-9B, Granite-8B, Minitron-8B (squared ReLU)
+# ---------------------------------------------------------------------------
+
+DENSE = ("yi-9b", "granite-8b", "minitron-8b")
+
+
+def _dense_models(arch):
+    """The arch's smoke config widened to LAYERS layers, f32, in both
+    packages, with the same JAX parameters."""
+    j = dataclasses.replace(jsmoke_config(jget_config(arch)),
+                            num_layers=LAYERS, blocks=jdense_blocks(LAYERS))
+    t = dataclasses.replace(smoke_config(get_config(arch)),
+                            num_layers=LAYERS, blocks=dense_blocks(LAYERS))
+    jp = jinit_params(JM.schema(j), jax.random.key(0))
+    tp = params_from_numpy(t, jax.tree.map(np.asarray, jp), "cpu")
+    return {"float32": (j, jp, t, tp)}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_matches_jax_field_for_field(arch, smoke):
+    j, t = jget_config(arch), get_config(arch)
+    if smoke:
+        j, t = jsmoke_config(j), smoke_config(t)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_schema_and_param_counts_match_jax(arch):
+    j, t = jget_config(arch), get_config(arch)
+    total, active = M.param_counts(t)
+    assert (total, active) == JM.param_counts(j) and total == active
+    jshapes = jax.tree.map(lambda s: s.shape, JM.schema(jsmoke_config(j)),
+                           is_leaf=lambda x: hasattr(x, "init"))
+    assert map_specs(lambda _, s: s.shape, M.schema(smoke_config(t))) \
+        == jshapes
+    mlp = M.schema(t)["b0"]["l0"]["mlp"]
+    assert ("gate" in mlp) == (t.mlp_act == "swiglu")
+    assert 7.5e9 < total < 9.5e9
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_logits_and_greedy_tokens_match_jax(arch):
+    """Prefill and 4 greedy decode steps, f32: logits within 1e-4 and
+    the same tokens (measured ≤ 3.3e-6 at max|logit| 0.49–0.62)."""
+    logits, tokens = _run_both(_dense_models(arch), "float32",
+                               teacher_forced=False)
+    for jl, tl in logits:
+        np.testing.assert_allclose(tl, jl, atol=1e-4)
+    for jt, tt in tokens:
+        np.testing.assert_array_equal(tt, jt)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
+def test_mlp_activations_match_jax(act):
+    """``apply_mlp`` under each activation against the JAX package's
+    (``relu2``: no gate; ``gelu``: the tanh approximation), f32."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    j = dataclasses.replace(jsmoke_config(jget_config("minitron-8b")),
+                            mlp_act=act)
+    t = dataclasses.replace(smoke_config(get_config("minitron-8b")),
+                            mlp_act=act)
+    jp = jinit_params(JL.mlp_schema(j), jax.random.key(2))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    assert set(tp) == ({"gate", "up", "down"} if act == "swiglu"
+                       else {"up", "down"})
+    assert map_specs(lambda _, s: s.shape, TL.mlp_schema(t)) == \
+        {k: v.shape for k, v in jp.items()}
+    x = np.random.default_rng(5).standard_normal((2, 24, 64),
+                                                 dtype=np.float32)
+    np.testing.assert_allclose(
+        TL.apply_mlp(t, tp, torch.from_numpy(x)).numpy(),
+        np.asarray(JL.apply_mlp(j, jp, jnp.asarray(x))), atol=1e-5,
+        rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_serve_cli_on_the_cpu(arch, capsys):
+    res = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and all(ln.startswith("[serve]") for ln in lines)
+    assert tuple(res.tokens.shape) == (2, 3)
 
 
 def test_serve_cli_on_the_cpu(capsys):

@@ -56,7 +56,7 @@ from repro_torch.configs import (  # noqa: E402
     get_config,
     smoke_config,
 )
-from repro_torch.configs.base import BlockDef, MoEConfig  # noqa: E402
+from repro_torch.configs.base import BlockDef, MLAConfig  # noqa: E402
 from repro_torch.configs.shapes import (  # noqa: E402
     SHAPES,
     SMOKE_SHAPES,
@@ -202,8 +202,8 @@ def test_pipeline_batches_are_bitwise_jax(arch):
 
 def test_unported_configs_raise_in_training():
     t = smoke_config(get_config("yi-6b"))
-    for change in (dict(moe=MoEConfig(num_experts=2)), dict(mtp=True),
-                   dict(input_mode="embeds")):
+    for change in (dict(mla=MLAConfig()), dict(mtp=True),
+                   dict(input_mode="embeds"), dict(rope_type="mrope")):
         bad = dataclasses.replace(t, **change)
         with pytest.raises(NotImplementedError):
             SyntheticLMPipeline(bad, SHAPE)
@@ -226,6 +226,14 @@ def test_train_schema_is_jax_schema(arch):
         {torch.float32}
     assert torch.bfloat16 in {s.dtype for s in tree_leaves(M.schema(bf))}
     assert all(t.dtype == torch.float32 for t in tree_leaves(tp))
+    # jamba's parameters are bf16 and its MoE router f32, in both packages
+    jj, tj = jget_config("jamba-v0.1-52b"), get_config("jamba-v0.1-52b")
+    jsch = jax.tree.map(lambda s: (s.shape, jnp.dtype(s.dtype).name),
+                        JM.schema(jj), is_leaf=lambda x: hasattr(x, "init"))
+    assert map_specs(lambda _, s: (s.shape, str(s.dtype).split(".")[-1]),
+                     M.train_schema(tj)) == jsch
+    assert jsch["b0"]["l1"]["mlp"]["router"][1] == "float32"
+    assert jsch["b0"]["l1"]["mlp"]["w_up"][1] == "bfloat16"
 
 
 # ---------------------------------------------------------------------------
