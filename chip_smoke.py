@@ -74,15 +74,19 @@ Phases, each printing one JSON line:
 12. ``rmsnorm_vs_plain``: the fused residual-add + RMSNorm kernel
     against its plain version (the shapes of ``tests/test_kernels.py``,
     Yi-6B's prefill and decode rows, a ragged row count, Jamba-v0.1's
-    8192 prefill rows; f32 and bf16):
+    8192 prefill rows, DeepSeek-V2's and -V3's at d = 5120 and 7168;
+    f32 and bf16):
     |got - want| <= atol + rtol·|want| with (1e-6, 1e-6) in f32 and
     (2e-2, 2^-8) in bf16 on both outputs.
 13. ``attention_vs_plain``: the flash-attention kernel against its
     plain version (the shapes of ``tests/test_kernels.py``, non-causal,
     Yi-6B's prefill in the model's layout, ragged S=300, S=1 and S=64
     at D=32 and 128, non-causal in the model's layout, Jamba-v0.1's
-    prefill (4, 32, 8, 2048, 128) in the model's layout): atol 2e-5 in
-    f32, 3e-2 in bf16.
+    prefill (4, 32, 8, 2048, 128) in the model's layout, and MLA's pair
+    of q·k 192 and v 128 at H = KH = 128, S = 1, 63, 65 and 2048, causal
+    and not, f32 and bf16, v the strided half of a (B, S, H, 256)
+    product as ``models/mla.py`` passes it): atol 2e-5 in f32, 3e-2 in
+    bf16.
 14. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
     versions), B=2, prompt 128, 4 greedy steps: logits within
@@ -150,6 +154,31 @@ Phases, each printing one JSON line:
     activations, and the 8-layer bf16 invariant within 5e-2·max|logit|
     with ``well_conditioned`` attention weights on the requests that
     lost no assignment (the figure under the init rule printed).
+18e. ``deepseek_vs_cpu``: DeepSeek-V2 at full width, f32 (no TF32),
+    cut to 2 layers (its dense layer and one MoE layer; 5.36 B
+    parameters): the same weights serve on the card and on the CPU, B=2,
+    prompt 300 (one MoE group of 600, C = 28), 4 greedy steps: logits
+    within 1e-3·max|logit|, identical tokens, identical expert choices
+    wherever the 6th and 7th router probabilities part by more than
+    1e-5, equal dropped assignments, the launch counts.
+18f. ``deepseek_serve``: DeepSeek-V2 at full width in bf16 cut to 4
+    layers (``reduced`` 60 -> 4: blocks repeat 1 + 59 -> 1 + 3; 13.30 B
+    parameters, 26.6 GB) through ``launch/serve.py``'s functions: 4
+    requests of 2048 prompt tokens (one MoE group of 8192, C = 384) and
+    32 greedy tokens, with prefill and decode times against their bounds
+    (``deepseek_prefill_flops``, the weights' bytes), tokens/s, peak
+    memory, launches per prefill and per step, the routing and drops of
+    each MoE layer, a profile of each phase by kind with the MoE ranges
+    and the queue scan's device ms; every flash and norm call of one
+    prefill and one decode step is held to its plain version on the
+    served activations, and the 4-layer bf16 invariant is held within
+    5e-2·max|logit| under the init rule on the requests that lost no
+    assignment (with ``well_conditioned`` MLA weights every request
+    loses some: printed).  Then DeepSeek-V3 at
+    full width cut to 2 layers (61 -> 2: blocks 3 + 58 -> 1 + 1; 14.63 B
+    parameters with the MTP head, 29.3 GB): a prefill and 8 decode steps
+    at 4 x 2048 (256 experts, top-8, C = 320; the norm at d = 7168),
+    its launches, routing, and every flash and norm call held.
 19. ``train_grad_vs_plain``: each autograd Function of the LM kernels
     (the kernel forward, the plain backward) against autograd through
     the plain version on the same inputs and output gradients: Yi-6B's
@@ -196,7 +225,11 @@ Phases, each printing one JSON line:
     (``launches_train``, ``launches_train_per_step``, ...) and in
     ``jamba_serve`` (``launches_jamba``, ``..._per_prefill``,
     ``..._per_step``), and its device ms, plain ms, bound and library ms
-    at Jamba-v0.1's served shape (``ms_jamba``, ...).
+    at Jamba-v0.1's served shape (``ms_jamba``, ...); flash and the norm
+    also their launches in ``deepseek_serve`` (``launches_deepseek``,
+    ...) and their times at DeepSeek's shapes (``ms_mla``, ... at (4,
+    128, 128, 2048, 192 / 128); ``ms_deepseek_v2`` and
+    ``ms_deepseek_v3``, ... at 8192 rows of 5120 and 7168).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -284,6 +317,13 @@ MAMBA_INV_TOL = 0.1
 FLASH_SHAPE_JAMBA = (4, 32, 8, 2048, 128)
 SSD_JAMBA = (32, 128, 256, 16, 64)
 RMS_ROWS_JAMBA = (8192, 4096)
+#: DeepSeek-V2 served at 4 x 2048 tokens: MLA's flash call (B, H, KH, S,
+#: Dqk, Dv), causal, v the strided half of the wkv_b product (its first
+#: MLA_NOPE columns are k's nope part); the norm's rows at V2's d = 5120
+#: and V3's 7168
+MLA_NOPE, MLA_DV = 128, 128
+FLASH_SHAPE_MLA = (4, 128, 128, 2048, 192, MLA_DV)
+RMS_ROWS_DEEPSEEK = ((8192, 5120), (8192, 7168))
 #: jamba_vs_cpu: f32 logits on the card within this share of max|logit|
 #: of the CPU's, and the card's own prefill-vs-decode invariant; expert
 #: choices are compared where the k-th and (k+1)-th router probabilities
@@ -623,6 +663,11 @@ def main() -> int:
     jserved = run_jamba_serve(dev)
     emit(jserved)
 
+    # 18e.-18f. DeepSeek: MLA over MoE layers
+    emit(run_deepseek_vs_cpu(dev))
+    dserved = run_deepseek_serve(dev)
+    emit(dserved)
+
     # 19.-22. the training slice
     emit(run_train_grad_vs_plain(dev))
     emit(run_train_vs_cpu(dev))
@@ -635,8 +680,10 @@ def main() -> int:
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
     jfields = jamba_kernel_fields(dev, bw, f32, bf16, ssd, jserved)
+    dfields = deepseek_kernel_fields(dev, bw, f32, bf16, dserved)
     for entry in lm_entries:
         entry.update(jfields[entry["name"]])
+        entry.update(dfields.get(entry["name"], {}))
     for entry in lm_entries:
         for key, cell in (("train", trained), ("mamba_train", mtrained)):
             if entry["name"] in cell["launches_predicted"]:
@@ -1876,6 +1923,8 @@ def run_rmsnorm_vs_plain(dev, rng):
         ("Yi-6B decode rows", (4, 4096), True),
         ("ragged rows", (37, 4096), True),
         ("Jamba-v0.1 prefill rows", RMS_ROWS_JAMBA, True),
+        ("DeepSeek-V2 prefill rows", RMS_ROWS_DEEPSEEK[0], True),
+        ("DeepSeek-V3 prefill rows", RMS_ROWS_DEEPSEEK[1], True),
     ):
         x = rng.standard_normal((n, d), dtype=np.float32)
         r = rng.standard_normal((n, d), dtype=np.float32)
@@ -1906,12 +1955,19 @@ def run_rmsnorm_vs_plain(dev, rng):
 
 def _attn_inputs(rng, dev, dtype, b, h, kh, s, d, model_layout=False):
     """q, k, v from the seed; with ``model_layout`` they are (B, S, H, D)
-    tensors seen as (B, H, S, D), as the model hands them over."""
+    tensors seen as (B, H, S, D), as the model hands them over.  With
+    ``model_layout="mla"`` q and k are so, D = 192, and v is the last
+    ``MLA_DV`` columns of a (B, S, KH, 128 + MLA_DV) tensor, the strided
+    half of the ``wkv_b`` product that ``models/mla.py`` passes."""
     out = []
-    for heads in (h, kh, kh):
-        a = rng.standard_normal((b, s, heads, d) if model_layout
-                                else (b, heads, s, d), dtype=np.float32)
+    mla = model_layout == "mla"
+    for i, heads in enumerate((h, kh, kh)):
+        w = MLA_NOPE + MLA_DV if mla and i == 2 else d
+        a = rng.standard_normal((b, s, heads, w) if model_layout
+                                else (b, heads, s, w), dtype=np.float32)
         t = torch.from_numpy(a).to(dev, dtype)
+        if mla and i == 2:
+            t = t[..., MLA_NOPE:]
         out.append(t.transpose(1, 2) if model_layout else t)
     return out
 
@@ -1937,6 +1993,12 @@ def run_attention_vs_plain(dev, rng):
               False, True)]
     plan += [("Jamba-v0.1 prefill (KH=8, no RoPE), model layout",
               FLASH_SHAPE_JAMBA, bf16, True, True)]
+    # MLA's prefill: q·k over 192, v 128 wide, H = KH = 128, v the
+    # strided half of the wkv_b product
+    plan += [(f"MLA 192/128 S={s}", (1 if s == 2048 else 2, 128, 128, s,
+                                      192), dt, causal, "mla")
+             for s in (1, 63, 65, 2048) for dt in (f32, bf16)
+             for causal in (True, False)]
     for label, (b, h, kh, s, d), dtype, causal, layout in plan:
         q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout)
         want = ref.attention_ref(q, k, v, causal=causal)
@@ -1945,7 +2007,8 @@ def run_attention_vs_plain(dev, rng):
         err, ok = _close([got], [want], ATTN_TOL[dtype])
         worst = max(worst, err)
         cases.append({"case": label, "B": b, "H": h, "KH": kh, "S": s,
-                      "D": d, "dtype": str(dtype).split(".")[-1],
+                      "D": d, "Dv": v.shape[-1],
+                      "dtype": str(dtype).split(".")[-1],
                       "causal": causal, "max_abs_diff": err})
         check(ok, f"attention kernel vs plain {label} {dtype}: {err} > "
                   f"{ATTN_TOL[dtype]}")
@@ -2164,20 +2227,30 @@ def run_serve(dev):
 
 
 def well_conditioned(cfg, params):
-    """``params`` with every attention layer's projections rescaled to
-    the fan-in of their contraction: d for wq, wk and wv, heads·head_dim
-    for wo.  The init rule takes axis -2, the head count or head_dim."""
+    """``params`` with every attention and MLA layer's projections
+    rescaled to the fan-in of their contraction: d for wq, wk and wv,
+    heads·head_dim for wo; MLA's wq_b to q_lora_rank, wkv_b to
+    kv_lora_rank, wo to heads·v_head_dim (wq_a and wkv_a already contract
+    over axis -2, d).  The init rule takes axis -2, the head count or
+    head_dim."""
     H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
-    gain = {"wq": (H / d) ** 0.5, "wk": (KH / d) ** 0.5,
-            "wv": (KH / d) ** 0.5, "wo": H ** -0.5}
+    gains = {"attn": {"wq": (H / d) ** 0.5, "wk": (KH / d) ** 0.5,
+                      "wv": (KH / d) ** 0.5, "wo": H ** -0.5}}
+    if cfg.mla is not None:
+        m = cfg.mla
+        gains["mla"] = {"wq": (H / d) ** 0.5, "wkv_b": (H / m.kv_lora_rank)
+                        ** 0.5, "wo": H ** -0.5}
+        if m.q_lora_rank:
+            gains["mla"]["wq_b"] = (H / m.q_lora_rank) ** 0.5
     out = dict(params)
     for i, bdef in enumerate(cfg.blocks):
         blk = dict(params[f"b{i}"])
         for j, (mixer, _) in enumerate(bdef.pattern):
-            if mixer == "attn":
-                lp = blk[f"l{j}"]
+            if mixer in gains:
+                lp, gain = blk[f"l{j}"], gains[mixer]
                 blk[f"l{j}"] = dict(lp, mixer={
-                    k: w * gain[k] for k, w in lp["mixer"].items()})
+                    k: w * gain[k] if k in gain else w
+                    for k, w in lp["mixer"].items()})
         out[f"b{i}"] = blk
     return out
 
@@ -2206,7 +2279,11 @@ def kernels_on_activations(cfg, params, prompts, phase):
 
     def attention(q, k, v, *, causal=True):
         out = attn0(q, k, v, causal=causal)
-        want = fr.attention_ref(q, k, v, causal=causal)
+        # the plain version a request at a time: at MLA's 128 heads one
+        # (B, H, S, S) f32 score tensor is 8.6 GB at B=4, S=2048
+        want = torch.cat([fr.attention_ref(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], causal=causal)
+                          for i in range(q.shape[0])])
         vmax = float(v.abs().max())
         err, ok = _close([out], [want], ATTN_ACT_SHARE * vmax)
         seen["flash_attention"].append((err, ok, {"max_abs_v": vmax}))
@@ -2274,20 +2351,29 @@ def kernels_on_activations(cfg, params, prompts, phase):
 
 
 def flash_timing(dev, shape, bw, peak, g) -> dict:
-    """The bf16 flash kernel at ``shape`` = (B, H, KH, S, D), causal, on
-    the model's (B, S, H, D) views from ``g``: held to its plain version
-    within ATTN_TOL, its device ms, the plain version's, SDPA's (the
-    yardstick, never called by the port) and the bound."""
+    """The bf16 flash kernel at ``shape`` = (B, H, KH, S, D) or (B, H,
+    KH, S, D, Dv), causal, on the model's (B, S, H, D) views from ``g``
+    (with a Dv, v the last Dv columns of a (B, S, KH, 128 + Dv) tensor,
+    as MLA passes it): held to its plain version within ATTN_TOL, its
+    device ms, the plain version's, SDPA's (the yardstick, never called
+    by the port) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
     from repro_torch.kernels.stencil.tune import device_time_ms
 
-    B, H, KH, S, D = shape
+    B, H, KH, S, D = shape[:5]
+    Dv = shape[5] if len(shape) > 5 else D
     bt = torch.bfloat16
-    q, k, v = (torch.randn((B, S, n, D), generator=g, device=dev)
-               .to(bt).transpose(1, 2) for n in (H, KH, KH))
+    q, k = (torch.randn((B, S, n, D), generator=g, device=dev)
+            .to(bt).transpose(1, 2) for n in (H, KH))
+    if Dv == D:
+        v = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt) \
+            .transpose(1, 2)
+    else:
+        v = torch.randn((B, S, KH, MLA_NOPE + Dv), generator=g,
+                        device=dev).to(bt)[..., MLA_NOPE:].transpose(1, 2)
     want = fr.attention_ref(q, k, v)
     err, ok = _close([fk.flash_attention_cuda(q, k, v)], [want],
                      ATTN_TOL[bt])
@@ -2299,8 +2385,8 @@ def flash_timing(dev, shape, bw, peak, g) -> dict:
                               10 if S <= 512 else 3)
     lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps)
-    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2),
-                       fk.attention_flops(B, H, S, D, True), bw, peak)
+    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2, Dv),
+                       fk.attention_flops(B, H, S, D, True, Dv), bw, peak)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": fb, "bound_by": fby, "max_abs_err": err}
 
@@ -2824,12 +2910,14 @@ class MoERecorder:
         return out
 
 
-def _held_invariant(cfg, params, prompts, tol_share):
+def _held_invariant(cfg, params, prompts, tol_share, require=True):
     """The serving invariant (full prefill against prefill(S-1) + one
     decode step) on the requests that lost no MoE assignment in either
     prefill: a drop changes its own request's output and no other's, and
     the two prefills group their tokens differently.  Returns the figures
-    and the drops of each pass per MoE layer."""
+    and the drops of each pass per MoE layer; fails if every request lost
+    an assignment, unless ``require`` is false (then the figures are
+    ``None`` and ``requests_held`` empty)."""
     from repro_torch.runtime import serve_step
 
     B, P = prompts.shape
@@ -2848,16 +2936,17 @@ def _held_invariant(cfg, params, prompts, tol_share):
     lost = {r for per_layer in drops.values() for layer in per_layer
             for r, n in enumerate(layer) if n}
     held = [r for r in range(B) if r not in lost]
-    check(len(held) >= 1, f"every request lost an MoE assignment: {drops}")
+    check(len(held) >= 1 or not require,
+          f"every request lost an MoE assignment: {drops}")
     lf, ld = lf[held].float(), ld[held].float()
     inv = {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
            "batch": B, "prompt": P, "requests_held": held,
            "requests_left_out": B - len(held),
-           "max_abs_diff": float((lf - ld).abs().max()),
-           "max_abs_logit": float(lf.abs().max()),
+           "max_abs_diff": float((lf - ld).abs().max()) if held else None,
+           "max_abs_logit": float(lf.abs().max()) if held else None,
            "tolerance_share": tol_share,
            "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
-                                     .float().mean()),
+                                     .float().mean()) if held else None,
            "dropped_per_layer": drops,
            "capacity": {"prefill": full_moe[0]["C"],
                         "prefill_s_minus_1": short_moe[0]["C"]}}
@@ -3015,54 +3104,13 @@ def run_jamba_serve(dev):
     in bf16 are ~103 GB, more than the card holds), 4 requests of 2048
     prompt tokens and 32 greedy tokens through launch/serve.py's
     functions."""
-    from repro_torch.launch import serve
-    from repro_torch.models import model as M
-    from repro_torch.models.params import count_params
-    from repro_torch.runtime import serve_step
-
     cfg = _jamba_cut(8, "bfloat16")
     B, P, G = 4, 2048, 32
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    t0 = time.monotonic()
-    params = serve.make_params(cfg, dev, seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    weights_bytes = torch.cuda.memory_allocated(dev) - base
-    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
-    prompts = serve.make_prompts(cfg, B, P, rng)
-    serve.serve(cfg, params, prompts, 2)                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-
-    _counts_zero()
-    res = serve.serve(cfg, params, prompts, G)
-    launches = _counts()
-    peak = torch.cuda.max_memory_allocated(dev) - base
-
-    pre = M.launches_per_pass(cfg, "prefill")
-    dec = M.launches_per_pass(cfg, "decode")
-    steps = res.decode_steps
-    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
-    check(pre == {"flash_attention": 1, "rmsnorm_residual": 17,
-                  "ssd_chunk": 7}, f"launches_per_pass {pre}")
-    check(res.launches["prefill"] == pre,
-          f"prefill launches {res.launches['prefill']}, predicted {pre}")
-    check(per_step == dec, f"decode launches per step {per_step}, "
-                           f"predicted {dec}")
-    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
-                       for k in launches},
-          f"counted launches {launches}")
-    V = cfg.vocab_size
-    check(tuple(res.first_logits.shape) == (B, V)
-          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
-    check(bool(torch.isfinite(res.first_logits).all())
-          and bool(torch.isfinite(res.last_logits).all()),
-          "non-finite serve logits")
-    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
-          "token ids out of range")
-
+    params, prompts, res, fig = _serve_cell(dev, cfg, B, P, G,
+                                            jamba_prefill_flops)
+    check(fig["launches_per_prefill"] == {
+        "flash_attention": 1, "rmsnorm_residual": 17, "ssd_chunk": 7},
+        f"launches per prefill {fig['launches_per_prefill']}")
     on_acts = kernels_on_activations(cfg, params, prompts,
                                      "jamba_kernels_on_activations")
 
@@ -3077,43 +3125,14 @@ def run_jamba_serve(dev):
     check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
           f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
           f"{inv}")
-
-    # where the time goes
-    full = serve_step.build_prefill(cfg, max_seq=P + G)
-    decode = serve_step.build_decode(cfg)
-    _, cache = full(params, {"tokens": prompts})
-    tok = res.tokens[:, 0]
-    prof_prefill = by_kind(profile_device(
-        lambda: full(params, {"tokens": prompts}), 1), 1)
-    prof_decode = by_kind(profile_device(
-        lambda: [decode(params, cache, {"token": tok, "pos": P})
-                 for _ in range(4)], 4), 4)
-    del cache
-    flops = jamba_prefill_flops(cfg, B, P)
-    bw, _, bf16 = peaks_for(torch.cuda.get_device_name(0))
-    total_s = res.prefill_s + res.decode_s
+    prof_prefill, prof_decode = _serve_profiles(cfg, params, prompts,
+                                                res.tokens[:, 0], G)
     return {
-        "phase": "jamba_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "phase": "jamba_serve", **fig,
         "reduced": {"num_layers": "32 -> 8 (blocks repeat 4 -> 1: one "
                                   "whole period; 32 layers in bf16 are "
                                   "~103 GB)"},
         "pattern": [list(k) for k in cfg.blocks[0].pattern],
-        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
-        "params": count_params(M.schema(cfg)),
-        "weights_bytes": weights_bytes, "init_s": init_s,
-        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
-        "prefill_ms": res.prefill_s * 1e3,
-        "decode_ms_per_step": res.decode_s / steps * 1e3,
-        "decode_tokens_per_s": steps * B / res.decode_s,
-        "end_to_end_tokens_per_s": G * B / total_s,
-        "prefill_tokens_per_s": P * B / res.prefill_s,
-        "prefill_flops": flops,
-        "prefill_bound_ms": flops["total"] / bf16 * 1e3,
-        "decode_bound_ms": weights_bytes / bw * 1e3,
-        "peak_memory_bytes": peak,
-        "launches_per_prefill": res.launches["prefill"],
-        "launches_per_decode_step": per_step,
-        "launches": launches,
         "kernels_on_activations": on_acts,
         "dropped_per_moe_layer_prefill": inv_drawn["dropped_per_layer"][
             "prefill"],
@@ -3121,7 +3140,6 @@ def run_jamba_serve(dev):
         "invariant_init_rule": inv_drawn,
         "profile_prefill": prof_prefill,
         "profile_decode_step": prof_decode,
-        "sample_ids": res.tokens[0, :12].tolist(),
     }
 
 
@@ -3170,6 +3188,404 @@ def jamba_kernel_fields(dev, bw, f32, bf16, ssd, jserved) -> dict:
                 jserved["launches_per_decode_step"][name],
             "max_abs_err_jamba_served":
                 jserved["kernels_on_activations"][name]["max_abs_diff"]}
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek: multi-head latent attention over mixture-of-experts layers
+# ---------------------------------------------------------------------------
+
+V2, V3 = "deepseek-v2-236b", "deepseek-v3-671b"
+#: deepseek_vs_cpu: f32 logits on the card within this share of max|logit|
+#: of the CPU's
+DEEPSEEK_F32_TOL = 1e-3
+
+
+def _deepseek_cut(arch: str, dense: int, moe: int, dtype: str):
+    """``arch`` at full width cut to ``dense`` leading (mla, dense) layers
+    and ``moe`` (mla, moe) layers (the two blocks of its config, repeats
+    cut), in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockDef
+
+    cfg = get_config(arch)
+    blocks = (BlockDef(pattern=(("mla", "dense"),), repeat=dense),
+              BlockDef(pattern=(("mla", "moe"),), repeat=moe))
+    check(tuple(b.pattern for b in cfg.blocks)
+          == tuple(b.pattern for b in blocks), f"{arch}: blocks {cfg.blocks}")
+    return dataclasses.replace(cfg, num_layers=dense + moe, blocks=blocks,
+                               compute_dtype=dtype, param_dtype=dtype)
+
+
+def _reduced(cfg, cut) -> str:
+    full = [b.repeat for b in cfg.blocks]
+    return (f"{sum(full)} -> {sum(cut)} layers (blocks repeat "
+            f"{' + '.join(map(str, full))} -> {' + '.join(map(str, cut))})")
+
+
+def run_deepseek_vs_cpu(dev):
+    """DeepSeek-V2 at full width, f32 (no TF32), cut to 2 layers (its
+    dense layer and one MoE layer): one set of weights from one generator
+    serves on the card and on the CPU, B=2, prompt 300 (one MoE group of
+    600 tokens, C = 28), 4 greedy steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import tree_map
+
+    cfg = _deepseek_cut(V2, 1, 1, "float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(M.schema(cfg), gen, dev)
+    t0 = time.monotonic()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    copy_s = time.monotonic() - t0
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 300)))
+    steps = 4
+    _counts_zero()
+    with MoERecorder() as card_rec:
+        got = serve.serve(cfg, params, prompts.to(dev), steps + 1)
+    launches = _counts()
+    t0 = time.monotonic()
+    with MoERecorder() as cpu_rec:
+        want = serve.serve(cfg, cpu_params, prompts, steps + 1)
+    cpu_s = time.monotonic() - t0
+    del cpu_params
+    scale = float(want.first_logits.abs().max())
+    errs = [float((g.cpu() - w).abs().max()) for g, w in (
+        (got.first_logits, want.first_logits),
+        (got.last_logits, want.last_logits))]
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = {k: steps * v for k, v in M.launches_per_pass(cfg, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)), "non-finite logits on the card")
+    check(max(errs) <= DEEPSEEK_F32_TOL * scale,
+          f"card vs CPU logits: {errs} > {DEEPSEEK_F32_TOL} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(pre == {"flash_attention": 2, "rmsnorm_residual": 5},
+          f"launches_per_pass {pre}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"launches {got.launches}, predicted prefill {pre} decode {dec}")
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
+          f"counted launches {launches}")
+    card, cpu = card_rec.summary(), cpu_rec.summary()
+    check(len(card) == len(cpu) == 1 + steps,
+          f"MoE layer calls {len(card)} card, {len(cpu)} CPU")
+    near, compared, drops = 0, 0, []
+    for a, b in zip(card, cpu):
+        clear = (a["gap"] > ROUTER_GAP) & (b["gap"] > ROUTER_GAP)
+        near += int((~clear).sum())
+        compared += int(clear.sum())
+        check(torch.equal(a["idx"][clear], b["idx"][clear]),
+              "expert choices differ between the card and the CPU")
+        check(a["dropped"] == b["dropped"] and a["C"] == b["C"],
+              f"drops {a['dropped']} (C {a['C']}) on the card, "
+              f"{b['dropped']} (C {b['C']}) on the CPU")
+        drops.append(a["dropped_per_request"])
+    return {"phase": "deepseek_vs_cpu", "arch": cfg.name,
+            "layers": cfg.num_layers,
+            "reduced": _reduced(get_config(V2), (1, 1)),
+            "d_model": cfg.d_model, "params": count_params(M.schema(cfg)),
+            "compute_dtype": cfg.compute_dtype, "batch": 2, "prompt": 300,
+            "decode_steps": steps, "max_abs_logit": scale,
+            "logit_max_abs_diff": errs,
+            "tolerance": DEEPSEEK_F32_TOL * scale, "tokens_equal": True,
+            "launches": got.launches,
+            "routing": {"top_k": cfg.moe.top_k,
+                        "tokens_compared": compared,
+                        "near_ties_below_gap": near,
+                        "gap": ROUTER_GAP, "experts_equal": True,
+                        "capacity_prefill": card[0]["C"],
+                        "dropped_per_request_prefill": drops[0],
+                        "dropped_decode": sum(map(sum, drops[1:])),
+                        "drops_equal": True},
+            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s,
+            "copy_to_host_s": copy_s}
+
+
+def deepseek_prefill_flops(cfg, B: int, S: int) -> dict:
+    """The matrix products of one DeepSeek prefill of B x S tokens, by
+    part, as the model computes them: MLA's projections (wq_a, wq_b,
+    wkv_a, wkv_b, wo) and its causal attention (q·k over nope + rope,
+    p·v over v), the dense layers' MLPs, the routed experts over every
+    slot of every group (2 x 3 x d x d_ff per slot), the shared experts,
+    the router, the dispatch and combine einsums (2 x T x E x C x d each
+    per group) and the last token's unembedding."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import moe
+
+    m, a, d, N = cfg.moe, cfg.mla, cfg.d_model, B * S
+    g_eff = min(m.group_size, N)
+    n_iter = N // g_eff
+    if N % g_eff:
+        n_iter, g_eff = 1, N
+    C = moe.expert_capacity(g_eff, cfg)
+    kinds = [k for b in cfg.blocks for _ in range(b.repeat)
+             for k in b.pattern]
+    n_moe = sum(mlp == "moe" for _, mlp in kinds)
+    n_dense = sum(mlp == "dense" for _, mlp in kinds)
+    H, qk = cfg.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim
+    q_proj = (d * a.q_lora_rank + a.q_lora_rank * H * qk if a.q_lora_rank
+              else d * H * qk)
+    per_token = (q_proj + d * (a.kv_lora_rank + a.qk_rope_head_dim)
+                 + a.kv_lora_rank * H * (a.qk_nope_head_dim + a.v_head_dim)
+                 + H * a.v_head_dim * d)
+    E = m.num_experts
+    out = {
+        "mla_projections": len(kinds) * N * 2 * per_token,
+        "attention": len(kinds) * fk.attention_flops(
+            B, H, S, qk, True, a.v_head_dim),
+        "dense_mlp": n_dense * N * 6 * d * cfg.d_ff,
+        "experts": n_moe * n_iter * E * C * 6 * d * m.d_ff,
+        "shared_experts": n_moe * N * 6 * d * m.num_shared_experts * m.d_ff,
+        "router": n_moe * N * 2 * d * E,
+        "dispatch_combine": n_moe * n_iter * 2 * 2 * g_eff * E * C * d,
+        "unembed": B * 2 * d * cfg.vocab_size,
+    }
+    out["total"] = sum(out.values())
+    out["groups"], out["capacity"] = n_iter, C
+    return out
+
+
+def _serve_cell(dev, cfg, B, P, G, prefill_flops):
+    """A MoE model served on the card through launch/serve.py's
+    functions: weights drawn on the card, a warm-up serve of 2 tokens
+    under a ``MoERecorder``, then the timed ``serve`` of G tokens with
+    the launches counted and held to ``launches_per_pass``.  Returns
+    (params, prompts, result, figures): times against their bounds (the
+    prefill's products by ``prefill_flops(cfg, B, P)``, the weights'
+    bytes per decode step), tokens/s, peak memory, launches, and the
+    warm-up prefill's routing and drops per MoE layer."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated(dev) - base
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    with MoERecorder() as rec:
+        serve.serve(cfg, params, prompts, 2)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts_zero()
+    res = serve.serve(cfg, params, prompts, G)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = M.launches_per_pass(cfg, "decode")
+    steps = res.decode_steps
+    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
+    check(res.launches["prefill"] == pre,
+          f"prefill launches {res.launches['prefill']}, predicted {pre}")
+    check(per_step == dec, f"decode launches per step {per_step}, "
+                           f"predicted {dec}")
+    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
+                       for k in launches},
+          f"counted launches {launches}")
+    V = cfg.vocab_size
+    check(tuple(res.first_logits.shape) == (B, V)
+          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
+    check(bool(torch.isfinite(res.first_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()),
+          "non-finite serve logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          "token ids out of range")
+    # the warm-up's prefill, then its decode step, layer by layer
+    n_moe = sum(b.repeat * sum(mlp == "moe" for _, mlp in b.pattern)
+                for b in cfg.blocks)
+    moe = rec.summary()
+    check(len(moe) == 2 * n_moe, f"MoE layer calls {len(moe)}")
+    moe = moe[:n_moe]
+    bw, _, bf16 = peaks_for(torch.cuda.get_device_name(0))
+    flops = prefill_flops(cfg, B, P)
+    total_s = res.prefill_s + res.decode_s
+    fig = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+        "params": count_params(M.schema(cfg)),
+        "weights_bytes": weights_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms_per_step": res.decode_s / steps * 1e3,
+        "decode_tokens_per_s": steps * B / res.decode_s,
+        "end_to_end_tokens_per_s": G * B / total_s,
+        "prefill_tokens_per_s": P * B / res.prefill_s,
+        "prefill_flops": flops,
+        "prefill_bound_ms": flops["total"] / bf16 * 1e3,
+        "decode_bound_ms": weights_bytes / bw * 1e3,
+        "peak_memory_bytes": peak,
+        "launches_per_prefill": res.launches["prefill"],
+        "launches_per_decode_step": per_step,
+        "launches": launches,
+        "routing_prefill": {
+            "top_k": cfg.moe.top_k, "experts": cfg.moe.num_experts,
+            "capacity": moe[0]["C"],
+            "dropped_per_moe_layer": [x["dropped"] for x in moe],
+            "dropped_per_request": [x["dropped_per_request"] for x in moe],
+            "expert_load_max": [int(torch.bincount(
+                x["idx"].reshape(-1), minlength=cfg.moe.num_experts).max())
+                for x in moe]},
+        "sample_ids": res.tokens[0, :12].tolist(),
+    }
+    return params, prompts, res, fig
+
+
+def _serve_profiles(cfg, params, prompts, tok, G):
+    """Profiles of one prefill into a cache of P + G positions and of 4
+    decode steps at position P, by kind (``by_kind``)."""
+    from repro_torch.runtime import serve_step
+
+    P = prompts.shape[1]
+    full = serve_step.build_prefill(cfg, max_seq=P + G)
+    decode = serve_step.build_decode(cfg)
+    _, cache = full(params, {"tokens": prompts})
+    prof_prefill = by_kind(profile_device(
+        lambda: full(params, {"tokens": prompts}), 1), 1)
+    prof_decode = by_kind(profile_device(
+        lambda: [decode(params, cache, {"token": tok, "pos": P})
+                 for _ in range(4)], 4), 4)
+    return prof_prefill, prof_decode
+
+
+def _scan_ms(profile: dict) -> float:
+    """Device ms of the MoE queue's cumulative sums in a profile."""
+    return sum(ms for name, ms in profile["by_kernel_ms"].items()
+               if "scan" in name.lower())
+
+
+def run_deepseek_serve(dev):
+    """DeepSeek-V2 at full width in bf16 cut to 4 layers (its dense layer
+    and 3 MoE layers; 60 in bf16 are ~471 GB) through launch/serve.py's
+    functions: 4 requests of 2048 prompt tokens (one MoE group of 8192,
+    C = 384) and 32 greedy tokens, with prefill and decode times against
+    their bounds, tokens/s, peak memory, launches, routing and drops, a
+    profile of each phase by kind with the MoE ranges, every flash and
+    norm call of one prefill and decode step held to its plain version,
+    and the 4-layer bf16 invariant (held under the init rule, printed
+    with ``well_conditioned`` MLA weights).  Then DeepSeek-V3 at full
+    width cut to 2 layers (one
+    dense, one MoE; the MTP head drawn, unused in serving): a prefill and
+    8 decode steps at 4 x 2048, 256 experts top-8, the norm at d =
+    7168."""
+    from repro_torch.configs import get_config
+
+    B, P, G = 4, 2048, 32
+    cfg = _deepseek_cut(V2, 1, 3, "bfloat16")
+    params, prompts, res, v2 = _serve_cell(dev, cfg, B, P, G,
+                                           deepseek_prefill_flops)
+    check(res.launches["prefill"] == {"flash_attention": 4,
+                                      "rmsnorm_residual": 9},
+          f"V2 prefill launches {res.launches['prefill']}")
+    on_acts = kernels_on_activations(cfg, params, prompts,
+                                     "deepseek_kernels_on_activations")
+    # the invariant is held under the init rule: MLA's q.k runs through
+    # normed latents (a score std of ~6 by the init rule's fan-ins at
+    # these widths, not the hundreds of Yi's one-hot attention, ROADMAP
+    # caveat 6).  With well_conditioned weights the attention is
+    # diffuse at init, the tokens of a request share one direction and
+    # route alike, and every request loses assignments: printed
+    inv = _held_invariant(cfg, params, prompts, SERVE_INV_TOL)
+    check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
+          f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
+          f"{inv}")
+    wc = well_conditioned(cfg, params)
+    inv_wc = _held_invariant(cfg, wc, prompts, SERVE_INV_TOL,
+                             require=False)
+    del wc
+    torch.cuda.empty_cache()
+    prof_prefill, prof_decode = _serve_profiles(cfg, params, prompts,
+                                                res.tokens[:, 0], G)
+    del params
+    torch.cuda.empty_cache()
+    v2 |= {"reduced": _reduced(get_config(V2), (1, 3)),
+           "kernels_on_activations": on_acts,
+           "invariant": inv, "invariant_weights": "init rule",
+           "invariant_well_conditioned": inv_wc,
+           "profile_prefill": prof_prefill,
+           "profile_decode_step": prof_decode,
+           "moe_scan_ms_prefill": _scan_ms(prof_prefill)}
+
+    cfg3 = _deepseek_cut(V3, 1, 1, "bfloat16")
+    params, prompts, _, v3 = _serve_cell(dev, cfg3, B, P, 9,
+                                         deepseek_prefill_flops)
+    check(v3["launches_per_prefill"] == {"flash_attention": 2,
+                                         "rmsnorm_residual": 5},
+          f"V3 prefill launches {v3['launches_per_prefill']}")
+    check("mtp" in params, "V3's MTP head was not drawn")
+    v3["kernels_on_activations"] = kernels_on_activations(
+        cfg3, params, prompts, "deepseek_v3_kernels_on_activations")
+    v3["reduced"] = _reduced(get_config(V3), (1, 1))
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "deepseek_serve", "v2": v2, "v3": v3}
+
+
+def deepseek_kernel_fields(dev, bw, f32, bf16, dserved) -> dict:
+    """The flash and norm kernels' kernels-line fields at DeepSeek's
+    served shapes: their launches in ``deepseek_serve`` (V2: all, per
+    prefill, per decode step; V3 per prefill), flash's device ms, plain
+    ms, bound and SDPA ms at (4, 128, 128, 2048, 192 / 128) and the
+    norm's at 8192 rows of d = 5120 (V2) and 7168 (V3)."""
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    flash = flash_timing(dev, FLASH_SHAPE_MLA, bw, bf16, g)
+    flash["shape"] = "B=4, H=KH=128, S=2048, q.k 192, v 128 (the strided " \
+                     "half of the wkv_b product), bf16, causal (DeepSeek-V2 " \
+                     "prefill, the model's views)"
+    torch.cuda.empty_cache()
+    norms = {}
+    bt = torch.bfloat16
+    for tag, (N, d) in zip(("v2", "v3"), RMS_ROWS_DEEPSEEK):
+        x = torch.randn((N, d), generator=g, device=dev).to(bt)
+        r = torch.randn((N, d), generator=g, device=dev).to(bt)
+        sc = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+        err, ok = _close(rk.rmsnorm_residual_cuda(x, r, sc),
+                         rr.rmsnorm_residual_ref(x, r, sc), *RMS_TOL[bt])
+        check(ok, f"rmsnorm at DeepSeek's rows {N}x{d}: {err}")
+        rb, rby = bound_ms(rk.rmsnorm_bytes(N, d, 2),
+                           rk.rmsnorm_flops(N, d), bw, f32)
+        norms[tag] = {
+            "ms": device_time_ms(
+                lambda: rk.rmsnorm_residual_cuda(x, r, sc), 100),
+            "plain_ms": device_time_ms(
+                lambda: rr.rmsnorm_residual_ref(x, r, sc), 20),
+            "bound_ms": rb, "bound_by": rby, "library_ms": None,
+            "max_abs_err": err,
+            "shape": f"N={N}, d={d}, bf16 (DeepSeek-{tag.upper()} prefill "
+                     f"rows)"}
+        del x, r
+    v2, v3 = dserved["v2"], dserved["v3"]
+    out = {}
+    for name, fields in (("flash_attention", {"mla": flash}),
+                         ("rmsnorm_residual", {"deepseek_v2": norms["v2"],
+                                               "deepseek_v3": norms["v3"]})):
+        out[name] = {f"{k}_{tag}": v for tag, f in fields.items()
+                     for k, v in f.items()} | {
+            "launches_deepseek": v2["launches"][name],
+            "launches_deepseek_per_prefill":
+                v2["launches_per_prefill"][name],
+            "launches_deepseek_per_step": v2["launches_per_decode_step"][name],
+            "launches_deepseek_v3_per_prefill":
+                v3["launches_per_prefill"][name],
+            "max_abs_err_deepseek_served":
+                v2["kernels_on_activations"][name]["max_abs_diff"]}
     torch.cuda.empty_cache()
     return out
 

@@ -2,8 +2,10 @@
 
 Only the architectures the port can serve are registered: the dense GQA
 decoders Yi-6B, Yi-9B, Granite-8B and Minitron-8B (squared-ReLU MLP),
-mamba2-370m, the pure Mamba-2 (SSD) stack, and Jamba-v0.1, the hybrid
-of attention, Mamba-2 and mixture-of-experts layers.  Each module is the
+mamba2-370m, the pure Mamba-2 (SSD) stack, Jamba-v0.1, the hybrid of
+attention, Mamba-2 and mixture-of-experts layers, and DeepSeek-V2 and
+-V3, multi-head latent attention (MLA) over mixture-of-experts layers,
+V3 with its multi-token-prediction (MTP) head.  Each module is the
 JAX package's ``repro/configs/`` file with only its imports changed.
 ``get_config("<id>")`` resolves one;
 ``smoke_config(cfg)`` shrinks it for CPU tests.
@@ -17,6 +19,8 @@ from repro_torch.configs.base import (
     get_config,
     register,
 )
+from repro_torch.configs.deepseek_v2_236b import DEEPSEEK_V2_236B
+from repro_torch.configs.deepseek_v3_671b import DEEPSEEK_V3_671B
 from repro_torch.configs.granite_8b import GRANITE_8B
 from repro_torch.configs.jamba_v0_1_52b import JAMBA_V01_52B
 from repro_torch.configs.mamba2_370m import MAMBA2_370M
@@ -25,12 +29,15 @@ from repro_torch.configs.smoke import smoke_config
 from repro_torch.configs.yi_6b import YI_6B
 from repro_torch.configs.yi_9b import YI_9B
 
-ALL_ARCHS = ["granite-8b", "yi-6b", "yi-9b", "minitron-8b", "mamba2-370m",
+ALL_ARCHS = ["granite-8b", "yi-6b", "yi-9b", "minitron-8b",
+             "deepseek-v3-671b", "deepseek-v2-236b", "mamba2-370m",
              "jamba-v0.1-52b"]
 
 __all__ = [
     "ALL_ARCHS",
     "BlockDef",
+    "DEEPSEEK_V2_236B",
+    "DEEPSEEK_V3_671B",
     "GRANITE_8B",
     "JAMBA_V01_52B",
     "MAMBA2_370M",

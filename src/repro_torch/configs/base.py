@@ -5,9 +5,9 @@ runtime knobs of a training cell.  The fields and their
 defaults are the JAX package's (``repro/configs/base.py``), so a config
 reads the same in both packages; only ``pdtype`` / ``cdtype`` map the
 dtype strings to ``torch`` dtypes here.  ``MoEConfig``, ``SSMConfig``
-and ``MLAConfig`` are plain copies; the port's model serves Mamba-2
-(``SSMConfig``) and MoE (``MoEConfig``) and raises
-``NotImplementedError`` for a config that needs MLA.
+and ``MLAConfig`` are plain copies; the port's model serves all three
+(Mamba-2, mixture-of-experts and DeepSeek's multi-head latent
+attention).
 """
 from __future__ import annotations
 

@@ -5,15 +5,20 @@
 // (src/repro/kernels/flash_attention/kernel.py, body _flash_kernel).
 //
 // For every batch b, head h and query row i < S:
-//   o[b,h,i] = softmax_j(q[b,h,i] . k[b,h/rep,j] * D^-1/2) . v[b,h/rep,j]
-// over j <= i when causal, all j < S otherwise; rep = H / KH.  The
+//   o[b,h,i] = softmax_j(q[b,h,i] . k[b,h/rep,j] * scale) . v[b,h/rep,j]
+// over j <= i when causal, all j < S otherwise; rep = H / KH; q and k
+// have DQK columns, v and o DV, and the wrapper passes scale = DQK^-1/2.
+// The
 // scores, the running max m, the running sum l and the accumulator are
 // f32; q, k, v and o are f32 or bf16.  Tensors come with strides (the
 // last axis contiguous), so the model's (B, S, H, D) projections are
 // read in place.
 //
 // Design:
-//   * D is 32, 64 or 128.  One CTA per (b, h, 64-row query tile); the
+//   * (DQK, DV) is (32, 32), (64, 64), (128, 128) or (192, 128), the
+//     last for multi-head latent attention's prefill (128 + 64 rope
+//     columns of q and k, 128 of v).  One CTA per (b, h, 64-row query
+//     tile); the
 //     grid runs the query tiles in reverse, so the longest causal rows
 //     start first.  A loop
 //     inside the CTA walks the 64-row key/value tiles (the TPU kernel's
@@ -24,11 +29,11 @@
 //     kernel does.
 //   * f32 (flash_simt_kernel): CUDA-core fmaf.  256 threads; thread
 //     (ty, tx) owns a 4x4 block of the 64x64 score tile and the same 4
-//     rows of the output accumulator (D/16 columns), so the softmax
+//     rows of the output accumulator (DV/16 columns), so the softmax
 //     rescale is local; row maxima and sums reduce over the 16 threads
 //     of a row with shuffles.  Q and K are staged transposed (d-major),
 //     P transposed, V row-major, so the inner loops read float4s
-//     (float2s of V at D = 32).
+//     (float2s of V at DV = 32).
 //   * bf16 (flash_fwd_bf16_kernel), for Hopper: one warpgroup (128
 //     threads, 16 query rows a warp) per CTA.
 //     - Ring: thread 0 issues TMA copies (cp.async.bulk.tensor.4d, maps
@@ -45,7 +50,7 @@
 //     - S = Q K^T: wgmma m64n64k16 with Q and K in 128-byte-swizzled
 //       shared memory (64-byte at D = 32); K's row-major (key, d) tile
 //       is K-major for K^T.
-//     - O += P V: wgmma m64nDk16 with A = P from registers (the score
+//     - O += P V: wgmma m64nDVk16 with A = P from registers (the score
 //       accumulator rounded to bf16 and packed, mma.sync's A layout)
 //       and B = V read row-major from shared memory with the transpose
 //       bit: no transposed copy of V and no fragment loads.
@@ -62,7 +67,10 @@
 //       V 16 KB)) + 1 KB of alignment slack + 40 bytes of barriers, 138
 //       registers a thread (ptxas; 106 at D = 64, 90 at D = 32), so 2
 //       CTAs per SM by shared memory; at Yi-6B's prefill 1024 CTAs run
-//       in 3.9 waves of 264.
+//       in 3.9 waves of 264.  At (192, 128) a Q or K tile is three
+//       128-byte column blocks (24 KB) and q.k^T 12 k-steps; 105 KB of
+//       tiles (Q 24 KB + 2 x (K 24 KB + V 16 KB)) still let 2 CTAs share
+//       an SM, and the accumulators are D = 128's.
 //
 // Bound: at Yi-6B's prefill (B=4, H=32, KH=4, S=512, D=128, bf16,
 // causal) the least work is 4*B*H*D*S(S+1)/2 = 8.6 GFLOP (8.7 us at the
@@ -105,26 +113,35 @@ __device__ __forceinline__ int key_tiles(int S, int q0, int causal)
 constexpr int SIMT_THREADS = 256;
 constexpr int LDT = BQ + 4;      // row stride of the transposed tiles
 
-template <int D>
-constexpr size_t simt_smem_bytes()
+// floats of the K-or-V buffer: K transposed (DQK, LDT) or V (BK, DV)
+template <int DQK, int DV>
+__host__ __device__ constexpr size_t simt_kv_floats()
 {
-    // Qt (D, LDT), a K-or-V buffer (D, LDT) >= (BK, D), Pt (BK, LDT)
-    return sizeof(float) * (2 * (size_t)D * LDT + (size_t)BK * LDT);
+    return (size_t)DQK * LDT > (size_t)BK * DV ? (size_t)DQK * LDT
+                                               : (size_t)BK * DV;
 }
 
-template <int D>
+template <int DQK, int DV>
+constexpr size_t simt_smem_bytes()
+{
+    // Qt (DQK, LDT), the K-or-V buffer, Pt (BK, LDT)
+    return sizeof(float) * ((size_t)DQK * LDT + simt_kv_floats<DQK, DV>()
+                            + (size_t)BK * LDT);
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S,
                   int rep, Strides st, float scale, int causal)
 {
     // thread (ty, tx) owns output columns g * 16 * VW + tx * VW + j
-    constexpr int VW = D >= 64 ? 4 : 2;
-    constexpr int NG = D / (16 * VW);
+    constexpr int VW = DV >= 64 ? 4 : 2;
+    constexpr int NG = DV / (16 * VW);
     extern __shared__ float4 smem4[];
     float* Qt = reinterpret_cast<float*>(smem4);   // Qt[d * LDT + r]
-    float* KV = Qt + D * LDT;    // K as KV[d * LDT + r], V as KV[r * D + d]
-    float* Pt = KV + D * LDT;    // Pt[c * LDT + r]
+    float* KV = Qt + DQK * LDT;  // K as KV[d * LDT + r], V as KV[r * DV + d]
+    float* Pt = KV + simt_kv_floats<DQK, DV>();    // Pt[c * LDT + r]
 
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
     const int h = blockIdx.y, b = blockIdx.z, kvh = h / rep;
@@ -134,26 +151,26 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = o + b * st.ob + h * st.oh;
     const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-    for (int e = tid; e < BQ * D; e += SIMT_THREADS) {
-        const int r = e / D, d = e % D, i = q0 + r;
+    for (int e = tid; e < BQ * DQK; e += SIMT_THREADS) {
+        const int r = e / DQK, d = e % DQK, i = q0 + r;
         Qt[d * LDT + r] = i < S ? qp[i * st.qs + d] : 0.f;
     }
 
-    float m[4], l[4], acc[4][D / 16];
+    float m[4], l[4], acc[4][DV / 16];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         m[i] = NEG_INF;
         l[i] = 0.f;
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+        for (int c = 0; c < DV / 16; ++c) acc[i][c] = 0.f;
     }
 
     const int nt = key_tiles(S, q0, causal);
     for (int t = 0; t < nt; ++t) {
         const int k0 = t * BK;
         __syncthreads();                     // KV and Pt free again
-        for (int e = tid; e < BK * D; e += SIMT_THREADS) {
-            const int r = e / D, d = e % D, j = k0 + r;
+        for (int e = tid; e < BK * DQK; e += SIMT_THREADS) {
+            const int r = e / DQK, d = e % DQK, j = k0 + r;
             KV[d * LDT + r] = j < S ? kp[j * st.ks + d] : 0.f;
         }
         __syncthreads();
@@ -164,7 +181,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < DQK; ++d) {
             const float4 a = *reinterpret_cast<const float4*>(
                 &Qt[d * LDT + ty * 4]);
             const float4 c = *reinterpret_cast<const float4*>(
@@ -208,7 +225,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             l[i] = l[i] * alpha + rs;
             m[i] = m_new;
 #pragma unroll
-            for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+            for (int c = 0; c < DV / 16; ++c) acc[i][c] *= alpha;
         }
 
         __syncthreads();                     // every thread is done with K
@@ -217,9 +234,9 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j)
                 Pt[(tx * 4 + j) * LDT + ty * 4 + i] = s[i][j];
-        for (int e = tid; e < BK * D; e += SIMT_THREADS) {
-            const int r = e / D, d = e % D, j = k0 + r;
-            KV[r * D + d] = j < S ? vp[j * st.vs + d] : 0.f;
+        for (int e = tid; e < BK * DV; e += SIMT_THREADS) {
+            const int r = e / DV, d = e % DV, j = k0 + r;
+            KV[r * DV + d] = j < S ? vp[j * st.vs + d] : 0.f;
         }
         __syncthreads();
 
@@ -230,7 +247,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
             for (int g = 0; g < NG; ++g) {
-                const float* vrow = &KV[c * D + g * 16 * VW + tx * VW];
+                const float* vrow = &KV[c * DV + g * 16 * VW + tx * VW];
                 float vv[VW];
                 if constexpr (VW == 4) {
                     const float4 v4 = *reinterpret_cast<const float4*>(vrow);
@@ -282,11 +299,12 @@ struct TileShape {
     static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;  // B128 / B64
 };
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t fa_smem_bytes()
 {
     // 1024 bytes of alignment slack, Q, STAGES x (K, V)
-    return 1024 + (size_t)(1 + 2 * STAGES) * TileShape<D>::BYTES;
+    return 1024 + (size_t)(1 + STAGES) * TileShape<DQK>::BYTES
+           + (size_t)STAGES * TileShape<DV>::BYTES;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar)
@@ -547,7 +565,7 @@ __device__ __forceinline__ float ex2(float x)
 // s[4 * n8 + e] is row r0 (e = 0, 1) or r0 + 8 (e = 2, 3) of the
 // thread's warp, key k0 + n8 * 8 + 2 * t4 + (e & 1).  Masks the keys
 // >= S and, when causal, above the diagonal; leaves P in s, updates m
-// and l (m in log2 units: scores times sl2 = D^-1/2 log2 e), and gives
+// and l (m in log2 units: scores times sl2 = scale log2 e), and gives
 // alpha, the factor for O.
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
@@ -599,7 +617,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
             pf[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -607,14 +625,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       __nv_bfloat16* __restrict__ o, int S, int rep,
                       Strides st, float scale, int causal)
 {
-    using T = TileShape<D>;
+    constexpr uint32_t QK_BYTES = TileShape<DQK>::BYTES;
+    constexpr uint32_t V_BYTES = TileShape<DV>::BYTES;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t base =
         ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
     // Q, then the K ring, then the V ring; tile t sits in stage t & 1
+    // (every tile is a multiple of 1024 bytes, so each stays aligned)
     const uint32_t Qs = base;
-    auto kst = [&](int t) { return base + (1 + (t & 1)) * T::BYTES; };
-    auto vst = [&](int t) { return base + (3 + (t & 1)) * T::BYTES; };
+    auto kst = [&](int t) { return base + (1 + (t & 1)) * QK_BYTES; };
+    auto vst = [&](int t) {
+        return base + 3 * QK_BYTES + (t & 1) * V_BYTES;
+    };
 
     // full barriers: Q, K stages 0-1, V stages 0-1; the n-th use of a
     // stage completes phase n, so key tile t waits on parity (t >> 1) & 1
@@ -642,23 +664,23 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int i = 0; i < 5; ++i) mbar_init(bq + 8 * i);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        tma_tile<D>(Qs, tq, bq, q0, h, b);
-        tma_tile<D>(kst(0), tk, kbar(0), 0, kvh, b);
-        if (nt > 1) tma_tile<D>(kst(1), tk, kbar(1), BK, kvh, b);
-        tma_tile<D>(vst(0), tv, vbar(0), 0, kvh, b);
+        tma_tile<DQK>(Qs, tq, bq, q0, h, b);
+        tma_tile<DQK>(kst(0), tk, kbar(0), 0, kvh, b);
+        if (nt > 1) tma_tile<DQK>(kst(1), tk, kbar(1), BK, kvh, b);
+        tma_tile<DV>(vst(0), tv, vbar(0), 0, kvh, b);
     }
     __syncthreads();                 // the barriers are initialised
 
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
-    float acc[D / 2];               // O in wgmma's accumulator layout
+    float acc[DV / 2];              // O in wgmma's accumulator layout
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float s[BK / 2];
     uint32_t pf[BK / 16][4];
 
     mbar_wait(bq, 0);
     mbar_wait(kbar(0), 0);
-    issue_qk<D>(s, Qs, kst(0));
+    issue_qk<DQK>(s, Qs, kst(0));
     wgmma_wait<0>();
     fence_regs(s);
     softmax_tile(s, m, l, alpha, 0, q0, S, causal, qrow, t4, sl2);
@@ -670,16 +692,16 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         __syncthreads();             // S(t-1) and P V(t-2) are done
         if (tid == 0) {
             if (t + 1 < nt)
-                tma_tile<D>(kst(t + 1), tk, kbar(t + 1), (t + 1) * BK, kvh,
-                            b);
-            tma_tile<D>(vst(t), tv, vbar(t), t * BK, kvh, b);
+                tma_tile<DQK>(kst(t + 1), tk, kbar(t + 1), (t + 1) * BK,
+                              kvh, b);
+            tma_tile<DV>(vst(t), tv, vbar(t), t * BK, kvh, b);
         }
         mbar_wait(kbar(t), par(t));
-        issue_qk<D>(s, Qs, kst(t));
+        issue_qk<DQK>(s, Qs, kst(t));
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         mbar_wait(vbar(t - 1), par(t - 1));
-        issue_pv<D>(acc, pf, vst(t - 1));
+        issue_pv<DV>(acc, pf, vst(t - 1));
         wgmma_wait<1>();             // S(t)
         fence_regs(s);
         softmax_tile(s, m, l, alpha, t * BK, q0, S, causal, qrow, t4, sl2);
@@ -690,8 +712,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
     mbar_wait(vbar(nt - 1), par(nt - 1));
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    issue_pv<D>(acc, pf, vst(nt - 1));
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    issue_pv<DV>(acc, pf, vst(nt - 1));
     wgmma_wait<0>();
     fence_regs(acc);
 
@@ -701,7 +723,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (qi >= S) continue;
         const float inv = 1.f / fmaxf(l[row], 1e-30f);
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DV / 8; ++dn) {
             const int c = dn * 8 + 2 * t4;
             *reinterpret_cast<uint32_t*>(&op[qi * st.os + c]) =
                 pack_bf16(acc[4 * dn + 2 * row] * inv,
@@ -720,19 +742,19 @@ cudaError_t allow_smem(K kernel, size_t bytes)
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 dim3 grid, int S, int rep, const Strides& st, float scale,
                 int causal, cudaStream_t stream)
 {
-    constexpr size_t smem = simt_smem_bytes<D>();
+    constexpr size_t smem = simt_smem_bytes<DQK, DV>();
     static bool ready = false;
     if (!ready) {
-        cudaError_t e = allow_smem(flash_simt_kernel<D>, smem);
+        cudaError_t e = allow_smem(flash_simt_kernel<DQK, DV>, smem);
         if (e != cudaSuccess) return (int)e;
         ready = true;
     }
-    flash_simt_kernel<D><<<grid, SIMT_THREADS, smem, stream>>>(
+    flash_simt_kernel<DQK, DV><<<grid, SIMT_THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, S,
         rep, st, scale, causal);
     return (int)cudaGetLastError();
@@ -789,52 +811,53 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 dim3 grid, int S, int rep, const Strides& st, float scale,
                 int causal, cudaStream_t stream)
 {
-    constexpr size_t smem = fa_smem_bytes<D>();
+    constexpr size_t smem = fa_smem_bytes<DQK, DV>();
     static bool ready = false;
     if (!ready) {
-        cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, smem);
+        cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DQK, DV>, smem);
         if (e != cudaSuccess) return (int)e;
         ready = true;
     }
     const int B = grid.z, H = grid.y, KH = H / rep;
     CUtensorMap tq, tk, tv;
-    if (!make_map<D>(&tq, q, B, H, S, st.qb, st.qh, st.qs) ||
-        !make_map<D>(&tk, k, B, KH, S, st.kb, st.kh, st.ks) ||
-        !make_map<D>(&tv, v, B, KH, S, st.vb, st.vh, st.vs))
+    if (!make_map<DQK>(&tq, q, B, H, S, st.qb, st.qh, st.qs) ||
+        !make_map<DQK>(&tk, k, B, KH, S, st.kb, st.kh, st.ks) ||
+        !make_map<DV>(&tv, v, B, KH, S, st.vb, st.vh, st.vs))
         return (int)cudaErrorInvalidValue;
-    flash_fwd_bf16_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+    flash_fwd_bf16_kernel<DQK, DV><<<grid, FA_THREADS, smem, stream>>>(
         tq, tk, tv, (__nv_bfloat16*)o, S, rep, st, scale, causal);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              dim3 grid, int S, int rep, const Strides& st, float scale,
              int causal, int dtype, cudaStream_t stream)
 {
     if (dtype == 0)
-        return launch_simt<D>(q, k, v, o, grid, S, rep, st, scale, causal,
-                              stream);
-    return launch_bf16<D>(q, k, v, o, grid, S, rep, st, scale, causal,
-                          stream);
+        return launch_simt<DQK, DV>(q, k, v, o, grid, S, rep, st, scale,
+                                    causal, stream);
+    return launch_bf16<DQK, DV>(q, k, v, o, grid, S, rep, st, scale, causal,
+                                stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, H, S, D), k and v (B, KH, S, D), o (B, H, S, D), each with
-// element strides (b, h, s) and a contiguous last axis.  dtype: 0 = f32
+// q (B, H, S, D), k (B, KH, S, D), v (B, KH, S, Dv), o (B, H, S, Dv),
+// each with element strides (b, h, s) and a contiguous last axis;
+// (D, Dv) is one of the pairs the switch below takes.  dtype: 0 = f32
 // (the SIMT kernel), 1 = bf16 (the wgmma kernel).  Launches on `stream`;
 // returns the cudaError_t of the launch (0 = ok).
 int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KH, int S, int D,
+    int B, int H, int KH, int S, int D, int Dv,
     long long qb, long long qh, long long qs,
     long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs,
@@ -848,16 +871,19 @@ int flash_attention_launch(
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     const int rep = H / KH;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (D) {
-    case 32:
-        return launch_d<32>(q, k, v, o, grid, S, rep, st, scale, causal,
-                            dtype, s);
-    case 64:
-        return launch_d<64>(q, k, v, o, grid, S, rep, st, scale, causal,
-                            dtype, s);
-    case 128:
-        return launch_d<128>(q, k, v, o, grid, S, rep, st, scale, causal,
-                             dtype, s);
+    switch (D * 1000 + Dv) {
+    case 32032:
+        return launch_d<32, 32>(q, k, v, o, grid, S, rep, st, scale, causal,
+                                dtype, s);
+    case 64064:
+        return launch_d<64, 64>(q, k, v, o, grid, S, rep, st, scale, causal,
+                                dtype, s);
+    case 128128:
+        return launch_d<128, 128>(q, k, v, o, grid, S, rep, st, scale,
+                                  causal, dtype, s);
+    case 192128:
+        return launch_d<192, 128>(q, k, v, o, grid, S, rep, st, scale,
+                                  causal, dtype, s);
     default:
         return (int)cudaErrorInvalidValue;
     }

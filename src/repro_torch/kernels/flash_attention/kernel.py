@@ -4,7 +4,9 @@
 ``flash_attention_cuda`` replaces the JAX package's ``flash_attention``
 (``kernels/flash_attention/kernel.py:86``): one CTA per (b, h, 64-row
 query tile), an online softmax in f32 over 64-row key tiles, tiles
-above the diagonal skipped, any S ≥ 1, D ∈ {32, 64, 128}.  bf16 runs on
+above the diagonal skipped, any S ≥ 1, q·k and v head dims (D, Dv) one
+of ``HEAD_DIM_PAIRS``: D = Dv ∈ {32, 64, 128}, or (192, 128), multi-head
+latent attention's prefill (``models/mla.py``).  bf16 runs on
 Hopper's ``wgmma`` tensor-core products fed by a TMA ring of swizzled
 K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores.
 ``attention_flops`` and ``attention_bytes`` give its least work and
@@ -16,7 +18,8 @@ allocates the output, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.  Inputs may carry any strides with a
 contiguous last axis, so the model's (B, S, H, D) projections go in as
-transposed views; the output is (B, H, S, D) laid out as (B, S, H, D)
+transposed views, and v may be a strided slice of a wider product (MLA's
+``wkv_b`` output); the output is (B, H, S, Dv) laid out as (B, S, H, Dv)
 in memory, so the model's transpose back is free.
 """
 from __future__ import annotations
@@ -30,6 +33,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.autograd import check_no_grad
 
 HEAD_DIMS = (32, 64, 128)
+#: the (q·k, v) head dims the kernel takes: equal ones, and MLA's
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 #: the bf16 kernel's design in one word: ``ring+mma.sync`` or ``wgmma``
 DESIGN = "wgmma"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
-        [_VOIDP] * 4 + [_INT] * 5 + [_LL] * 12
+        [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 12
         + [ctypes.c_float, _INT, _INT, _VOIDP])
     lib.flash_attention_launch.restype = _INT
     lib.flash_attention_error_string.argtypes = [_INT]
@@ -52,11 +57,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def attention_flops(b: int, h: int, s: int, d: int, causal: bool) -> int:
-    """Multiply-adds ×2 of q·kᵀ and p·v over the (query, key) pairs the
-    mask keeps: S(S+1)/2 per head when causal, S² otherwise."""
+def attention_flops(b: int, h: int, s: int, d: int, causal: bool,
+                    dv: int | None = None) -> int:
+    """Multiply-adds ×2 of q·kᵀ (over d) and p·v (over dv, default d)
+    over the (query, key) pairs the mask keeps: S(S+1)/2 per head when
+    causal, S² otherwise."""
+    dv = d if dv is None else dv
     pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * b * h * d * pairs
+    return 2 * b * h * (d + dv) * pairs
 
 
 #: the bf16 kernel's K/V ring depth and tile rows (``csrc`` STAGES, BK)
@@ -64,27 +72,32 @@ STAGES = 2
 TILE_ROWS = 64
 
 
-def flash_smem_bytes(d: int) -> int:
+def flash_smem_bytes(d: int, dv: int | None = None) -> int:
     """Dynamic shared memory of one bf16 CTA: 1024 bytes of alignment
-    slack, the Q tile and ``STAGES`` K and V tiles, each 64 rows of d
-    bf16 values (``fa_smem_bytes`` in the source)."""
-    return 1024 + (1 + 2 * STAGES) * TILE_ROWS * d * 2
+    slack, the Q tile and ``STAGES`` K tiles, each 64 rows of d bf16
+    values, and ``STAGES`` V tiles of dv (default d) (``fa_smem_bytes``
+    in the source)."""
+    dv = d if dv is None else dv
+    return 1024 + ((1 + STAGES) * d + STAGES * dv) * TILE_ROWS * 2
 
 
 def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
-                    itemsize: int) -> int:
-    """Least HBM traffic: read q, k, v and write o once."""
-    return itemsize * s * d * b * (2 * h + 2 * kh)
+                    itemsize: int, dv: int | None = None) -> int:
+    """Least HBM traffic: read q, k (d columns), v (dv, default d) and
+    write o (dv) once."""
+    dv = d if dv is None else dv
+    return itemsize * s * b * ((h + kh) * d + (kh + h) * dv)
 
 
 def flash_attention_cuda(
     q: torch.Tensor,   # (B, H, S, D) f32 or bf16, CUDA
     k: torch.Tensor,   # (B, KH, S, D) same dtype
-    v: torch.Tensor,   # (B, KH, S, D)
+    v: torch.Tensor,   # (B, KH, S, Dv)
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Attention on the card; returns (B, H, S, D) in q's dtype."""
+    """Attention on the card, scores scaled by D^-½; returns (B, H, S,
+    Dv) in q's dtype."""
     check_no_grad("flash_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
@@ -95,21 +108,23 @@ def flash_attention_cuda(
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
                         f"{sorted(map(str, DTYPE_CODES))}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported; the kernel takes "
-                         f"{HEAD_DIMS}")
     if k.ndim != 4 or k.shape[1] == 0 or H % k.shape[1]:
         raise ValueError(f"k must be (B, KH, S, D) with H % KH == 0, got "
                          f"{tuple(k.shape)} for H={H}")
-    KH = k.shape[1]
-    for name, t in (("k", k), ("v", v)):
+    if v.ndim != 4:
+        raise ValueError(f"v must be (B, KH, S, Dv), got {tuple(v.shape)}")
+    KH, Dv = k.shape[1], v.shape[-1]
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q·k {D}, v {Dv}) not supported; the "
+                         f"kernel takes {HEAD_DIM_PAIRS}")
+    for name, t, dt in (("k", k, D), ("v", v, Dv)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {q.dtype}")
-        if tuple(t.shape) != (B, KH, S, D):
+        if tuple(t.shape) != (B, KH, S, dt):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(B, KH, S, D)}")
+                             f"{(B, KH, S, dt)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
@@ -120,7 +135,7 @@ def flash_attention_cuda(
                                        for st in t.stride()[:3]):
             raise ValueError(f"{name} must be {align}-byte aligned with "
                              f"byte strides that are multiples of {align}")
-    out = torch.empty((B, S, H, D), dtype=q.dtype,
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B == 0 or S == 0:
         return out
@@ -129,7 +144,7 @@ def flash_attention_cuda(
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KH, S, D, *q.stride()[:3], *k.stride()[:3],
+            B, H, KH, S, D, Dv, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], D ** -0.5, int(causal),
             DTYPE_CODES[q.dtype], stream)
     if err != 0:

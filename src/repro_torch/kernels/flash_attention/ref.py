@@ -1,8 +1,10 @@
 """Plain PyTorch version of causal GQA attention (full softmax).
 
 A copy of the JAX package's ``kernels/flash_attention/ref.py``: scores
-in f32 (f64 for f64 inputs), probabilities cast to q's dtype before the
-product with v.
+in f32 (f64 for f64 inputs) scaled by q's head dim D^-½, probabilities
+cast to q's dtype before the product with v.  v's head dim may differ
+from q's and k's (MLA: 192 for q·k, 128 for v), as in the JAX model's
+``chunked_attention``; the output takes v's.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ NEG_INF = -1e30
 def attention_ref(
     q: torch.Tensor,   # (B, H, S, D)
     k: torch.Tensor,   # (B, KH, S, D)
-    v: torch.Tensor,   # (B, KH, S, D)
+    v: torch.Tensor,   # (B, KH, S, Dv)
     *,
     causal: bool = True,
 ) -> torch.Tensor:

@@ -13,7 +13,11 @@ use to the same values; with ``train=True`` the tree goes into
 package, so training starts from the same f32 master leaves.  A MoE
 layer's leaves come across the same way: the router in f32 under both
 schemas (its spec is pinned), the experts in the compute or the
-parameter dtype, as the schema says.
+parameter dtype, as the schema says; so do an MLA layer's (``wq_a``,
+``q_norm``, ``wq_b`` or ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``,
+``wo``) and DeepSeek-V3's ``mtp`` subtree, which ``schema`` declares.
+The other direction needs no code: the port's leaves as numpy arrays
+are the JAX pytree.
 """
 from __future__ import annotations
 

@@ -1,13 +1,17 @@
 """Public model API of the port: schema, training loss, prefill and
-decode for the dense GQA decoders, the Mamba-2 (SSD) stack and the
-hybrid of attention, Mamba-2 and mixture-of-experts layers (Jamba).
+decode for the dense GQA decoders, the Mamba-2 (SSD) stack, the hybrid
+of attention, Mamba-2 and mixture-of-experts layers (Jamba) and
+DeepSeek's multi-head latent attention over mixture-of-experts layers,
+with V3's multi-token-prediction (MTP) head in the training loss.
 
 The JAX package's ``models/model.py``, as plain functions on a parameter
 dict laid out as the JAX pytree.  prefill and the training forward run
-the flash-attention kernel once per attention layer, the SSD chunk
-kernel once per mamba layer and the fused residual-norm kernel at every
-seam (``launches_per_pass``); a decode step runs the norm kernel as
-often, and attention and the O(1) state update as torch ops.
+the flash-attention kernel once per attention or MLA layer, the SSD
+chunk kernel once per mamba layer and the fused residual-norm kernel at
+every seam (``launches_per_pass``); a decode step runs the norm kernel
+as often, and attention (MLA's absorbed form too) and the O(1) state
+update as torch ops.  Serving never runs the MTP head, as in the JAX
+package.
 
 Serving's ``schema`` declares matrices and embeddings in the compute
 dtype, norm scales in the parameter dtype.  ``train_schema`` is the JAX
@@ -18,8 +22,8 @@ compute dtype (``w.astype(dt)`` in the JAX package), a no-op on
 serving's leaves, so the values the matmuls see are the same under both
 schemas.
 
-Configs that need MLA, an encoder, M-RoPE, sinusoidal positions,
-embedding inputs or the MTP head raise ``NotImplementedError``.
+Configs that need an encoder, cross-attention, M-RoPE, sinusoidal
+positions or embedding inputs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,14 +43,17 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import (
     count_params,
     map_specs,
+    param,
     zeros_like_schema,
 )
 from repro_torch.models.transformer import (
     apply_block_decode,
     apply_block_full,
+    apply_layer_full,
     block_cache_schema,
     block_schema,
     fused_norm,
+    layer_schema,
 )
 
 
@@ -54,9 +61,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot
     serve."""
     missing = [name for name, on in (
-        ("mla", cfg.mla is not None),
         ("cross_attention", cfg.cross_attention),
-        ("encoder_layers", cfg.encoder_layers > 0), ("mtp", cfg.mtp),
+        ("encoder_layers", cfg.encoder_layers > 0),
         ("rope_type=mrope", cfg.rope_type == "mrope"),
         ("pos_embed=sinusoidal", cfg.pos_embed == "sinusoidal"),
         ("input_mode=embeds", cfg.input_mode == "embeds"),
@@ -71,12 +77,25 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mtp_mixer(cfg: ModelConfig) -> str:
+    return "mla" if cfg.mla is not None else "attn"
+
+
 def schema(cfg: ModelConfig):
     check_supported(cfg)
     s: dict[str, Any] = dict(embed_schema(cfg))
     for i, bdef in enumerate(cfg.blocks):
         s[f"b{i}"] = block_schema(cfg, bdef)
     s["final_norm"] = norm_schema(cfg)
+    if cfg.mtp:
+        s["mtp"] = {
+            "norm_h": norm_schema(cfg),
+            "norm_e": norm_schema(cfg),
+            "proj": param((2 * cfg.d_model, cfg.d_model), (None, "d_model"),
+                          cfg.cdtype),
+            "layer": layer_schema(cfg, _mtp_mixer(cfg), "dense"),
+            "final_norm": norm_schema(cfg),
+        }
     return s
 
 
@@ -124,22 +143,27 @@ def launches_per_pass(cfg: ModelConfig, phase: str,
     residual-norm at every seam (``norm1``, ``norm2`` where the layer has
     an MLP, dense or MoE, whatever its mixer, and the final norm) in
     every phase; in prefill and training,
-    flash attention once per attention layer and the SSD chunk kernel
-    once per mamba layer (decode runs neither).  In training the
+    flash attention once per attention or MLA layer and the SSD chunk
+    kernel once per mamba layer (decode runs neither).  In training the
     backward runs the plain versions, and under a ``remat`` other than
     ``none`` it recomputes each layer's forward, kernels included: every
-    layer's launches twice, the final norm's once."""
+    layer's launches twice, the final norm's once.  Training with the
+    MTP head adds its layer (one flash, two norms; never rematerialised,
+    as in the JAX package) and its three norms (``norm_h``, ``norm_e``,
+    ``final_norm``)."""
     if phase not in ("prefill", "decode", "train"):
         raise ValueError(f"phase {phase!r}")
     kinds = _layer_kinds(cfg)
     rep = 2 if phase == "train" and remat != "none" else 1
     out = {}
-    n_attn = sum(mixer == "attn" for mixer, _ in kinds)
+    mtp = phase == "train" and cfg.mtp
+    n_attn = sum(mixer in ("attn", "mla") for mixer, _ in kinds)
     n_mamba = sum(mixer == "mamba" for mixer, _ in kinds)
     if n_attn:
-        out["flash_attention"] = rep * n_attn if phase != "decode" else 0
+        out["flash_attention"] = rep * n_attn + mtp \
+            if phase != "decode" else 0
     out["rmsnorm_residual"] = rep * sum(1 + (mlp != "none")
-                                        for _, mlp in kinds) + 1
+                                        for _, mlp in kinds) + 1 + 5 * mtp
     if n_mamba:
         out["ssd_chunk"] = rep * n_mamba if phase != "decode" else 0
     return out
@@ -150,11 +174,18 @@ def launches_per_pass(cfg: ModelConfig, phase: str,
 # ---------------------------------------------------------------------------
 
 
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The rotated width: MLA's rope head, else the head dim."""
+    if cfg.mla is not None:
+        return cfg.mla.qk_rope_head_dim
+    return cfg.head_dim
+
+
 def rope_full(cfg: ModelConfig, S: int, device):
     """cos/sin for a full sequence, shaped to broadcast with (B,S,H,D)."""
     if cfg.rope_type == "none":
         return None
-    cos, sin = rope_cos_sin(torch.arange(S, device=device), cfg.head_dim,
+    cos, sin = rope_cos_sin(torch.arange(S, device=device), _rope_dim(cfg),
                             cfg.rope_theta)                  # (S,D2)
     return cos[None, :, None, :], sin[None, :, None, :]
 
@@ -165,7 +196,7 @@ def rope_decode(cfg: ModelConfig, pos: int, device):
     # arange, not tensor([pos]): a host-to-device copy would wait for the
     # card at every step
     cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=device),
-                            cfg.head_dim, cfg.rope_theta)    # (1,D2)
+                            _rope_dim(cfg), cfg.rope_theta)  # (1,D2)
     return cos[None], sin[None]                              # (1,1,D2)
 
 
@@ -227,9 +258,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     """Next-token cross-entropy of ``batch`` ({"tokens": (B,S) int,
     optional "loss_mask": (B,S) f32}), normalised by its token count.
     Returns (loss, metrics) with the JAX package's keys: ``loss``,
-    ``nll_sum``, ``token_count`` and ``aux_loss``; ``loss`` is the mean
-    next-token NLL plus ``aux_loss``, the MoE layers' load-balance and
-    z terms (0 without MoE)."""
+    ``nll_sum``, ``token_count``, ``aux_loss`` and, with the MTP head,
+    ``mtp_loss``; ``loss`` is the mean next-token NLL plus ``aux_loss``,
+    the MoE layers' load-balance and z terms (0 without MoE), plus
+    ``mtp_weight`` times the MTP head's mean NLL of the token after
+    next.  The head is the JAX package's: the final-normed stream and
+    the next token's embedding, each normed, concatenated and projected,
+    one dense layer of the model's mixer, its final norm, and the shared
+    unembedding; its norms run on the fused kernel with a zero residual,
+    as layer 0's ``norm1`` does."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -246,8 +283,32 @@ def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
     loss = nll / torch.clamp(cnt, min=1.0) + aux
     metrics = {"nll_sum": nll.detach(), "token_count": cnt.detach(),
-               "aux_loss": aux.detach(), "loss": loss.detach()}
+               "aux_loss": aux.detach()}
+    if cfg.mtp:
+        mtp_loss = _mtp_loss(cfg, params, h, tokens, mask, rope_cs,
+                             loss_chunk)
+        metrics["mtp_loss"] = mtp_loss.detach()
+        loss = loss + cfg.mtp_weight * mtp_loss
+    metrics["loss"] = loss.detach()
     return loss, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, params, h, tokens, mask, rope_cs,
+              loss_chunk):
+    """The MTP head's mean NLL of the token two ahead, from the model's
+    final-normed stream ``h`` (B, S, d)."""
+    mp = params["mtp"]
+    zeros = torch.zeros_like(h)
+    e_next = embed_tokens(cfg, params, _shift_left(tokens))
+    hn, _ = fused_norm(cfg, mp["norm_h"], h, zeros)
+    en, _ = fused_norm(cfg, mp["norm_e"], e_next, zeros)
+    x = torch.cat([hn, en], dim=-1) @ mp["proj"].to(cfg.cdtype)
+    x, y, _ = apply_layer_full(cfg, mp["layer"], x, torch.zeros_like(x),
+                               _mtp_mixer(cfg), "dense", rope_cs=rope_cs)
+    h_mtp, _ = fused_norm(cfg, mp["final_norm"], x, y)
+    nll, cnt = chunked_xent(cfg, params, h_mtp, _shift_left(tokens, 2),
+                            _shift_left(mask, 2), loss_chunk)
+    return nll / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

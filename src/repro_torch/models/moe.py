@@ -126,12 +126,21 @@ def route(cfg: ModelConfig, p, x_f32: torch.Tensor):
 
 def _positions_in_expert(mask: torch.Tensor) -> torch.Tensor:
     """mask (..., T, k, E) one-hot -> position of each (t, k) within its
-    expert's queue, token-major priority, as f32.  Returns (..., T, k)."""
+    expert's queue, token-major priority, as f32.  Returns (..., T, k).
+
+    The count before each assignment is a cumulative sum along the
+    (T·k) axis, taken on the transposed mask, where that axis is the
+    contiguous one: PyTorch's scan along an outer axis took 1.37 ms a
+    call at Jamba's (8192, 16) and 17.6 ms at DeepSeek-V2's (49152, 160)
+    on an H100 (more than the layer's experts).  The counts are
+    integers below 2^24, so the f32 values equal the JAX package's
+    (``jnp.cumsum`` along axis -2) bit for bit in any order."""
     shp = mask.shape
     T, K, E = shp[-3], shp[-2], shp[-1]
     flat = mask.reshape(*shp[:-3], T * K, E)
-    pos_e = torch.cumsum(flat, dim=-2) - flat                 # count before
-    pos = torch.sum(pos_e * flat, dim=-1)                     # (..., T*K)
+    by_expert = flat.transpose(-1, -2).contiguous()           # (..., E, T*K)
+    before = torch.cumsum(by_expert, dim=-1) - by_expert      # count before
+    pos = torch.sum(before.transpose(-1, -2) * flat, dim=-1)  # (..., T*K)
     return pos.reshape(*shp[:-3], T, K)
 
 

@@ -1,6 +1,6 @@
-"""Decoder stack: attention and Mamba-2 layers, each with a dense MLP, a
-mixture-of-experts MLP or (Mamba) none, in any pattern of the config's
-blocks.
+"""Decoder stack: attention, multi-head latent attention (MLA) and
+Mamba-2 layers, each with a dense MLP, a mixture-of-experts MLP or
+(Mamba) none, in any pattern of the config's blocks.
 
 The JAX package's ``models/transformer.py``, with a Python loop over the
 stacked layers in place of ``lax.scan`` / ``fori_loop``.  Parameters
@@ -23,8 +23,7 @@ zero tensor.  A layer with an MLP, attention or Mamba, takes its
 A MoE layer's aux terms (``lb_loss + z_loss``) are carried out of each
 layer and block in the order the JAX package sums them, one running
 sum over the layers; a dense layer adds nothing.  Decode drops them, as
-the JAX package does.  Other mixers (MLA) and cross-attention raise
-``NotImplementedError``.
+the JAX package does.  Cross-attention raises ``NotImplementedError``.
 
 Training runs the same layers with no cache, each repeat unit of a
 block under ``remat_wrap`` (the JAX package's ``jax.checkpoint`` of its
@@ -46,14 +45,20 @@ from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_residual
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, mlp_schema, norm_schema
 from repro_torch.models.params import stack_schema, tree_map
 
 
 #: the (mixer, mlp) layer kinds the port serves
-LAYER_KINDS = (("attn", "dense"), ("attn", "moe"), ("mamba", "none"),
-               ("mamba", "dense"), ("mamba", "moe"))
+LAYER_KINDS = (("attn", "dense"), ("attn", "moe"), ("mla", "dense"),
+               ("mla", "moe"), ("mamba", "none"), ("mamba", "dense"),
+               ("mamba", "moe"))
+
+#: each mixer's schema
+_MIXER_SCHEMAS = {"attn": attn.attn_schema, "mla": mla_mod.mla_schema,
+                  "mamba": mamba2.mamba_schema}
 
 
 def _served(mixer: str, mlp: str) -> None:
@@ -112,9 +117,7 @@ def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
 
 def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
     _served(mixer, mlp)
-    s = {"norm1": norm_schema(cfg)}
-    s["mixer"] = (mamba2.mamba_schema(cfg) if mixer == "mamba"
-                  else attn.attn_schema(cfg))
+    s = {"norm1": norm_schema(cfg), "mixer": _MIXER_SCHEMAS[mixer](cfg)}
     if mlp == "dense":
         s["norm2"] = norm_schema(cfg)
         s["mlp"] = mlp_schema(cfg)
@@ -128,9 +131,11 @@ def layer_cache_schema(cfg: ModelConfig, mixer: str, batch: int,
                        max_seq: int):
     if mixer == "mamba":
         return {"mixer": mamba2.mamba_cache_schema(cfg, batch)}
+    if mixer == "mla":
+        return {"mixer": mla_mod.mla_cache_schema(cfg, batch, max_seq)}
     if mixer != "attn":
         raise NotImplementedError(
-            f"mixer {mixer!r}: the port has attn and mamba only")
+            f"mixer {mixer!r}: the port has attn, mla and mamba only")
     return {"mixer": attn.attn_cache_schema(cfg, batch, max_seq)}
 
 
@@ -149,6 +154,9 @@ def apply_layer_full(
     c = None if cache is None else cache["mixer"]
     if mixer == "mamba":
         y = mamba2.apply_mamba_full(cfg, p["mixer"], h, cache=c)
+    elif mixer == "mla":
+        y = mla_mod.apply_mla_full(cfg, p["mixer"], h, rope_cs=rope_cs,
+                                   causal=causal, cache=c)
     else:
         y = attn.apply_attn_full(cfg, p["mixer"], h, rope_cs=rope_cs,
                                  causal=causal, cache=c)
@@ -171,6 +179,9 @@ def apply_layer_decode(
     h, x = fused_norm(cfg, p["norm1"], x, res)
     if mixer == "mamba":
         y = mamba2.apply_mamba_decode(cfg, p["mixer"], h, cache["mixer"])
+    elif mixer == "mla":
+        y = mla_mod.apply_mla_decode(cfg, p["mixer"], h, cache["mixer"],
+                                     pos, rope_cs=rope_cs)
     else:
         y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
                                    rope_cs=rope_cs)

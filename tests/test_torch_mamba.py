@@ -38,7 +38,7 @@ from repro.models import mamba2 as JMB  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.sharding.rules import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import BlockDef, MLAConfig  # noqa: E402
+from repro_torch.configs.base import BlockDef  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -375,19 +375,23 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 def test_unported_configs_raise():
     t = smoke_config(get_config(ARCH))
-    for change in (dict(mla=MLAConfig()), dict(mtp=True),
+    for change in (dict(encoder_layers=2), dict(pos_embed="sinusoidal"),
                    dict(rope_type="mrope")):
         with pytest.raises(NotImplementedError):
             M.schema(dataclasses.replace(t, **change))
-    # a MoE layer with no MoE config
+    # a MoE layer with no MoE config, an MLA layer with no MLA config
     with pytest.raises(ValueError, match="needs cfg.moe"):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("mamba", "moe"),), repeat=1),)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs cfg.mla"):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("mla", "dense"),), repeat=1),)))
+    # a layer kind the port does not serve
+    with pytest.raises(NotImplementedError):
+        M.schema(dataclasses.replace(t, blocks=(
+            BlockDef(pattern=(("attn", "none"),), repeat=1),)))
     with pytest.raises(KeyError):
-        get_config("deepseek-v2-236b")
+        get_config("whisper-large-v3")
 
 
 def test_serve_cli_on_the_cpu(capsys):

@@ -246,6 +246,33 @@ def test_positions_in_expert_match_jax():
         np.asarray(JMOE._positions_in_expert(jmask)))
 
 
+def _positions_outer_scan(mask):
+    """The queue positions by a cumulative sum along the (T·k) axis of
+    the (T·k, E) mask, the JAX package's form."""
+    shp = mask.shape
+    flat = mask.reshape(*shp[:-3], shp[-3] * shp[-2], shp[-1])
+    pos_e = torch.cumsum(flat, dim=-2) - flat
+    return torch.sum(pos_e * flat, dim=-1).reshape(shp[:-1])
+
+
+def test_positions_in_expert_at_deepseek_width():
+    """DeepSeek-V2's routing width (160 experts, top-6) over 2 groups of
+    512 tokens: the positions equal the outer-axis scan's and the JAX
+    package's bit for bit (integer counts below 2^24 are exact in f32 in
+    any order of summation)."""
+    j, t = _both(num_experts=160, top_k=6)
+    jp, tp = _params(j, t)
+    x = _x((2, 512, 64), 12)
+    tmask = moe_mod.route(t, tp, torch.from_numpy(x))[2]
+    jmask = JMOE.route(j, jp, jnp.asarray(x))[2]
+    got = moe_mod._positions_in_expert(tmask)
+    assert tuple(got.shape) == (2, 512, 6) and got.dtype == torch.float32
+    assert torch.equal(got, _positions_outer_scan(tmask))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(JMOE._positions_in_expert(jmask)))
+    assert float(got.max()) > 0
+
+
 @pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
 @pytest.mark.parametrize("cf", [4.0, 0.5])
 def test_group_dispatch_matches_jax(dispatch, cf):

@@ -56,7 +56,7 @@ from repro_torch.configs import (  # noqa: E402
     get_config,
     smoke_config,
 )
-from repro_torch.configs.base import BlockDef, MLAConfig  # noqa: E402
+from repro_torch.configs.base import BlockDef  # noqa: E402
 from repro_torch.configs.shapes import (  # noqa: E402
     SHAPES,
     SMOKE_SHAPES,
@@ -202,7 +202,7 @@ def test_pipeline_batches_are_bitwise_jax(arch):
 
 def test_unported_configs_raise_in_training():
     t = smoke_config(get_config("yi-6b"))
-    for change in (dict(mla=MLAConfig()), dict(mtp=True),
+    for change in (dict(encoder_layers=2), dict(cross_attention=True),
                    dict(input_mode="embeds"), dict(rope_type="mrope")):
         bad = dataclasses.replace(t, **change)
         with pytest.raises(NotImplementedError):

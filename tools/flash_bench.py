@@ -5,8 +5,9 @@
 
 Builds only ``flash_attention.cu``, prints its ptxas report, runs
 ``chip_smoke.py``'s ``attention_vs_plain`` cases, then times the bf16
-kernel at Yi-6B's prefill (4, 32, 4, 512, 128) and at a long prompt
-(1, 32, 4, 4096, 128), causal, on the model's strided views, against
+kernel at Yi-6B's prefill (4, 32, 4, 512, 128), at a long prompt
+(1, 32, 4, 4096, 128) and at DeepSeek-V2's MLA prefill (4, 128, 128,
+2048, q·k 192, v 128), causal, on the model's strided views, against
 ``F.scaled_dot_product_attention`` and the bound, ``--rounds`` times in
 turn.  Every line is JSON; the card's ``nvidia-smi`` name and power
 limit come first.  Exits 2 without a card.
@@ -53,7 +54,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     for r in range(args.rounds):
         for label, shape in (("yi6b", cs.FLASH_SHAPE),
-                             ("long", cs.FLASH_SHAPE_LONG)):
+                             ("long", cs.FLASH_SHAPE_LONG),
+                             ("mla", cs.FLASH_SHAPE_MLA)):
             cs.emit({"round": r, "shape": label, "BHKSD": shape}
                     | cs.flash_timing(dev, shape, bw, bf16, g))
     return 0
