@@ -82,11 +82,14 @@ Phases, each printing one JSON line:
     plain version (the shapes of ``tests/test_kernels.py``, non-causal,
     Yi-6B's prefill in the model's layout, ragged S=300, S=1 and S=64
     at D=32 and 128, non-causal in the model's layout, Jamba-v0.1's
-    prefill (4, 32, 8, 2048, 128) in the model's layout, and MLA's pair
+    prefill (4, 32, 8, 2048, 128) in the model's layout, MLA's pair
     of q·k 192 and v 128 at H = KH = 128, S = 1, 63, 65 and 2048, causal
     and not, f32 and bf16, v the strided half of a (B, S, H, 256)
-    product as ``models/mla.py`` passes it): atol 2e-5 in f32, 3e-2 in
-    bf16.
+    product as ``models/mla.py`` passes it, and in the model's layout
+    whisper's encoder (8, 20, 20, 1500, 64, not causal), its
+    cross-attention (Sq = 128 queries against Sk = 1500 frames), a
+    ragged Sq = 7 against Sk = 65 and qwen2-vl's causal (4, 64, 8, 2048,
+    128), f32 and bf16): atol 2e-5 in f32, 3e-2 in bf16.
 14. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
     versions), B=2, prompt 128, 4 greedy steps: logits within
@@ -179,6 +182,38 @@ Phases, each printing one JSON line:
     parameters with the MTP head, 29.3 GB): a prefill and 8 decode steps
     at 4 x 2048 (256 experts, top-8, C = 320; the norm at d = 7168),
     its launches, routing, and every flash and norm call held.
+18g. ``encdec_vs_cpu``: whisper-large-v3 at full width (d 1280, 20
+    heads of 64, d_ff 5120, vocab 51866) cut to 4 encoder and 4 decoder
+    layers, f32 (no TF32), with ``well_conditioned`` attention weights:
+    B=2, 1500 frames, a 32-token prompt, 8 greedy steps on the card and
+    on the CPU: logits within 1e-4·max|logit|, identical tokens, 12
+    flash launches a prefill and no norm launch; the same under the
+    init rule printed, not held (its near one-hot attention over 1500
+    frames turns f32 roundings into O(1) differences).
+18h. ``whisper_serve``: whisper-large-v3 whole (32 + 32 layers, 1.53 B
+    parameters) in bf16 through ``launch/serve.py``'s functions: B=8,
+    1500 frames, 128-token prompts, 64 greedy tokens (max_seq 192):
+    prefill and decode times against their bounds
+    (``whisper_prefill_flops``; ``decode_read_bytes``: the decoder's
+    weights and the caches, the 2 GB cross cache among them), tokens/s,
+    peak memory, launches (96 flash a prefill, none a step, no norm
+    launch), every flash call of one prefill held to its plain version
+    on the served activations, the 32-layer bf16 invariant within
+    5e-2·max|logit| with ``well_conditioned`` attention (the init rule's
+    figure printed), and a profile of each phase by kind with
+    layernorm's device time (``LayerNormRanges``).
+18i. ``qwen2vl_vs_cpu``: qwen2-vl-72b at full width (d 8192, 64 / 8
+    heads, d_ff 29568, vocab 152064) cut to 2 layers, f32, with
+    ``well_conditioned`` attention: B=1, 512 embedding positions of a
+    prompt with one 16 x 16 image (``launch/serve.py::image_positions``:
+    the three M-RoPE rows differ), 8 greedy steps whose positions trail
+    the cache index: logits within 1e-4·max|logit|, identical tokens,
+    launches.
+18j. ``qwen2vl_serve``: qwen2-vl-72b at full width in bf16 cut to 4 of
+    80 layers (6.00 B parameters; 80 are 145 GB): B=4, 2048 embedding
+    positions with the image's positions, 32 greedy tokens, as
+    ``whisper_serve`` (launches 4 flash and 9 norm a prefill, 9 norm a
+    step).
 19. ``train_grad_vs_plain``: each autograd Function of the LM kernels
     (the kernel forward, the plain backward) against autograd through
     the plain version on the same inputs and output gradients: Yi-6B's
@@ -229,7 +264,13 @@ Phases, each printing one JSON line:
     also their launches in ``deepseek_serve`` (``launches_deepseek``,
     ...) and their times at DeepSeek's shapes (``ms_mla``, ... at (4,
     128, 128, 2048, 192 / 128); ``ms_deepseek_v2`` and
-    ``ms_deepseek_v3``, ... at 8192 rows of 5120 and 7168).
+    ``ms_deepseek_v3``, ... at 8192 rows of 5120 and 7168); flash also
+    its times at whisper's encoder, its cross-attention and qwen2-vl's
+    prefill (``ms_whisper_enc``, ``ms_cross``, ``ms_qwen2vl``, each with
+    its plain, SDPA and bound ms), the norm at qwen2-vl's 8192 rows of
+    8192 (``ms_qwen2vl``, ...), both their launches in ``whisper_serve``
+    and ``qwen2vl_serve`` (``launches_whisper``, ``..._per_prefill``,
+    ``..._per_step``, ``launches_qwen2vl``, ...).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -324,6 +365,14 @@ RMS_ROWS_JAMBA = (8192, 4096)
 MLA_NOPE, MLA_DV = 128, 128
 FLASH_SHAPE_MLA = (4, 128, 128, 2048, 192, MLA_DV)
 RMS_ROWS_DEEPSEEK = ((8192, 5120), (8192, 7168))
+#: whisper-large-v3 served at B = 8, 1500 frames, a 128-token prompt and
+#: qwen2-vl-72b at B = 4, 2048 positions: the flash calls (B, H, KH, Sq,
+#: D), causal or not, and Sk where it is not Sq — the encoder's
+#: non-causal self-attention, the decoder's cross-attention (decoder
+#: queries against the frames), qwen2-vl's causal GQA prefill
+FLASH_WHISPER_ENC = ((8, 20, 20, 1500, 64), False, None)
+FLASH_CROSS = ((8, 20, 20, 128, 64), False, 1500)
+FLASH_QWEN2VL = ((4, 64, 8, 2048, 128), True, None)
 #: jamba_vs_cpu: f32 logits on the card within this share of max|logit|
 #: of the CPU's, and the card's own prefill-vs-decode invariant; expert
 #: choices are compared where the k-th and (k+1)-th router probabilities
@@ -668,6 +717,15 @@ def main() -> int:
     dserved = run_deepseek_serve(dev)
     emit(dserved)
 
+    # 18g.-18j. whisper (encoder, cross-attention, layernorm) and
+    # qwen2-vl (M-RoPE over patch embeddings)
+    emit(run_encdec_vs_cpu(dev))
+    wserved = run_whisper_serve(dev)
+    emit(wserved)
+    emit(run_qwen2vl_vs_cpu(dev))
+    qserved = run_qwen2vl_serve(dev)
+    emit(qserved)
+
     # 19.-22. the training slice
     emit(run_train_grad_vs_plain(dev))
     emit(run_train_vs_cpu(dev))
@@ -681,9 +739,11 @@ def main() -> int:
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
     jfields = jamba_kernel_fields(dev, bw, f32, bf16, ssd, jserved)
     dfields = deepseek_kernel_fields(dev, bw, f32, bf16, dserved)
+    sfields = slice15_kernel_fields(dev, bw, f32, bf16, wserved, qserved)
     for entry in lm_entries:
         entry.update(jfields[entry["name"]])
         entry.update(dfields.get(entry["name"], {}))
+        entry.update(sfields.get(entry["name"], {}))
     for entry in lm_entries:
         for key, cell in (("train", trained), ("mamba_train", mtrained)):
             if entry["name"] in cell["launches_predicted"]:
@@ -1624,6 +1684,8 @@ def run_scan_vs_block(dev):
 #: the profiler ranges of the LM kernels' plain backward
 #: (``kernels/autograd.py``): their device ms are the kernels' inside them
 PLAIN_BACKWARD = "_plain_backward"
+#: profiler ranges the smoke itself opens (``LayerNormRanges``)
+SMOKE_RANGES = ("layernorm",)
 
 
 def profile_device(fn, calls: int) -> dict:
@@ -1637,7 +1699,8 @@ def profile_device(fn, calls: int) -> dict:
     from repro_torch.models.moe import MOE_RANGES
 
     def is_range(key):
-        return key.endswith(PLAIN_BACKWARD) or key in MOE_RANGES
+        return key.endswith(PLAIN_BACKWARD) or key in MOE_RANGES \
+            or key in SMOKE_RANGES
 
     fn()
     torch.cuda.synchronize()
@@ -1672,6 +1735,9 @@ def profile_device(fn, calls: int) -> dict:
     moe = {k: v / calls for k, v in ranges.items() if k in MOE_RANGES}
     if moe:
         out["moe_ms_per_call"] = moe
+    own = {k: v / calls for k, v in ranges.items() if k in SMOKE_RANGES}
+    if own:
+        out["ranges_ms_per_call"] = own
     return out
 
 
@@ -1953,9 +2019,11 @@ def run_rmsnorm_vs_plain(dev, rng):
         "max_abs_err": worst, "cases": cases}
 
 
-def _attn_inputs(rng, dev, dtype, b, h, kh, s, d, model_layout=False):
-    """q, k, v from the seed; with ``model_layout`` they are (B, S, H, D)
-    tensors seen as (B, H, S, D), as the model hands them over.  With
+def _attn_inputs(rng, dev, dtype, b, h, kh, s, d, model_layout=False,
+                 sk=None):
+    """q (``s`` rows), k and v (``sk`` rows, default s) from the seed;
+    with ``model_layout`` they are (B, S, H, D) tensors seen as (B, H, S,
+    D), as the model hands them over.  With
     ``model_layout="mla"`` q and k are so, D = 192, and v is the last
     ``MLA_DV`` columns of a (B, S, KH, 128 + MLA_DV) tensor, the strided
     half of the ``wkv_b`` product that ``models/mla.py`` passes."""
@@ -1963,8 +2031,9 @@ def _attn_inputs(rng, dev, dtype, b, h, kh, s, d, model_layout=False):
     mla = model_layout == "mla"
     for i, heads in enumerate((h, kh, kh)):
         w = MLA_NOPE + MLA_DV if mla and i == 2 else d
-        a = rng.standard_normal((b, s, heads, w) if model_layout
-                                else (b, heads, s, w), dtype=np.float32)
+        n = s if i == 0 or sk is None else sk
+        a = rng.standard_normal((b, n, heads, w) if model_layout
+                                else (b, heads, n, w), dtype=np.float32)
         t = torch.from_numpy(a).to(dev, dtype)
         if mla and i == 2:
             t = t[..., MLA_NOPE:]
@@ -1999,15 +2068,28 @@ def run_attention_vs_plain(dev, rng):
                                       192), dt, causal, "mla")
              for s in (1, 63, 65, 2048) for dt in (f32, bf16)
              for causal in (True, False)]
-    for label, (b, h, kh, s, d), dtype, causal, layout in plan:
-        q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout)
+    # whisper (D = 64: the encoder's 1500 frames, not causal; the
+    # decoder's cross-attention, Sq = 128 queries against Sk = 1500
+    # frames, the last key tile ragged; a short ragged pair) and
+    # qwen2-vl's causal GQA prefill, shapes (B, H, KH, Sq, D[, Sk])
+    for label, (shape, causal, sk) in (
+            ("whisper encoder", FLASH_WHISPER_ENC),
+            ("whisper cross-attention", FLASH_CROSS),
+            ("ragged Sq=7, Sk=65", ((2, 4, 4, 7, 64), False, 65)),
+            ("qwen2-vl prefill", FLASH_QWEN2VL)):
+        plan += [(f"{label}, model layout", (*shape, sk), dt, causal, True)
+                 for dt in (f32, bf16)]
+    for label, shape, dtype, causal, layout in plan:
+        b, h, kh, s, d = shape[:5]
+        sk = shape[5] if len(shape) > 5 and shape[5] else s
+        q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout, sk)
         want = ref.attention_ref(q, k, v, causal=causal)
         got = kernel.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err, ok = _close([got], [want], ATTN_TOL[dtype])
         worst = max(worst, err)
         cases.append({"case": label, "B": b, "H": h, "KH": kh, "S": s,
-                      "D": d, "Dv": v.shape[-1],
+                      "Sk": sk, "D": d, "Dv": v.shape[-1],
                       "dtype": str(dtype).split(".")[-1],
                       "causal": causal, "max_abs_diff": err})
         check(ok, f"attention kernel vs plain {label} {dtype}: {err} > "
@@ -2112,6 +2194,36 @@ def by_kind(profile: dict, calls: int) -> dict:
                 device_ms_per_call=profile["device_ms"] / calls)
 
 
+def _check_served(cfg, res, launches, B, G) -> dict:
+    """Hold a ``serve.serve`` result of B requests and G tokens: the
+    launches per prefill and per decode step (``res.launches``) and the
+    counted total (``launches``) equal ``launches_per_pass``, the logits'
+    and tokens' shapes, finite logits, token ids in range.  Returns the
+    launches per decode step."""
+    from repro_torch.models import model as M
+
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = M.launches_per_pass(cfg, "decode")
+    steps = res.decode_steps
+    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
+    check(res.launches["prefill"] == pre,
+          f"prefill launches {res.launches['prefill']}, predicted {pre}")
+    check(per_step == dec, f"decode launches per step {per_step}, "
+                           f"predicted {dec}")
+    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
+                       for k in launches},
+          f"counted launches {launches}")
+    V = cfg.vocab_size
+    check(tuple(res.first_logits.shape) == (B, V)
+          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
+    check(bool(torch.isfinite(res.first_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()),
+          "non-finite serve logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+          "token ids out of range")
+    return per_step
+
+
 def run_serve(dev):
     """Yi-6B, full width and depth, bf16: 4 requests of 512 prompt tokens
     and 32 greedy tokens through launch/serve.py's functions."""
@@ -2141,25 +2253,8 @@ def run_serve(dev):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    pre = M.launches_per_pass(cfg, "prefill")
-    dec = M.launches_per_pass(cfg, "decode")
-    steps = res.decode_steps
-    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
-    check(res.launches["prefill"] == pre,
-          f"prefill launches {res.launches['prefill']}, predicted {pre}")
-    check(per_step == dec, f"decode launches per step {per_step}, "
-                           f"predicted {dec}")
-    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
-                       for k in launches},
-          f"counted launches {launches}")
-    V = cfg.vocab_size
-    check(tuple(res.first_logits.shape) == (B, V)
-          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
-    check(bool(torch.isfinite(res.first_logits).all())
-          and bool(torch.isfinite(res.last_logits).all()),
-          "non-finite serve logits")
-    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
-          "token ids out of range")
+    steps, per_step = res.decode_steps, _check_served(cfg, res, launches,
+                                                      B, G)
 
     on_acts = kernels_on_activations(cfg, params, prompts,
                                      "kernels_on_activations")
@@ -2232,7 +2327,8 @@ def well_conditioned(cfg, params):
     heads·head_dim for wo; MLA's wq_b to q_lora_rank, wkv_b to
     kv_lora_rank, wo to heads·v_head_dim (wq_a and wkv_a already contract
     over axis -2, d).  The init rule takes axis -2, the head count or
-    head_dim."""
+    head_dim.  A cross-attention's projections and the encoder's
+    attention layers are rescaled as attention layers are."""
     H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
     gains = {"attn": {"wq": (H / d) ** 0.5, "wk": (KH / d) ** 0.5,
                       "wv": (KH / d) ** 0.5, "wo": H ** -0.5}}
@@ -2242,25 +2338,34 @@ def well_conditioned(cfg, params):
                         ** 0.5, "wo": H ** -0.5}
         if m.q_lora_rank:
             gains["mla"]["wq_b"] = (H / m.q_lora_rank) ** 0.5
+    def scaled(proj, gain):
+        return {k: w * gain[k] if k in gain else w for k, w in proj.items()}
+
     out = dict(params)
     for i, bdef in enumerate(cfg.blocks):
         blk = dict(params[f"b{i}"])
         for j, (mixer, _) in enumerate(bdef.pattern):
+            lp = dict(blk[f"l{j}"])
             if mixer in gains:
-                lp, gain = blk[f"l{j}"], gains[mixer]
-                blk[f"l{j}"] = dict(lp, mixer={
-                    k: w * gain[k] if k in gain else w
-                    for k, w in lp["mixer"].items()})
+                lp["mixer"] = scaled(lp["mixer"], gains[mixer])
+            if "cross" in lp:
+                lp["cross"] = scaled(lp["cross"], gains["attn"])
+            blk[f"l{j}"] = lp
         out[f"b{i}"] = blk
+    if "encoder" in params:
+        enc = params["encoder"]["blocks"]["l0"]
+        out["encoder"] = dict(params["encoder"], blocks={
+            "l0": dict(enc, mixer=scaled(enc["mixer"], gains["attn"]))})
     return out
 
 
-def kernels_on_activations(cfg, params, prompts, phase):
-    """One prefill and one decode step of the served model, each call of
-    the LM kernels its layers run also made through its plain version on
-    the same inputs: flash held to ``ATTN_ACT_SHARE``·max|v|, SSD to
-    ``SSD_ACT_*`` against the bounds ``_ssd_bounds`` computes from the
-    same inputs, the norm to ``RMS_TOL``.  Emits the phase line
+def kernels_on_activations(cfg, params, prompts, phase, inputs=None):
+    """One prefill and one decode step of the served model (with the
+    prefill's other ``inputs``, ``launch/serve.py::make_inputs``), each
+    call of the LM kernels its layers run also made through its plain
+    version on the same inputs: flash held to ``ATTN_ACT_SHARE``·max|v|,
+    SSD to ``SSD_ACT_*`` against the bounds ``_ssd_bounds`` computes
+    from the same inputs, the norm to ``RMS_TOL``.  Emits the phase line
     ``phase`` with every call's error; returns the calls and the worst
     error per kernel."""
     from repro_torch.kernels.flash_attention import ref as fr
@@ -2313,13 +2418,17 @@ def kernels_on_activations(cfg, params, prompts, phase):
         return out
 
     P = prompts.shape[1]
+    inputs = inputs or {}
+    step = {"token": prompts[:, -1], "pos": P}
+    if "positions" in inputs:
+        step["positions"] = (inputs["positions"].amax(dim=(1, 2))
+                             + 1)[:, None].expand(-1, 3)
     am.attention, mm.ssd_chunk, tm.rmsnorm_residual = \
         attention, ssd_chunk, rmsnorm_residual
     try:
         _, cache = serve_step.build_prefill(cfg, max_seq=P + 1)(
-            params, {"tokens": prompts})
-        serve_step.build_decode(cfg)(params, cache,
-                                     {"token": prompts[:, -1], "pos": P})
+            params, {"tokens": prompts, **inputs})
+        serve_step.build_decode(cfg)(params, cache, step)
         torch.cuda.synchronize()
     finally:
         am.attention, mm.ssd_chunk, tm.rmsnorm_residual = \
@@ -2346,17 +2455,19 @@ def kernels_on_activations(cfg, params, prompts, phase):
         check(not out[name]["bad_calls"], f"{name} vs plain on the served "
                                          f"activations: {out[name]}")
     return {name: {"calls": len(calls),
-                   "max_abs_diff": max(np.max(e) for e, _, _ in calls)}
+                   "max_abs_diff": max((np.max(e) for e, _, _ in calls),
+                                       default=None)}
             for name, calls in seen.items()} | {"tolerance": out["tolerance"]}
 
 
-def flash_timing(dev, shape, bw, peak, g) -> dict:
+def flash_timing(dev, shape, bw, peak, g, causal=True, sk=None) -> dict:
     """The bf16 flash kernel at ``shape`` = (B, H, KH, S, D) or (B, H,
-    KH, S, D, Dv), causal, on the model's (B, S, H, D) views from ``g``
-    (with a Dv, v the last Dv columns of a (B, S, KH, 128 + Dv) tensor,
-    as MLA passes it): held to its plain version within ATTN_TOL, its
-    device ms, the plain version's, SDPA's (the yardstick, never called
-    by the port) and the bound."""
+    KH, S, D, Dv), causal or not, S queries against ``sk`` keys (default
+    S), on the model's (B, S, H, D) views from ``g`` (with a Dv, v the
+    last Dv columns of a (B, S, KH, 128 + Dv) tensor, as MLA passes it):
+    held to its plain version within ATTN_TOL, its device ms, the plain
+    version's, SDPA's (the yardstick, never called by the port) and the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2365,28 +2476,34 @@ def flash_timing(dev, shape, bw, peak, g) -> dict:
 
     B, H, KH, S, D = shape[:5]
     Dv = shape[5] if len(shape) > 5 else D
+    Sk = S if sk is None else sk
     bt = torch.bfloat16
-    q, k = (torch.randn((B, S, n, D), generator=g, device=dev)
-            .to(bt).transpose(1, 2) for n in (H, KH))
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(bt) \
+        .transpose(1, 2)
+    k = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(bt) \
+        .transpose(1, 2)
     if Dv == D:
-        v = torch.randn((B, S, KH, D), generator=g, device=dev).to(bt) \
+        v = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(bt) \
             .transpose(1, 2)
     else:
-        v = torch.randn((B, S, KH, MLA_NOPE + Dv), generator=g,
+        v = torch.randn((B, Sk, KH, MLA_NOPE + Dv), generator=g,
                         device=dev).to(bt)[..., MLA_NOPE:].transpose(1, 2)
-    want = fr.attention_ref(q, k, v)
-    err, ok = _close([fk.flash_attention_cuda(q, k, v)], [want],
-                     ATTN_TOL[bt])
-    check(ok, f"flash at {shape}: {err} > {ATTN_TOL[bt]}")
+    want = fr.attention_ref(q, k, v, causal=causal)
+    err, ok = _close([fk.flash_attention_cuda(q, k, v, causal=causal)],
+                     [want], ATTN_TOL[bt])
+    check(ok, f"flash at {shape}, Sk={Sk}: {err} > {ATTN_TOL[bt]}")
     del want
     reps = max(5, 50 * 512 // S)
-    ms = device_time_ms(lambda: fk.flash_attention_cuda(q, k, v), reps)
-    plain_ms = device_time_ms(lambda: fr.attention_ref(q, k, v),
-                              10 if S <= 512 else 3)
+    ms = device_time_ms(
+        lambda: fk.flash_attention_cuda(q, k, v, causal=causal), reps)
+    plain_ms = device_time_ms(
+        lambda: fr.attention_ref(q, k, v, causal=causal),
+        10 if S <= 512 else 3)
     lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps)
-    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2, Dv),
-                       fk.attention_flops(B, H, S, D, True, Dv), bw, peak)
+        q, k, v, is_causal=causal, enable_gqa=True), reps)
+    fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2, Dv, Sk),
+                       fk.attention_flops(B, H, S, D, causal, Dv, Sk), bw,
+                       peak)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": fb, "bound_by": fby, "max_abs_err": err}
 
@@ -2733,25 +2850,8 @@ def run_mamba_serve(dev):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev) - base
 
-    pre = M.launches_per_pass(cfg, "prefill")
-    dec = M.launches_per_pass(cfg, "decode")
-    steps = res.decode_steps
-    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
-    check(res.launches["prefill"] == pre,
-          f"prefill launches {res.launches['prefill']}, predicted {pre}")
-    check(per_step == dec, f"decode launches per step {per_step}, "
-                           f"predicted {dec}")
-    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
-                       for k in launches},
-          f"counted launches {launches}")
-    V = cfg.vocab_size
-    check(tuple(res.first_logits.shape) == (B, V)
-          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
-    check(bool(torch.isfinite(res.first_logits).all())
-          and bool(torch.isfinite(res.last_logits).all()),
-          "non-finite serve logits")
-    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
-          "token ids out of range")
+    steps, per_step = res.decode_steps, _check_served(cfg, res, launches,
+                                                      B, G)
 
     on_acts = kernels_on_activations(cfg, params, prompts,
                                      "mamba_kernels_on_activations")
@@ -2910,24 +3010,46 @@ class MoERecorder:
         return out
 
 
-def _held_invariant(cfg, params, prompts, tol_share, require=True):
+def _split_inputs(params, prompts, inputs):
+    """The inputs of the serving invariant's three passes: the full
+    prefill, prefill(S-1) and the decode step of position S-1, each with
+    its share of the other ``inputs`` (embeddings and M-RoPE positions
+    cut at S-1, the frames whole).  Embeddings become the prompt tokens'
+    rows of the table, so that the last position may be decoded as a
+    token."""
+    P = prompts.shape[1]
+    extra = dict(inputs or {})
+    if "embeds" in extra:
+        extra["embeds"] = params["embed"][prompts].to(extra["embeds"].dtype)
+    cut = {"embeds": lambda t: t[:, :P - 1],
+           "positions": lambda t: t[..., :P - 1]}
+    short = {k: cut.get(k, lambda t: t)(v) for k, v in extra.items()}
+    step = {"token": prompts[:, P - 1], "pos": P - 1}
+    if "positions" in extra:
+        step["positions"] = extra["positions"][..., P - 1]
+    return ({"tokens": prompts, **extra},
+            {"tokens": prompts[:, :P - 1], **short}, step)
+
+
+def _held_invariant(cfg, params, prompts, tol_share, require=True,
+                    inputs=None):
     """The serving invariant (full prefill against prefill(S-1) + one
-    decode step) on the requests that lost no MoE assignment in either
-    prefill: a drop changes its own request's output and no other's, and
-    the two prefills group their tokens differently.  Returns the figures
-    and the drops of each pass per MoE layer; fails if every request lost
-    an assignment, unless ``require`` is false (then the figures are
-    ``None`` and ``requests_held`` empty)."""
+    decode step, ``_split_inputs``) on the requests that lost no MoE
+    assignment in either prefill: a drop changes its own request's
+    output and no other's, and the two prefills group their tokens
+    differently.  Returns the figures and the drops of each pass per MoE
+    layer; fails if every request lost an assignment, unless ``require``
+    is false (then the figures are ``None`` and ``requests_held``
+    empty)."""
     from repro_torch.runtime import serve_step
 
     B, P = prompts.shape
+    full, short, step = _split_inputs(params, prompts, inputs)
     with MoERecorder() as full_rec:
-        lf, _ = serve_step.build_prefill(cfg)(params, {"tokens": prompts})
+        lf, _ = serve_step.build_prefill(cfg)(params, full)
     with MoERecorder() as short_rec:
-        _, cache = serve_step.build_prefill(cfg, max_seq=P)(
-            params, {"tokens": prompts[:, :P - 1]})
-    ld, cache = serve_step.build_decode(cfg)(
-        params, cache, {"token": prompts[:, P - 1], "pos": P - 1})
+        _, cache = serve_step.build_prefill(cfg, max_seq=P)(params, short)
+    ld, cache = serve_step.build_decode(cfg)(params, cache, step)
     del cache
     full_moe, short_moe = full_rec.summary(), short_rec.summary()
     drops = {name: [x["dropped_per_request"] for x in rec]
@@ -2947,9 +3069,10 @@ def _held_invariant(cfg, params, prompts, tol_share, require=True):
            "tolerance_share": tol_share,
            "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
                                      .float().mean()) if held else None,
-           "dropped_per_layer": drops,
-           "capacity": {"prefill": full_moe[0]["C"],
-                        "prefill_s_minus_1": short_moe[0]["C"]}}
+           "dropped_per_layer": drops}
+    if full_moe:
+        inv["capacity"] = {"prefill": full_moe[0]["C"],
+                           "prefill_s_minus_1": short_moe[0]["C"]}
     return inv
 
 
@@ -3385,25 +3508,8 @@ def _serve_cell(dev, cfg, B, P, G, prefill_flops):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev) - base
 
-    pre = M.launches_per_pass(cfg, "prefill")
-    dec = M.launches_per_pass(cfg, "decode")
-    steps = res.decode_steps
-    per_step = {k: v / steps for k, v in res.launches["decode"].items()}
-    check(res.launches["prefill"] == pre,
-          f"prefill launches {res.launches['prefill']}, predicted {pre}")
-    check(per_step == dec, f"decode launches per step {per_step}, "
-                           f"predicted {dec}")
-    check(launches == {k: pre.get(k, 0) + steps * dec.get(k, 0)
-                       for k in launches},
-          f"counted launches {launches}")
-    V = cfg.vocab_size
-    check(tuple(res.first_logits.shape) == (B, V)
-          and tuple(res.tokens.shape) == (B, G), "serve output shapes")
-    check(bool(torch.isfinite(res.first_logits).all())
-          and bool(torch.isfinite(res.last_logits).all()),
-          "non-finite serve logits")
-    check(bool(((res.tokens >= 0) & (res.tokens < V)).all()),
-          "token ids out of range")
+    steps, per_step = res.decode_steps, _check_served(cfg, res, launches,
+                                                      B, G)
     # the warm-up's prefill, then its decode step, layer by layer
     n_moe = sum(b.repeat * sum(mlp == "moe" for _, mlp in b.pattern)
                 for b in cfg.blocks)
@@ -3605,6 +3711,467 @@ def run_dense_vs_cpu(dev):
         torch.cuda.empty_cache()
     return {"phase": "dense_vs_cpu", "tolerance_share": SERVE_F32_TOL,
             "archs": out}
+
+
+# ---------------------------------------------------------------------------
+# whisper-large-v3 (encoder, cross-attention, layernorm) and qwen2-vl-72b
+# (M-RoPE over patch embeddings)
+# ---------------------------------------------------------------------------
+
+WHISPER, QWEN2VL = "whisper-large-v3", "qwen2-vl-72b"
+#: encdec_vs_cpu / qwen2vl_vs_cpu: f32 logits on the card within this
+#: share of max|logit| of the CPU's
+ENCDEC_F32_TOL = 1e-4
+QWEN2VL_F32_TOL = 1e-4
+#: qwen2-vl's prompts: 16 text tokens, one image of 16 x 16 merged
+#: patches, then text (``launch/serve.py::image_positions``)
+QWEN2VL_IMAGE = (16, 16, 16)
+
+
+def _whisper_cut(layers: int, dtype: str):
+    """whisper-large-v3 at full width with ``layers`` encoder and
+    ``layers`` decoder layers, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockDef
+
+    cfg = get_config(WHISPER)
+    return dataclasses.replace(
+        cfg, num_layers=layers, encoder_layers=layers,
+        blocks=(BlockDef(pattern=cfg.blocks[0].pattern, repeat=layers),),
+        compute_dtype=dtype, param_dtype=dtype)
+
+
+def _qwen2vl_cut(layers: int, dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import dense_blocks, get_config
+
+    return dataclasses.replace(get_config(QWEN2VL), num_layers=layers,
+                               blocks=dense_blocks(layers),
+                               compute_dtype=dtype, param_dtype=dtype)
+
+
+def _vlm_inputs(cfg, B, P, rng):
+    """``make_inputs`` with the image's M-RoPE positions in place of the
+    JAX CLI's one arange (which is RoPE itself and would hide a mix-up
+    of the sections)."""
+    from repro_torch.launch import serve
+
+    inputs = serve.make_inputs(cfg, B, P, rng)
+    t, h, w = QWEN2VL_IMAGE
+    inputs["positions"] = serve.image_positions(B, t, h, w, P - t - h * w,
+                                                rng.device)
+    return inputs
+
+
+def _card_vs_cpu(dev, cfg, B, P, steps, tol, make_inputs, init_rule=False):
+    """One set of weights from one generator, with ``well_conditioned``
+    attention projections, serves on the card and on the CPU (f32, no
+    TF32): the first and last logits within ``tol`` of max|logit|,
+    identical greedy tokens, launches as predicted.  Under the init rule
+    itself the attention is near one-hot (scores with a std of ~64 at
+    whisper's widths, ~128 at qwen2-vl's), and an f32 rounding that
+    flips a near tie among 1500 frames moves a row by O(1): with
+    ``init_rule`` the figures under it are printed too, not held."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    init = init_params(M.schema(cfg), gen, dev)
+    params = well_conditioned(cfg, init)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    inputs = make_inputs(cfg, B, P, rng)
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
+
+    def errors(got, want):
+        return [float((g.cpu() - w).abs().max()) for g, w in (
+            (got.first_logits, want.first_logits),
+            (got.last_logits, want.last_logits))]
+
+    extra = {}
+    if init_rule:
+        a = serve.serve(cfg, init, prompts, steps + 1, inputs=inputs)
+        b = serve.serve(cfg, tree_map(lambda t: t.cpu(), init),
+                        prompts.cpu(), steps + 1, inputs=cpu_inputs)
+        extra["init_rule"] = {
+            "logit_max_abs_diff": errors(a, b),
+            "max_abs_logit": float(b.first_logits.abs().max()),
+            "tokens_equal": bool(torch.equal(a.tokens.cpu(), b.tokens))}
+        del a, b
+    del init
+    t0 = time.monotonic()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    copy_s = time.monotonic() - t0
+    _counts_zero()
+    got = serve.serve(cfg, params, prompts, steps + 1, inputs=inputs)
+    launches = _counts()
+    del params
+    t0 = time.monotonic()
+    want = serve.serve(cfg, cpu_params, prompts.cpu(), steps + 1,
+                       inputs=cpu_inputs)
+    cpu_s = time.monotonic() - t0
+    del cpu_params
+    torch.cuda.empty_cache()
+    scale = float(want.first_logits.abs().max())
+    errs = errors(got, want)
+    pre = M.launches_per_pass(cfg, "prefill")
+    dec = {k: steps * v for k, v in M.launches_per_pass(cfg, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)), "non-finite logits on the card")
+    check(max(errs) <= tol * scale,
+          f"{cfg.name}: card vs CPU logits {errs} > {tol} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"{cfg.name}: greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"launches {got.launches}, predicted prefill {pre} decode {dec}")
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
+          f"counted launches {launches}")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+            "params": count_params(M.schema(cfg)),
+            "compute_dtype": cfg.compute_dtype, "batch": B, "prompt": P,
+            "decode_steps": steps, "max_abs_logit": scale,
+            "logit_max_abs_diff": errs, "logit_share": max(errs) / scale,
+            "tolerance": tol * scale, "tokens_equal": True,
+            "weights": "well_conditioned",
+            "launches": got.launches, "card_prefill_s": got.prefill_s,
+            "cpu_s": cpu_s, "copy_to_host_s": copy_s, **extra}
+
+
+def run_encdec_vs_cpu(dev):
+    """whisper-large-v3 at full width, 4 encoder and 4 decoder layers,
+    f32: B=2, 1500 frames, a 32-token prompt, 8 greedy steps, card
+    against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = _whisper_cut(4, "float32")
+    rec = _card_vs_cpu(dev, cfg, 2, 32, 8, ENCDEC_F32_TOL, serve.make_inputs,
+                       init_rule=True)
+    check(rec["launches"]["prefill"] == {"flash_attention": 12,
+                                         "rmsnorm_residual": 0},
+          f"whisper prefill launches {rec['launches']['prefill']}")
+    full = get_config(WHISPER)
+    return {"phase": "encdec_vs_cpu", "frames": cfg.encoder_frames,
+            "reduced": f"{full.encoder_layers} + {full.num_layers} -> 4 + 4 "
+                       f"layers", **rec}
+
+
+def run_qwen2vl_vs_cpu(dev):
+    """qwen2-vl-72b at full width cut to 2 layers, f32: B=1, 512
+    embedding positions of one image's prompt (the M-RoPE rows differ),
+    8 greedy steps whose positions trail the cache index, card against
+    CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = _qwen2vl_cut(2, "float32")
+    rec = _card_vs_cpu(dev, cfg, 1, 512, 8, QWEN2VL_F32_TOL, _vlm_inputs)
+    check(rec["launches"]["prefill"] == {"flash_attention": 2,
+                                         "rmsnorm_residual": 5},
+          f"qwen2-vl prefill launches {rec['launches']['prefill']}")
+    t, h, w = QWEN2VL_IMAGE
+    return {"phase": "qwen2vl_vs_cpu",
+            "reduced": f"{get_config(QWEN2VL).num_layers} -> 2 layers",
+            "image": {"text_before": t, "grid": [h, w],
+                      "text_after": 512 - t - h * w,
+                      "first_decode_position": t + max(h, w)
+                      + 512 - t - h * w, "first_decode_index": 512},
+            **rec}
+
+
+def whisper_prefill_flops(cfg, B: int, P: int) -> dict:
+    """The matrix products of one whisper prefill of B requests of
+    ``encoder_frames`` frames and P prompt tokens, by part: the encoder's
+    projections and MLPs and its non-causal attention, the decoder's
+    cross k/v projections over the frames, its other projections and
+    MLPs, its causal self-attention, its cross-attention (P queries
+    against the frames) and the last token's unembedding."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    d, f, F = cfg.d_model, cfg.d_ff, cfg.encoder_frames
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    E, L = cfg.encoder_layers, cfg.num_layers
+    attn = d * (H + 2 * KH) * Dh + H * Dh * d
+    mlp = (3 if cfg.mlp_act == "swiglu" else 2) * d * f
+    out = {
+        "encoder_matrices": E * B * F * 2 * (attn + mlp),
+        "encoder_attention": E * fk.attention_flops(B, H, F, Dh, False),
+        "cross_kv": L * B * F * 2 * 2 * d * KH * Dh,
+        "decoder_matrices": L * B * P * 2 * (attn + 2 * d * H * Dh + mlp),
+        "decoder_attention": L * fk.attention_flops(B, H, P, Dh, True),
+        "cross_attention": L * fk.attention_flops(B, H, P, Dh, False,
+                                                  sk=F),
+        "unembed": B * 2 * d * cfg.vocab_size,
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
+def qwen2vl_prefill_flops(cfg, B: int, P: int) -> dict:
+    """The matrix products of one dense GQA prefill of B x P positions:
+    the projections and SwiGLU MLPs, the causal attention and the last
+    token's unembedding."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    d, H, KH, Dh, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.num_layers)
+    out = {
+        "matrices": L * B * P * 2 * (d * (H + 2 * KH) * Dh + H * Dh * d
+                                     + 3 * d * cfg.d_ff),
+        "attention": L * fk.attention_flops(B, H, P, Dh, True),
+        "unembed": B * 2 * d * cfg.vocab_size,
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
+def decode_read_bytes(cfg, params, cache) -> int:
+    """Least bytes one decode step reads: every weight it uses once (not
+    the encoder's, not the cross k/v projections, which prefill alone
+    runs, and of an untied token table only the B rows it looks up) and
+    the whole cache (the step attends over every position, masked)."""
+    from repro_torch.models.params import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    total = nbytes({k: v for k, v in params.items()
+                    if k not in ("encoder", "mtp")})
+    if not cfg.tie_embeddings:
+        total -= nbytes(params["embed"])
+    if cfg.cross_attention:
+        for blk in (v for k, v in params.items() if k.startswith("b")):
+            for layer in blk.values():
+                total -= nbytes({k: layer["cross"][k] for k in ("wk", "wv")})
+    return total + nbytes(cache)
+
+
+class LayerNormRanges:
+    """Opens the profiler range ``layernorm`` around every
+    ``models/layers.py::layer_norm`` call while it is entered, so a
+    profile shows layernorm's device time (its plain torch ops)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._layers, self._fn = layers, layers.layer_norm
+
+        def layer_norm(*a, **kw):
+            with torch.profiler.record_function("layernorm"):
+                return self._fn(*a, **kw)
+
+        layers.layer_norm = layer_norm
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.layer_norm = self._fn
+
+
+def _lm_serve_cell(dev, cfg, B, P, G, prefill_flops, make_inputs,
+                   phase_acts):
+    """A dense model served on the card through launch/serve.py's
+    functions, its stubbed frontend's inputs from ``make_inputs``:
+    weights drawn on the card, a warm-up serve of 2 tokens, the timed
+    serve of G tokens with the launches counted and held to
+    ``launches_per_pass``, every kernel call of one prefill and decode
+    step held to its plain version on the served activations, the bf16
+    invariant (``_held_invariant``) within ``SERVE_INV_TOL`` with
+    ``well_conditioned`` attention weights (the init rule's figure
+    printed beside it), and profiles of a prefill and of 4 decode steps
+    by kind, with layernorm's range.  Times against their bounds: the
+    prefill's products (``prefill_flops``) at the bf16 peak, the bytes a
+    decode step reads (``decode_read_bytes``) at the memory rate."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_bytes = torch.cuda.memory_allocated(dev) - base
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    inputs = make_inputs(cfg, B, P, rng)
+    serve.serve(cfg, params, prompts, 2, inputs=inputs)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts_zero()
+    res = serve.serve(cfg, params, prompts, G, inputs=inputs)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    steps, per_step = res.decode_steps, _check_served(cfg, res, launches,
+                                                      B, G)
+
+    on_acts = kernels_on_activations(cfg, params, prompts, phase_acts,
+                                     inputs)
+    wc = well_conditioned(cfg, params)
+    inv = _held_invariant(cfg, wc, prompts, SERVE_INV_TOL, inputs=inputs)
+    del wc
+    check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
+          f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
+          f"{inv}")
+    inv_init = _held_invariant(cfg, params, prompts, SERVE_INV_TOL,
+                               inputs=inputs)
+    torch.cuda.empty_cache()
+
+    full = serve_step.build_prefill(cfg, max_seq=P + G)
+    decode = serve_step.build_decode(cfg)
+    _, cache = full(params, {"tokens": prompts, **inputs})
+    step = {"token": res.tokens[:, 0], "pos": P}
+    if "positions" in inputs:
+        step["positions"] = (inputs["positions"].amax(dim=(1, 2))
+                             + 1)[:, None].expand(-1, 3)
+    read_bytes = decode_read_bytes(cfg, params, cache)
+    with LayerNormRanges():
+        prof_prefill = by_kind(profile_device(
+            lambda: full(params, {"tokens": prompts, **inputs}), 1), 1)
+        prof_decode = by_kind(profile_device(
+            lambda: [decode(params, cache, step) for _ in range(4)], 4), 4)
+    del cache, params
+    torch.cuda.empty_cache()
+    bw, _, bf16 = peaks_for(torch.cuda.get_device_name(0))
+    flops = prefill_flops(cfg, B, P)
+    total_s = res.prefill_s + res.decode_s
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+        "compute_dtype": cfg.compute_dtype,
+        "params": count_params(M.schema(cfg)),
+        "weights_bytes": weights_bytes, "init_s": init_s,
+        "batch": B, "prompt": P, "generated": G, "decode_steps": steps,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms_per_step": res.decode_s / steps * 1e3,
+        "decode_tokens_per_s": steps * B / res.decode_s,
+        "end_to_end_tokens_per_s": G * B / total_s,
+        "prefill_tokens_per_s": P * B / res.prefill_s,
+        "prefill_flops": flops,
+        "prefill_bound_ms": flops["total"] / bf16 * 1e3,
+        "decode_read_bytes": read_bytes,
+        "decode_bound_ms": read_bytes / bw * 1e3,
+        "peak_memory_bytes": peak,
+        "peak_memory_gb": peak / 1e9,
+        "launches_per_prefill": res.launches["prefill"],
+        "launches_per_decode_step": per_step,
+        "launches": launches,
+        "kernels_on_activations": on_acts,
+        "invariant": inv, "invariant_weights": "well_conditioned",
+        "invariant_init_rule": inv_init,
+        "profile_prefill": prof_prefill,
+        "profile_decode_step": prof_decode,
+        "sample_ids": res.tokens[0, :12].tolist(),
+    }
+
+
+def run_whisper_serve(dev):
+    """whisper-large-v3 whole (32 + 32 layers) in bf16: B=8 requests of
+    1500 frames and a 128-token prompt, 64 greedy tokens (max_seq 192,
+    inside whisper's 448-token decoder context)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = _whisper_cut(32, "bfloat16")
+    check(cfg.num_layers == get_config(WHISPER).num_layers
+          and cfg.encoder_layers == get_config(WHISPER).encoder_layers,
+          "whisper_serve runs the whole model")
+    rec = _lm_serve_cell(dev, cfg, 8, 128, 64, whisper_prefill_flops,
+                         serve.make_inputs, "whisper_kernels_on_activations")
+    check(rec["launches_per_prefill"] == {"flash_attention": 96,
+                                          "rmsnorm_residual": 0},
+          f"whisper prefill launches {rec['launches_per_prefill']}")
+    return {"phase": "whisper_serve", "frames": cfg.encoder_frames,
+            "max_seq": 128 + 64, **rec}
+
+
+def run_qwen2vl_serve(dev):
+    """qwen2-vl-72b at full width in bf16 cut to 4 of 80 layers (80 are
+    145 GB): B=4 prompts of 2048 embedding positions (one image each,
+    the M-RoPE rows differ), 32 greedy tokens."""
+    from repro_torch.configs import get_config
+
+    cfg = _qwen2vl_cut(4, "bfloat16")
+    rec = _lm_serve_cell(dev, cfg, 4, 2048, 32, qwen2vl_prefill_flops,
+                         _vlm_inputs, "qwen2vl_kernels_on_activations")
+    check(rec["launches_per_prefill"] == {"flash_attention": 4,
+                                          "rmsnorm_residual": 9}
+          and rec["launches_per_decode_step"] == {"flash_attention": 0,
+                                                  "rmsnorm_residual": 9},
+          f"qwen2-vl launches {rec['launches_per_prefill']}, "
+          f"{rec['launches_per_decode_step']}")
+    return {"phase": "qwen2vl_serve",
+            "reduced": f"{get_config(QWEN2VL).num_layers} -> 4 layers",
+            "image": list(QWEN2VL_IMAGE), **rec}
+
+
+def slice15_kernel_fields(dev, bw, f32, bf16, wserved, qserved) -> dict:
+    """The flash and norm kernels' kernels-line fields at this slice's
+    shapes: flash's device ms, plain ms, bound and SDPA ms at whisper's
+    encoder (8, 20, 20, 1500, 64, not causal), its cross-attention (Sq =
+    128 against Sk = 1500) and qwen2-vl's prefill (4, 64, 8, 2048, 128,
+    causal); the norm's at qwen2-vl's 8192 prefill rows of 8192; both
+    kernels' launches in ``whisper_serve`` and ``qwen2vl_serve``."""
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    from repro_torch.kernels.stencil.tune import device_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    flash = {}
+    for tag, (shape, causal, sk), what in (
+            ("whisper_enc", FLASH_WHISPER_ENC, "whisper encoder"),
+            ("cross", FLASH_CROSS, "whisper cross-attention"),
+            ("qwen2vl", FLASH_QWEN2VL, "qwen2-vl prefill")):
+        flash[tag] = flash_timing(dev, shape, bw, bf16, g, causal, sk)
+        B, H, KH, S, D = shape
+        flash[tag]["shape"] = (f"B={B}, H={H}, KH={KH}, Sq={S}, "
+                               f"Sk={sk or S}, D={D}, bf16, "
+                               f"{'causal' if causal else 'not causal'} "
+                               f"({what}, the model's views)")
+        torch.cuda.empty_cache()
+    bt = torch.bfloat16
+    N, d = 4 * 2048, 8192
+    x = torch.randn((N, d), generator=g, device=dev).to(bt)
+    r = torch.randn((N, d), generator=g, device=dev).to(bt)
+    sc = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+    err, ok = _close(rk.rmsnorm_residual_cuda(x, r, sc),
+                     rr.rmsnorm_residual_ref(x, r, sc), *RMS_TOL[bt])
+    check(ok, f"rmsnorm at qwen2-vl's rows {N}x{d}: {err}")
+    rb, rby = bound_ms(rk.rmsnorm_bytes(N, d, 2), rk.rmsnorm_flops(N, d),
+                       bw, f32)
+    norm = {"ms": device_time_ms(lambda: rk.rmsnorm_residual_cuda(x, r, sc),
+                                 100),
+            "plain_ms": device_time_ms(
+                lambda: rr.rmsnorm_residual_ref(x, r, sc), 20),
+            "bound_ms": rb, "bound_by": rby, "library_ms": None,
+            "max_abs_err": err,
+            "shape": f"N={N}, d={d}, bf16 (qwen2-vl prefill rows)"}
+    del x, r
+    torch.cuda.empty_cache()
+    out = {}
+    for name, fields in (("flash_attention", flash),
+                         ("rmsnorm_residual", {"qwen2vl": norm})):
+        out[name] = {f"{k}_{tag}": v for tag, f in fields.items()
+                     for k, v in f.items()}
+        for cell, rec in (("whisper", wserved), ("qwen2vl", qserved)):
+            out[name] |= {
+                f"launches_{cell}": rec["launches"][name],
+                f"launches_{cell}_per_prefill":
+                    rec["launches_per_prefill"][name],
+                f"launches_{cell}_per_step":
+                    rec["launches_per_decode_step"][name],
+                f"max_abs_err_{cell}_served":
+                    rec["kernels_on_activations"][name]["max_abs_diff"]}
+    return out
 
 
 # ---------------------------------------------------------------------------

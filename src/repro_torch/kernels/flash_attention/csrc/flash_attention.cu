@@ -4,12 +4,13 @@
 // Replaces the TPU kernel flash_attention of the JAX package
 // (src/repro/kernels/flash_attention/kernel.py, body _flash_kernel).
 //
-// For every batch b, head h and query row i < S:
+// For every batch b, head h and query row i < Sq:
 //   o[b,h,i] = softmax_j(q[b,h,i] . k[b,h/rep,j] * scale) . v[b,h/rep,j]
-// over j <= i when causal, all j < S otherwise; rep = H / KH; q and k
-// have DQK columns, v and o DV, and the wrapper passes scale = DQK^-1/2.
-// The
-// scores, the running max m, the running sum l and the accumulator are
+// over j <= i when causal (then Sk == Sq, which the wrapper checks), all
+// j < Sk otherwise; rep = H / KH; q and k have DQK columns, v and o DV,
+// and the wrapper passes scale = DQK^-1/2.  Sk != Sq is cross-attention
+// (models/attention.py::apply_cross_attn: decoder queries against the
+// encoder's frames).  The scores, the running max m, the running sum l and the accumulator are
 // f32; q, k, v and o are f32 or bf16.  Tensors come with strides (the
 // last axis contiguous), so the model's (B, S, H, D) projections are
 // read in place.
@@ -24,9 +25,10 @@
 //     inside the CTA walks the 64-row key/value tiles (the TPU kernel's
 //     sequential grid axis), staging each in shared memory, with the
 //     online softmax in f32.  Tiles wholly above the diagonal are never
-//     loaded; the diagonal tile and the ragged edge (any S >= 1; the TPU
-//     kernel needs S % bq == 0) mask elementwise with -1e30, as the TPU
-//     kernel does.
+//     loaded; the diagonal tile and the ragged edges (any Sq, Sk >= 1;
+//     the TPU kernel needs one S with S % bq == 0) mask elementwise with
+//     -1e30, as the TPU kernel does.  Sq sets the query grid and the q
+//     rows; Sk the key tiles, the K/V loads and the key masks.
 //   * f32 (flash_simt_kernel): CUDA-core fmaf.  256 threads; thread
 //     (ty, tx) owns a 4x4 block of the 64x64 score tile and the same 4
 //     rows of the output accumulator (DV/16 columns), so the softmax
@@ -43,7 +45,7 @@
 //       a 2-stage V ring; each tile completes on its own mbarrier, so
 //       tile t + 1 is in flight while tile t is in the math and the
 //       compute warps spend no instructions on copies.  The hardware
-//       zero-fills rows >= S; keys >= S are still masked, as a zero key
+//       zero-fills rows >= Sq (Q) or >= Sk (K, V); keys >= Sk are still masked, as a zero key
 //       scores 0, not -inf.  (16-byte cp.async copies into the same
 //       ring took 0.0461 ms against TMA's 0.0384 at Yi-6B's prefill on
 //       an H100 80GB HBM3 at 700 W.)
@@ -100,9 +102,11 @@ struct Strides {                 // element strides of (b, h, s); d is 1
     long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ int key_tiles(int S, int q0, int causal)
+// key tiles of the query tile at q0: all of them, or (causal, Sk == Sq)
+// those up to the diagonal
+__device__ __forceinline__ int key_tiles(int Sk, int q0, int causal)
 {
-    const int n = (S + BK - 1) / BK;
+    const int n = (Sk + BK - 1) / BK;
     if (!causal) return n;
     const int last = (q0 + BQ - 1) / BK + 1;
     return last < n ? last : n;
@@ -132,8 +136,8 @@ constexpr size_t simt_smem_bytes()
 template <int DQK, int DV>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int rep, Strides st, float scale, int causal)
+                  const float* __restrict__ v, float* __restrict__ o, int Sq,
+                  int Sk, int rep, Strides st, float scale, int causal)
 {
     // thread (ty, tx) owns output columns g * 16 * VW + tx * VW + j
     constexpr int VW = DV >= 64 ? 4 : 2;
@@ -153,7 +157,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     for (int e = tid; e < BQ * DQK; e += SIMT_THREADS) {
         const int r = e / DQK, d = e % DQK, i = q0 + r;
-        Qt[d * LDT + r] = i < S ? qp[i * st.qs + d] : 0.f;
+        Qt[d * LDT + r] = i < Sq ? qp[i * st.qs + d] : 0.f;
     }
 
     float m[4], l[4], acc[4][DV / 16];
@@ -165,13 +169,13 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < DV / 16; ++c) acc[i][c] = 0.f;
     }
 
-    const int nt = key_tiles(S, q0, causal);
+    const int nt = key_tiles(Sk, q0, causal);
     for (int t = 0; t < nt; ++t) {
         const int k0 = t * BK;
         __syncthreads();                     // KV and Pt free again
         for (int e = tid; e < BK * DQK; e += SIMT_THREADS) {
             const int r = e / DQK, d = e % DQK, j = k0 + r;
-            KV[d * LDT + r] = j < S ? kp[j * st.ks + d] : 0.f;
+            KV[d * LDT + r] = j < Sk ? kp[j * st.ks + d] : 0.f;
         }
         __syncthreads();
 
@@ -203,7 +207,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int j = 0; j < 4; ++j) {
                 const int kj = k0 + tx * 4 + j;
                 float x = s[i][j] * scale;
-                if (kj >= S || (causal && kj > qi)) x = NEG_INF;
+                if (kj >= Sk || (causal && kj > qi)) x = NEG_INF;
                 s[i][j] = x;
                 mx = fmaxf(mx, x);
             }
@@ -236,7 +240,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 Pt[(tx * 4 + j) * LDT + ty * 4 + i] = s[i][j];
         for (int e = tid; e < BK * DV; e += SIMT_THREADS) {
             const int r = e / DV, d = e % DV, j = k0 + r;
-            KV[r * DV + d] = j < S ? vp[j * st.vs + d] : 0.f;
+            KV[r * DV + d] = j < Sk ? vp[j * st.vs + d] : 0.f;
         }
         __syncthreads();
 
@@ -269,7 +273,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty * 4 + i;
-        if (qi >= S) continue;
+        if (qi >= Sq) continue;
         const float lv = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int g = 0; g < NG; ++g)
@@ -331,9 +335,10 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
         :: "r"(bar), "r"(parity) : "memory");
 }
 
-// rows r0 .. r0+63 of head h, batch b of a (B, heads, S, D) tensor into
-// the swizzled tile at dst, one TMA box (RB bytes x 64 rows) per column
-// block; the hardware zero-fills rows >= S and signals `bar`
+// rows r0 .. r0+63 of head h, batch b of a (B, heads, rows, D) tensor
+// into the swizzled tile at dst, one TMA box (RB bytes x 64 rows) per
+// column block; the hardware zero-fills rows past the map's and signals
+// `bar`
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map,
                                          uint32_t bar, int r0, int h, int b)
@@ -564,22 +569,22 @@ __device__ __forceinline__ float ex2(float x)
 // The online softmax of one score tile in wgmma's accumulator layout:
 // s[4 * n8 + e] is row r0 (e = 0, 1) or r0 + 8 (e = 2, 3) of the
 // thread's warp, key k0 + n8 * 8 + 2 * t4 + (e & 1).  Masks the keys
-// >= S and, when causal, above the diagonal; leaves P in s, updates m
+// >= Sk and, when causal, above the diagonal; leaves P in s, updates m
 // and l (m in log2 units: scores times sl2 = scale log2 e), and gives
 // alpha, the factor for O.
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    int k0, int q0, int S, int causal, const int (&qrow)[2], int t4,
+    int k0, int q0, int Sk, int causal, const int (&qrow)[2], int t4,
     float sl2)
 {
-    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
         const int row = (i >> 1) & 1;
         if (edge) {
             const int kj = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
-            if (kj >= S || (causal && kj > qrow[row])) s[i] = NEG_INF;
+            if (kj >= Sk || (causal && kj > qrow[row])) s[i] = NEG_INF;
         }
         mx[row] = fmaxf(mx[row], s[i]);
     }
@@ -622,8 +627,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      __nv_bfloat16* __restrict__ o, int S, int rep,
-                      Strides st, float scale, int causal)
+                      __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+                      int rep, Strides st, float scale, int causal)
 {
     constexpr uint32_t QK_BYTES = TileShape<DQK>::BYTES;
     constexpr uint32_t V_BYTES = TileShape<DV>::BYTES;
@@ -655,7 +660,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = warp * 16 + (lane >> 2);
     const int qrow[2] = {q0 + r0, q0 + r0 + 8};
     const float sl2 = scale * LOG2E;   // scores in log2 units
-    const int nt = key_tiles(S, q0, causal);
+    const int nt = key_tiles(Sk, q0, causal);
 
     // thread 0 issues every copy: Q, K0, K1 and V0 now, then K(t+1) and
     // V(t) at the top of iteration t, once the barrier there has shown
@@ -683,7 +688,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     issue_qk<DQK>(s, Qs, kst(0));
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, m, l, alpha, 0, q0, S, causal, qrow, t4, sl2);
+    softmax_tile(s, m, l, alpha, 0, q0, Sk, causal, qrow, t4, sl2);
     pack_p(s, pf);
 
     // iteration t: S(t) and P V(t-1) are in flight together, and the
@@ -704,7 +709,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         issue_pv<DV>(acc, pf, vst(t - 1));
         wgmma_wait<1>();             // S(t)
         fence_regs(s);
-        softmax_tile(s, m, l, alpha, t * BK, q0, S, causal, qrow, t4, sl2);
+        softmax_tile(s, m, l, alpha, t * BK, q0, Sk, causal, qrow, t4,
+                     sl2);
         wgmma_wait<0>();             // P V(t-1)
         fence_regs(acc);
         pack_p(s, pf);
@@ -720,7 +726,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
         const int qi = qrow[row];
-        if (qi >= S) continue;
+        if (qi >= Sq) continue;
         const float inv = 1.f / fmaxf(l[row], 1e-30f);
 #pragma unroll
         for (int dn = 0; dn < DV / 8; ++dn) {
@@ -744,8 +750,8 @@ cudaError_t allow_smem(K kernel, size_t bytes)
 
 template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                dim3 grid, int S, int rep, const Strides& st, float scale,
-                int causal, cudaStream_t stream)
+                dim3 grid, int Sq, int Sk, int rep, const Strides& st,
+                float scale, int causal, cudaStream_t stream)
 {
     constexpr size_t smem = simt_smem_bytes<DQK, DV>();
     static bool ready = false;
@@ -755,8 +761,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
         ready = true;
     }
     flash_simt_kernel<DQK, DV><<<grid, SIMT_THREADS, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, S,
-        rep, st, scale, causal);
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq,
+        Sk, rep, st, scale, causal);
     return (int)cudaGetLastError();
 }
 
@@ -788,7 +794,8 @@ EncodeTiledFn encode_tiled()
 
 // A 4-D tensor map over (d, s, head, b) of a bf16 (B, heads, S, D)
 // tensor with element strides (sb, sh, ss), in boxes of RB bytes x 64
-// rows swizzled as the tiles are; rows past S read as zeros
+// rows swizzled as the tiles are; rows past S read as zeros.  Q's map
+// has Sq rows, K's and V's Sk.
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
               long long sb, long long sh, long long ss)
@@ -813,8 +820,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
 
 template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                dim3 grid, int S, int rep, const Strides& st, float scale,
-                int causal, cudaStream_t stream)
+                dim3 grid, int Sq, int Sk, int rep, const Strides& st,
+                float scale, int causal, cudaStream_t stream)
 {
     constexpr size_t smem = fa_smem_bytes<DQK, DV>();
     static bool ready = false;
@@ -825,65 +832,66 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     }
     const int B = grid.z, H = grid.y, KH = H / rep;
     CUtensorMap tq, tk, tv;
-    if (!make_map<DQK>(&tq, q, B, H, S, st.qb, st.qh, st.qs) ||
-        !make_map<DQK>(&tk, k, B, KH, S, st.kb, st.kh, st.ks) ||
-        !make_map<DV>(&tv, v, B, KH, S, st.vb, st.vh, st.vs))
+    if (!make_map<DQK>(&tq, q, B, H, Sq, st.qb, st.qh, st.qs) ||
+        !make_map<DQK>(&tk, k, B, KH, Sk, st.kb, st.kh, st.ks) ||
+        !make_map<DV>(&tv, v, B, KH, Sk, st.vb, st.vh, st.vs))
         return (int)cudaErrorInvalidValue;
     flash_fwd_bf16_kernel<DQK, DV><<<grid, FA_THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)o, S, rep, st, scale, causal);
+        tq, tk, tv, (__nv_bfloat16*)o, Sq, Sk, rep, st, scale, causal);
     return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             dim3 grid, int S, int rep, const Strides& st, float scale,
-             int causal, int dtype, cudaStream_t stream)
+             dim3 grid, int Sq, int Sk, int rep, const Strides& st,
+             float scale, int causal, int dtype, cudaStream_t stream)
 {
     if (dtype == 0)
-        return launch_simt<DQK, DV>(q, k, v, o, grid, S, rep, st, scale,
+        return launch_simt<DQK, DV>(q, k, v, o, grid, Sq, Sk, rep, st, scale,
                                     causal, stream);
-    return launch_bf16<DQK, DV>(q, k, v, o, grid, S, rep, st, scale, causal,
-                                stream);
+    return launch_bf16<DQK, DV>(q, k, v, o, grid, Sq, Sk, rep, st, scale,
+                                causal, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, H, S, D), k (B, KH, S, D), v (B, KH, S, Dv), o (B, H, S, Dv),
-// each with element strides (b, h, s) and a contiguous last axis;
-// (D, Dv) is one of the pairs the switch below takes.  dtype: 0 = f32
+// q (B, H, Sq, D), k (B, KH, Sk, D), v (B, KH, Sk, Dv), o (B, H, Sq,
+// Dv), each with element strides (b, h, s) and a contiguous last axis;
+// (D, Dv) is one of the pairs the switch below takes; causal needs
+// Sq == Sk.  dtype: 0 = f32
 // (the SIMT kernel), 1 = bf16 (the wgmma kernel).  Launches on `stream`;
 // returns the cudaError_t of the launch (0 = ok).
 int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KH, int S, int D, int Dv,
+    int B, int H, int KH, int Sq, int Sk, int D, int Dv,
     long long qb, long long qh, long long qs,
     long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs,
     long long ob, long long oh, long long os,
     float scale, int causal, int dtype, void* stream)
 {
-    if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0 ||
-        dtype < 0 || dtype > 1)
+    if (B <= 0 || H <= 0 || KH <= 0 || Sq <= 0 || Sk <= 0 || H % KH != 0 ||
+        (causal && Sq != Sk) || dtype < 0 || dtype > 1)
         return (int)cudaErrorInvalidValue;
     const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    const dim3 grid((Sq + BQ - 1) / BQ, H, B);
     const int rep = H / KH;
     cudaStream_t s = (cudaStream_t)stream;
     switch (D * 1000 + Dv) {
     case 32032:
-        return launch_d<32, 32>(q, k, v, o, grid, S, rep, st, scale, causal,
-                                dtype, s);
+        return launch_d<32, 32>(q, k, v, o, grid, Sq, Sk, rep, st,
+                                scale, causal, dtype, s);
     case 64064:
-        return launch_d<64, 64>(q, k, v, o, grid, S, rep, st, scale, causal,
-                                dtype, s);
+        return launch_d<64, 64>(q, k, v, o, grid, Sq, Sk, rep, st,
+                                scale, causal, dtype, s);
     case 128128:
-        return launch_d<128, 128>(q, k, v, o, grid, S, rep, st, scale,
-                                  causal, dtype, s);
+        return launch_d<128, 128>(q, k, v, o, grid, Sq, Sk, rep, st,
+                                  scale, causal, dtype, s);
     case 192128:
-        return launch_d<192, 128>(q, k, v, o, grid, S, rep, st, scale,
-                                  causal, dtype, s);
+        return launch_d<192, 128>(q, k, v, o, grid, Sq, Sk, rep, st,
+                                  scale, causal, dtype, s);
     default:
         return (int)cudaErrorInvalidValue;
     }

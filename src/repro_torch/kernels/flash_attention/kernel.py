@@ -4,9 +4,13 @@
 ``flash_attention_cuda`` replaces the JAX package's ``flash_attention``
 (``kernels/flash_attention/kernel.py:86``): one CTA per (b, h, 64-row
 query tile), an online softmax in f32 over 64-row key tiles, tiles
-above the diagonal skipped, any S ≥ 1, q·k and v head dims (D, Dv) one
-of ``HEAD_DIM_PAIRS``: D = Dv ∈ {32, 64, 128}, or (192, 128), multi-head
-latent attention's prefill (``models/mla.py``).  bf16 runs on
+above the diagonal skipped, any query and key lengths Sq, Sk ≥ 1 (the
+TPU kernel takes one S): Sq ≠ Sk is cross-attention, decoder queries
+against encoder frames (``models/attention.py::apply_cross_attn``), and
+is not causal — a causal call with Sq ≠ Sk raises.  q·k and v head
+dims (D, Dv) are one of ``HEAD_DIM_PAIRS``: D = Dv ∈ {32, 64, 128}, or
+(192, 128), multi-head latent attention's prefill (``models/mla.py``).
+bf16 runs on
 Hopper's ``wgmma`` tensor-core products fed by a TMA ring of swizzled
 K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores.
 ``attention_flops`` and ``attention_bytes`` give its least work and
@@ -18,9 +22,10 @@ allocates the output, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
 its ``launches`` attribute.  Inputs may carry any strides with a
 contiguous last axis, so the model's (B, S, H, D) projections go in as
-transposed views, and v may be a strided slice of a wider product (MLA's
-``wkv_b`` output); the output is (B, H, S, Dv) laid out as (B, S, H, Dv)
-in memory, so the model's transpose back is free.
+transposed views (the cross-attention's k and v too, from the (B, F,
+KH, D) cache), and v may be a strided slice of a wider product (MLA's
+``wkv_b`` output); the output is (B, H, Sq, Dv) laid out as (B, Sq, H,
+Dv) in memory, so the model's transpose back is free.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
-        [_VOIDP] * 4 + [_INT] * 6 + [_LL] * 12
+        [_VOIDP] * 4 + [_INT] * 7 + [_LL] * 12
         + [ctypes.c_float, _INT, _INT, _VOIDP])
     lib.flash_attention_launch.restype = _INT
     lib.flash_attention_error_string.argtypes = [_INT]
@@ -58,12 +63,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def attention_flops(b: int, h: int, s: int, d: int, causal: bool,
-                    dv: int | None = None) -> int:
+                    dv: int | None = None, sk: int | None = None) -> int:
     """Multiply-adds ×2 of q·kᵀ (over d) and p·v (over dv, default d)
     over the (query, key) pairs the mask keeps: S(S+1)/2 per head when
-    causal, S² otherwise."""
+    causal, Sq·Sk otherwise (``s`` queries, ``sk`` keys, default s)."""
     dv = d if dv is None else dv
-    pairs = s * (s + 1) // 2 if causal else s * s
+    sk = s if sk is None else sk
+    pairs = s * (s + 1) // 2 if causal else s * sk
     return 2 * b * h * (d + dv) * pairs
 
 
@@ -82,38 +88,46 @@ def flash_smem_bytes(d: int, dv: int | None = None) -> int:
 
 
 def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
-                    itemsize: int, dv: int | None = None) -> int:
-    """Least HBM traffic: read q, k (d columns), v (dv, default d) and
-    write o (dv) once."""
+                    itemsize: int, dv: int | None = None,
+                    sk: int | None = None) -> int:
+    """Least HBM traffic: read q (``s`` rows of d), k (``sk`` rows,
+    default s, of d), v (sk rows of dv, default d) and write o (s rows
+    of dv) once."""
     dv = d if dv is None else dv
-    return itemsize * s * b * ((h + kh) * d + (kh + h) * dv)
+    sk = s if sk is None else sk
+    return itemsize * b * (s * h * (d + dv) + sk * kh * (d + dv))
 
 
 def flash_attention_cuda(
-    q: torch.Tensor,   # (B, H, S, D) f32 or bf16, CUDA
-    k: torch.Tensor,   # (B, KH, S, D) same dtype
-    v: torch.Tensor,   # (B, KH, S, Dv)
+    q: torch.Tensor,   # (B, H, Sq, D) f32 or bf16, CUDA
+    k: torch.Tensor,   # (B, KH, Sk, D) same dtype
+    v: torch.Tensor,   # (B, KH, Sk, Dv)
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Attention on the card, scores scaled by D^-½; returns (B, H, S,
-    Dv) in q's dtype."""
+    """Attention on the card, scores scaled by D^-½; returns (B, H, Sq,
+    Dv) in q's dtype.  ``causal`` needs Sk == Sq."""
     check_no_grad("flash_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
     if q.ndim != 4:
-        raise ValueError(f"q must be (B, H, S, D), got {tuple(q.shape)}")
+        raise ValueError(f"q must be (B, H, Sq, D), got {tuple(q.shape)}")
     B, H, S, D = q.shape
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
                         f"{sorted(map(str, DTYPE_CODES))}")
     if k.ndim != 4 or k.shape[1] == 0 or H % k.shape[1]:
-        raise ValueError(f"k must be (B, KH, S, D) with H % KH == 0, got "
+        raise ValueError(f"k must be (B, KH, Sk, D) with H % KH == 0, got "
                          f"{tuple(k.shape)} for H={H}")
     if v.ndim != 4:
-        raise ValueError(f"v must be (B, KH, S, Dv), got {tuple(v.shape)}")
-    KH, Dv = k.shape[1], v.shape[-1]
+        raise ValueError(f"v must be (B, KH, Sk, Dv), got {tuple(v.shape)}")
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if causal and Sk != S:
+        raise ValueError(f"causal attention needs as many keys as queries, "
+                         f"got Sq={S}, Sk={Sk}")
+    if Sk == 0 and S > 0:
+        raise ValueError("no keys to attend to (Sk = 0)")
     if (D, Dv) not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims (q·k {D}, v {Dv}) not supported; the "
                          f"kernel takes {HEAD_DIM_PAIRS}")
@@ -122,9 +136,9 @@ def flash_attention_cuda(
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {q.dtype}")
-        if tuple(t.shape) != (B, KH, S, dt):
+        if tuple(t.shape) != (B, KH, Sk, dt):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(B, KH, S, dt)}")
+                             f"{(B, KH, Sk, dt)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
@@ -144,7 +158,7 @@ def flash_attention_cuda(
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KH, S, D, Dv, *q.stride()[:3], *k.stride()[:3],
+            B, H, KH, S, Sk, D, Dv, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], D ** -0.5, int(causal),
             DTYPE_CODES[q.dtype], stream)
     if err != 0:

@@ -44,9 +44,10 @@ class FlashAttention(torch.autograd.Function):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
-    """softmax(q·kᵀ·D^-½)·v with kv head ``h // (H/KH)``; q (B, H, S, D),
-    k (B, KH, S, D) and v (B, KH, S, Dv), Dv = D or not (MLA's 192 / 128).
-    Returns (B, H, S, Dv) in q's dtype."""
+    """softmax(q·kᵀ·D^-½)·v with kv head ``h // (H/KH)``; q (B, H, Sq, D),
+    k (B, KH, Sk, D) and v (B, KH, Sk, Dv), Dv = D or not (MLA's 192 /
+    128), Sk = Sq or not (cross-attention, which is not causal: a causal
+    call with Sk ≠ Sq raises).  Returns (B, H, Sq, Dv) in q's dtype."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type == "cuda":

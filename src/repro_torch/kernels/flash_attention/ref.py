@@ -1,10 +1,12 @@
-"""Plain PyTorch version of causal GQA attention (full softmax).
+"""Plain PyTorch version of GQA attention, causal or not (full softmax).
 
 A copy of the JAX package's ``kernels/flash_attention/ref.py``: scores
 in f32 (f64 for f64 inputs) scaled by q's head dim D^-½, probabilities
 cast to q's dtype before the product with v.  v's head dim may differ
-from q's and k's (MLA: 192 for q·k, 128 for v), as in the JAX model's
-``chunked_attention``; the output takes v's.
+from q's and k's (MLA: 192 for q·k, 128 for v), and the keys' length
+from the queries' (cross-attention, not causal), as in the JAX model's
+``chunked_attention``; the output takes v's head dim and q's length.
+A causal call with Sk ≠ Sq raises, as the kernel's wrapper does.
 """
 from __future__ import annotations
 
@@ -14,14 +16,17 @@ NEG_INF = -1e30
 
 
 def attention_ref(
-    q: torch.Tensor,   # (B, H, S, D)
-    k: torch.Tensor,   # (B, KH, S, D)
-    v: torch.Tensor,   # (B, KH, S, Dv)
+    q: torch.Tensor,   # (B, H, Sq, D)
+    k: torch.Tensor,   # (B, KH, Sk, D)
+    v: torch.Tensor,   # (B, KH, Sk, Dv)
     *,
     causal: bool = True,
 ) -> torch.Tensor:
     B, H, S, D = q.shape
     KH = k.shape[1]
+    if causal and k.shape[2] != S:
+        raise ValueError(f"causal attention needs as many keys as queries, "
+                         f"got Sq={S}, Sk={k.shape[2]}")
     rep = H // KH
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=1)

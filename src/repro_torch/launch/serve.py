@@ -6,11 +6,20 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-vl-72b --smoke --device cpu
 
 The JAX package's ``launch/serve.py`` on one card, for any architecture
 the port serves (the decode cache is a KV cache for attention layers and
 the O(1) conv tails and SSD state for mamba layers; MoE layers keep no
-cache).  Weights are drawn on the device from a seeded
+cache; whisper's cross-attention layers keep the encoder frames'
+projected k and v).  The stubbed frontends' inputs are drawn as the JAX
+CLI draws them: qwen2-vl's patch embeddings (``embeds``) and its M-RoPE
+``positions`` (one ``arange`` on all three rows), whisper's frame
+embeddings (``enc_embeds``); decode continues M-RoPE from each
+request's largest position + 1.  Weights are drawn on the device from a seeded
 ``torch.Generator`` there (Jamba's 13.3 B-parameter period in 0.11 s on
 an H100), never on the host and copied; prompts and samples come from a
 second generator.  ``--device`` defaults to ``cuda`` and
@@ -52,6 +61,51 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int,
                          generator=rng, device=rng.device)
 
 
+def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int,
+                rng: torch.Generator) -> dict:
+    """The prefill inputs beside the prompt tokens that ``cfg`` takes, as
+    the JAX serve CLI makes them: ``embeds`` (B, P, d) and ``enc_embeds``
+    (B, frames, d), unit normals rounded to bf16, and M-RoPE
+    ``positions`` (B, 3, P), one ``arange`` on all three rows."""
+    out = {}
+    dev = rng.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=rng, device=dev).to(
+            torch.bfloat16)
+
+    if cfg.input_mode == "embeds":
+        out["embeds"] = normal(batch, prompt_len, cfg.d_model)
+    if cfg.rope_type == "mrope":
+        out["positions"] = torch.arange(
+            prompt_len, dtype=torch.int32, device=dev).expand(
+                batch, 3, prompt_len).contiguous()
+    if cfg.cross_attention:
+        out["enc_embeds"] = normal(batch, cfg.encoder_frames, cfg.d_model)
+    return out
+
+
+def image_positions(batch: int, text_before: int, grid_h: int, grid_w: int,
+                    text_after: int, device=None) -> torch.Tensor:
+    """M-RoPE positions (B, 3, S) of a prompt with one image, as
+    Qwen2-VL's ``get_rope_index`` lays them out: ``text_before`` text
+    tokens at 0, 1, ... on all three rows; the ``grid_h`` × ``grid_w``
+    (merged) patches of one frame, the temporal row constant, the height
+    row the patch's row and the width row its column, all offset by
+    ``text_before``; then ``text_after`` text tokens from the grid's
+    largest position + 1.  S = text_before + grid_h·grid_w + text_after;
+    the three rows differ on the grid."""
+    n = grid_h * grid_w
+    t = torch.full((n,), text_before)
+    h = text_before + torch.arange(grid_h).repeat_interleave(grid_w)
+    w = text_before + torch.arange(grid_w).repeat(grid_h)
+    start = text_before + max(grid_h, grid_w)
+    rows = [torch.cat([torch.arange(text_before), r,
+                       start + torch.arange(text_after)]) for r in (t, h, w)]
+    return torch.stack(rows).to(device, torch.int32).expand(
+        batch, 3, -1).contiguous()
+
+
 @dataclasses.dataclass
 class ServeResult:
     tokens: torch.Tensor         # (B, gen) sampled ids
@@ -74,13 +128,20 @@ def _counts() -> dict[str, int]:
 
 
 def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
-          temperature: float = 0.0,
+          inputs: dict | None = None, temperature: float = 0.0,
           rng: torch.Generator | None = None) -> ServeResult:
-    """Prefill ``prompts`` (B, P), then ``gen - 1`` decode steps,
-    sampling greedily (``temperature <= 0``) or from the tempered
-    softmax with ``rng``.  Times end in a synchronise."""
+    """Prefill ``prompts`` (B, P) with the other ``inputs`` the config
+    takes (``make_inputs``), then ``gen - 1`` decode steps, sampling
+    greedily (``temperature <= 0``) or from the tempered softmax with
+    ``rng``.  With M-RoPE ``positions`` (B, 3, P), step i of request b
+    sits at position max(positions[b]) + 1 + i on all three rows (the
+    cache index stays P + i).  Times end in a synchronise."""
     dev = prompts.device
     B, P = prompts.shape
+    inputs = dict(inputs or {})
+    nxt = None
+    if "positions" in inputs:
+        nxt = inputs["positions"].amax(dim=(1, 2)) + 1       # (B,)
     prefill = serve_step.build_prefill(cfg, max_seq=P + gen)
     decode = serve_step.build_decode(cfg)
 
@@ -93,14 +154,17 @@ def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
     _sync(dev)
     c0 = _counts()
     t0 = time.monotonic()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"tokens": prompts, **inputs})
     _sync(dev)
     t_prefill = time.monotonic() - t0
     c1 = _counts()
     toks, lg = [sample(logits)], logits
     t0 = time.monotonic()
     for i in range(gen - 1):
-        lg, cache = decode(params, cache, {"token": toks[-1], "pos": P + i})
+        step = {"token": toks[-1], "pos": P + i}
+        if nxt is not None:
+            step["positions"] = (nxt + i)[:, None].expand(B, 3)
+        lg, cache = decode(params, cache, step)
         toks.append(sample(lg))
     _sync(dev)
     t_decode = time.monotonic() - t0
@@ -132,7 +196,8 @@ def main(argv=None):
     params = make_params(cfg, dev, seed=0)
     rng = torch.Generator(device=dev).manual_seed(1)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, rng)
-    res = serve(cfg, params, prompts, args.gen,
+    inputs = make_inputs(cfg, args.batch, args.prompt_len, rng)
+    res = serve(cfg, params, prompts, args.gen, inputs=inputs,
                 temperature=args.temperature, rng=rng)
     B, steps = args.batch, res.decode_steps
     print(f"[serve] prefill {args.prompt_len} tok × {B}: "

@@ -1,6 +1,7 @@
-"""GQA attention: the flash kernel in prefill, a cached decode step.
+"""GQA attention: the flash kernel in prefill, a cached decode step,
+and whisper's cross-attention.
 
-The JAX package's ``models/attention.py`` for the dense path:
+The JAX package's ``models/attention.py``:
 
 * prefill: q, k and v are projected in the model's (B, S, H, D) layout
   and handed to the attention kernel as (B, H, S, D) views
@@ -11,6 +12,13 @@ The JAX package's ``models/attention.py`` for the dense path:
   that mirrors the JAX package's — q·Kᵀ over the whole cache in f32,
   the ``pos`` mask, softmax, probs·V.  The JAX package computes decode
   attention outside any Pallas kernel too (its kernel needs Sq == Sk).
+* cross-attention (whisper's decoder): k and v are projected once from
+  the encoder's output into the cross cache (``cross_kv``, B × frames
+  × KH × D); the decoder's queries attend to all of them, not causally
+  — in prefill through the flash kernel with Sq = the prompt and Sk =
+  the frames, in decode as a composition of torch ops (f32 scores,
+  softmax, probabilities cast to the compute dtype before the product
+  with v, as the JAX package's ``chunked_attention`` computes them).
 
 Each weight is cast to the compute dtype at its use, as in the JAX
 package.  The decode cache is updated in place (``cache[:, pos] =
@@ -134,4 +142,53 @@ def apply_attn_decode(
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bgrs,bsgd->bgrd", probs, v).reshape(B, H, Dh)
+    return _out(ctx, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_cache_schema(cfg: ModelConfig, batch: int):
+    KH, Dh, F = cfg.num_kv_heads, cfg.head_dim, cfg.encoder_frames
+    axes = ("batch", "frames", "kv_heads", "head_dim")
+    return {
+        "k": zeros_param((batch, F, KH, Dh), axes, cfg.cdtype),
+        "v": zeros_param((batch, F, KH, Dh), axes, cfg.cdtype),
+    }
+
+
+def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """The cross cache of one layer: enc_out (B, F, d) projected by the
+    layer's wk and wv to (B, F, KH, Dh) each."""
+    dt = cfg.cdtype
+    e = enc_out.to(dt)
+    return {"k": _project(e, p["wk"].to(dt)),
+            "v": _project(e, p["wv"].to(dt))}
+
+
+def apply_cross_attn(
+    cfg: ModelConfig,
+    p,
+    x: torch.Tensor,              # (B, S, d) or (B, d)
+    kv,                           # cross cache {"k","v"} (B, F, KH, Dh)
+):
+    _no_softcap(cfg)
+    dt = cfg.cdtype
+    x = x.to(dt)
+    q = _project(x, p["wq"].to(dt))
+    k, v = kv["k"], kv["v"]
+    if x.ndim == 3:                               # prefill: the kernel
+        out = attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=False).transpose(1, 2)
+        return _out(out, p["wo"].to(dt))
+    B, H, Dh = q.shape                            # decode: one query
+    KH = k.shape[2]
+    qf = q.reshape(B, KH, H // KH, Dh)
+    scores = torch.einsum(
+        "bgrd,bfgd->bgrf", qf.to(torch.float32), k.to(torch.float32)
+    ) * (Dh ** -0.5)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bgrf,bfgd->bgrd", probs, v).reshape(B, H, Dh)
     return _out(ctx, p["wo"].to(dt))

@@ -15,7 +15,9 @@ layer's leaves come across the same way: the router in f32 under both
 schemas (its spec is pinned), the experts in the compute or the
 parameter dtype, as the schema says; so do an MLA layer's (``wq_a``,
 ``q_norm``, ``wq_b`` or ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``,
-``wo``) and DeepSeek-V3's ``mtp`` subtree, which ``schema`` declares.
+``wo``), DeepSeek-V3's ``mtp`` subtree, whisper's ``encoder`` subtree,
+its decoder layers' ``norm_x`` and ``cross`` projections and every
+layernorm's ``bias``, all of which ``schema`` declares.
 The other direction needs no code: the port's leaves as numpy arrays
 are the JAX pytree.
 """

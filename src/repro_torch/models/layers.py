@@ -1,43 +1,63 @@
-"""Shared layers of the decoder: norms, the MLPs, rotary embeddings and
-the token embeddings.
+"""Shared layers: norms, the MLPs, rotary embeddings (M-RoPE too),
+sinusoidal positions and the token embeddings.
 
-The JAX package's ``models/layers.py`` for the pieces the port's models
-use, op for op, each weight cast to the compute dtype at its use as
-there (a no-op for serving's leaves, stored in it).  The MLP takes all
-three activations: SwiGLU, squared ReLU (``relu2``, no gate) and the
-tanh-approximated GELU.  M-RoPE, sinusoidal positions and layernorm
-raise ``NotImplementedError``.  The residual → norm seams of the decoder
-do not call ``apply_norm``: they go through the fused kernel
+The JAX package's ``models/layers.py``, op for op, each weight cast to
+the compute dtype at its use as there (a no-op for serving's leaves,
+stored in it).  The norms are RMSNorm and layernorm (scale and bias;
+mean, population variance and ``rsqrt(var + eps)`` in f32).  The MLP
+takes all three activations: SwiGLU, squared ReLU (``relu2``, no gate)
+and the tanh-approximated GELU.  M-RoPE (Qwen2-VL) drives each section
+of the rotary frequencies by its own row of (temporal, height, width)
+positions; the JAX package's one-hot einsum picks the section, a gather
+here, bitwise the same in f32.  The sinusoidal table (whisper) is built
+in numpy as there, so the two packages' tables are bitwise equal.  The
+decoder's residual → norm seams of an RMSNorm config do not call
+``apply_norm``: they go through the fused kernel
 (``kernels/rmsnorm/ops.py``), see ``models/transformer.py``.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import normal_param, param, scale_param
+from repro_torch.models.params import (
+    normal_param,
+    param,
+    scale_param,
+    zeros_param,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
 
-def _rmsnorm_only(cfg: ModelConfig) -> None:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r}; the port has rmsnorm only")
-
-
 def norm_schema(cfg: ModelConfig, d: int | None = None):
-    _rmsnorm_only(cfg)
     d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": scale_param((d,), ("d_model",), cfg.pdtype),
+                "bias": zeros_param((d,), ("d_model",), cfg.pdtype)}
     return {"scale": scale_param((d,), ("d_model",), cfg.pdtype)}
 
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    _rmsnorm_only(cfg)
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -74,7 +94,7 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + M-RoPE) and sinusoidal absolute positions
 # ---------------------------------------------------------------------------
 
 
@@ -91,6 +111,32 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                  sections):
+    """M-RoPE (Qwen2-VL): positions (B, 3, S) -> cos/sin (B, S, dim/2).
+    The rotary frequency indices are split into temporal, height and
+    width sections (half-dim units summing to dim/2), each driven by its
+    own position row."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"{dim // 2}")
+    freqs = rope_freqs(dim, theta, positions.device)
+    ang = positions.to(torch.float32)[..., None] * freqs     # (B,3,S,D2)
+    ang = mrope_select(ang, sections)                         # (B,S,D2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_select(ang: torch.Tensor, sections) -> torch.Tensor:
+    """ang (B, 3, S, D2) -> (B, S, D2): frequency j takes the row of its
+    section (the JAX package's ``_mrope_select``, a gather in place of
+    its one-hot einsum)."""
+    # each frequency's section, from arange (no host-to-device copy)
+    ar = torch.arange(ang.shape[-1], device=ang.device)
+    sel = (ar >= sections[0]).long() + (ar >= sections[0] + sections[1])
+    idx = sel.expand(ang.shape[0], 1, ang.shape[2], -1)
+    return torch.gather(ang, 1, idx)[:, 0]
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x (..., S, H, D); cos/sin broadcastable to (..., S, 1, D/2).
@@ -103,6 +149,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     out1 = xf1 * cos - xf2 * sin
     out2 = xf2 * cos + xf1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (n, d), float32: the JAX
+    package's numpy computation, bitwise.  Kept per (n, d, device), so
+    a decode step copies nothing to the card; callers must not write to
+    it.  Row i is the same for every n > i."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = np.exp(-np.log(10000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

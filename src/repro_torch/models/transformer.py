@@ -1,6 +1,8 @@
 """Decoder stack: attention, multi-head latent attention (MLA) and
 Mamba-2 layers, each with a dense MLP, a mixture-of-experts MLP or
-(Mamba) none, in any pattern of the config's blocks.
+(Mamba) none, in any pattern of the config's blocks, and with
+cross-attention to an encoder's output between the mixer and the MLP
+where the config has it (whisper's decoder).
 
 The JAX package's ``models/transformer.py``, with a Python loop over the
 stacked layers in place of ``lax.scan`` / ``fori_loop``.  Parameters
@@ -10,20 +12,25 @@ leading axis, and layer ``i`` is the view ``a[i]`` of every leaf.
 The residual → norm seams are fused.  Where the JAX layer computes
 ``x = x + y; h = apply_norm(norm, x)``, the port makes one
 ``rmsnorm_residual(x, y, scale)`` call (the Hopper kernel on the card)
-that returns ``(h, x)``.  A layer therefore returns its last output (the
+that returns ``(h, x)``; a layernorm config (whisper) computes the same
+pair in plain torch ops, as the JAX package computes layernorm outside
+any Pallas kernel.  A layer therefore returns its last output (the
 MLP's, or the mixer's in a layer without an MLP) un-added, and the next
 layer's ``norm1`` adds it; the last layer's is added by the model's
 ``final_norm``.  Layer 0's ``norm1`` calls the kernel with a zero
 residual: ``x + 0`` is ``x`` exactly, so that norm equals
 ``apply_norm``, and every norm of the path runs on the one kernel —
-``Σ(1 + [mlp ≠ none]) + 1`` launches per pass — for one extra read of a
-zero tensor.  A layer with an MLP, attention or Mamba, takes its
-``norm2`` seam the same way.
+``Σ(1 + [cross] + [mlp ≠ none]) + 1`` launches per pass — for one
+extra read of a zero tensor.  A layer with an MLP, attention or Mamba,
+takes its ``norm2`` seam the same way, and a cross-attention layer its
+``norm_x`` seam before the cross-attention.
 
 A MoE layer's aux terms (``lb_loss + z_loss``) are carried out of each
 layer and block in the order the JAX package sums them, one running
 sum over the layers; a dense layer adds nothing.  Decode drops them, as
-the JAX package does.  Cross-attention raises ``NotImplementedError``.
+the JAX package does.  The cross-attention's k and v come from the
+encoder's output in prefill (stored in the layer's cross cache) and from
+that cache in decode.
 
 Training runs the same layers with no cache, each repeat unit of a
 block under ``remat_wrap`` (the JAX package's ``jax.checkpoint`` of its
@@ -47,7 +54,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import apply_mlp, mlp_schema, norm_schema
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    mlp_schema,
+    norm_schema,
+)
 from repro_torch.models.params import stack_schema, tree_map
 
 
@@ -97,12 +109,13 @@ def remat_wrap(cfg: ModelConfig, fn, override: str | None = None):
 
 
 def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
-    """``(apply_norm(x + res), x + res)`` in one fused call over the
-    last axis; the sum is kept in f32 for the norm and returned in x's
-    dtype."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r}; the port has rmsnorm only")
+    """``(apply_norm(x + res), x + res)`` over the last axis.  RMSNorm:
+    one fused call, the sum kept in f32 for the norm and returned in x's
+    dtype.  Layernorm: the sum in x's dtype, then ``apply_norm``, in
+    plain torch ops (no kernel: the JAX package has none for it)."""
+    if cfg.norm == "layernorm":
+        s = x + res.to(x.dtype)
+        return apply_norm(cfg, p, s), s
     shape, d = x.shape, x.shape[-1]
     h, s = rmsnorm_residual(x.reshape(-1, d).contiguous(),
                             res.to(x.dtype).reshape(-1, d).contiguous(),
@@ -115,9 +128,13 @@ def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
+def layer_schema(cfg: ModelConfig, mixer: str, mlp: str,
+                 cross: bool = False):
     _served(mixer, mlp)
     s = {"norm1": norm_schema(cfg), "mixer": _MIXER_SCHEMAS[mixer](cfg)}
+    if cross:
+        s["norm_x"] = norm_schema(cfg)
+        s["cross"] = attn.attn_schema(cfg)
     if mlp == "dense":
         s["norm2"] = norm_schema(cfg)
         s["mlp"] = mlp_schema(cfg)
@@ -128,27 +145,34 @@ def layer_schema(cfg: ModelConfig, mixer: str, mlp: str):
 
 
 def layer_cache_schema(cfg: ModelConfig, mixer: str, batch: int,
-                       max_seq: int):
+                       max_seq: int, cross: bool = False):
     if mixer == "mamba":
-        return {"mixer": mamba2.mamba_cache_schema(cfg, batch)}
-    if mixer == "mla":
-        return {"mixer": mla_mod.mla_cache_schema(cfg, batch, max_seq)}
-    if mixer != "attn":
+        c = {"mixer": mamba2.mamba_cache_schema(cfg, batch)}
+    elif mixer == "mla":
+        c = {"mixer": mla_mod.mla_cache_schema(cfg, batch, max_seq)}
+    elif mixer == "attn":
+        c = {"mixer": attn.attn_cache_schema(cfg, batch, max_seq)}
+    else:
         raise NotImplementedError(
             f"mixer {mixer!r}: the port has attn, mla and mamba only")
-    return {"mixer": attn.attn_cache_schema(cfg, batch, max_seq)}
+    if cross:
+        c["cross"] = attn.cross_cache_schema(cfg, batch)
+    return c
 
 
 def apply_layer_full(
     cfg: ModelConfig, p, x, res, mixer: str, mlp: str, *,
-    rope_cs, causal=True, cache=None,
+    rope_cs, causal=True, cache=None, enc_out=None,
 ):
     """Prefill / training layer.  ``x`` (B,S,d) is the residual stream
     before the previous layer's last output ``res`` is added.  Returns
-    ``(x, y, aux)``: the stream after this layer's mixer residual (after
-    ``res`` in a layer without an MLP), this layer's MLP output (its
-    mixer output), which the next fused norm adds, and its aux term
-    (``lb_loss + z_loss`` of a MoE layer, else 0.0)."""
+    ``(x, y, aux)``: the stream after this layer's last residual but one
+    (before the MLP's; the mixer's, or ``res`` in a layer without an
+    MLP), this layer's last output (the MLP's; else the
+    cross-attention's or the mixer's), which the next fused norm adds,
+    and its aux term (``lb_loss + z_loss`` of a MoE layer, else 0.0).  A
+    cross-attention layer projects ``enc_out`` (B, F, d) to its k and v
+    and, given a cache, stores them in ``cache["cross"]``."""
     _served(mixer, mlp)
     h, x = fused_norm(cfg, p["norm1"], x, res)
     c = None if cache is None else cache["mixer"]
@@ -160,6 +184,14 @@ def apply_layer_full(
     else:
         y = attn.apply_attn_full(cfg, p["mixer"], h, rope_cs=rope_cs,
                                  causal=causal, cache=c)
+    if "cross" in p:
+        hx, x = fused_norm(cfg, p["norm_x"], x, y)
+        kv = attn.cross_kv(cfg, p["cross"], enc_out)
+        if cache is not None:
+            for name in ("k", "v"):
+                cache["cross"][name].copy_(kv[name])
+            kv = cache["cross"]
+        y = attn.apply_cross_attn(cfg, p["cross"], hx, kv)
     if mlp == "none":
         return x, y, 0.0
     h2, x = fused_norm(cfg, p["norm2"], x, y)
@@ -185,6 +217,9 @@ def apply_layer_decode(
     else:
         y = attn.apply_attn_decode(cfg, p["mixer"], h, cache["mixer"], pos,
                                    rope_cs=rope_cs)
+    if "cross" in p:
+        hx, x = fused_norm(cfg, p["norm_x"], x, y)
+        y = attn.apply_cross_attn(cfg, p["cross"], hx, cache["cross"])
     if mlp == "none":
         return x, y
     h2, x = fused_norm(cfg, p["norm2"], x, y)
@@ -199,18 +234,18 @@ def apply_layer_decode(
 # ---------------------------------------------------------------------------
 
 
-def block_schema(cfg: ModelConfig, bdef: BlockDef):
+def block_schema(cfg: ModelConfig, bdef: BlockDef, cross: bool = False):
     unit = {
-        f"l{i}": layer_schema(cfg, mixer, mlp)
+        f"l{i}": layer_schema(cfg, mixer, mlp, cross=cross)
         for i, (mixer, mlp) in enumerate(bdef.pattern)
     }
     return stack_schema(unit, bdef.repeat)
 
 
 def block_cache_schema(cfg: ModelConfig, bdef: BlockDef, batch: int,
-                       max_seq: int):
+                       max_seq: int, cross: bool = False):
     unit = {
-        f"l{i}": layer_cache_schema(cfg, mixer, batch, max_seq)
+        f"l{i}": layer_cache_schema(cfg, mixer, batch, max_seq, cross)
         for i, (mixer, _) in enumerate(bdef.pattern)
     }
     return stack_schema(unit, bdef.repeat)
@@ -230,18 +265,21 @@ def _unstack(tree, n: int) -> list:
 def apply_block_full(
     cfg: ModelConfig, bdef: BlockDef, params, x, res, aux=0.0, *,
     rope_cs, causal=True, cache=None, remat: str | None = "none",
+    enc_out=None,
 ):
     """x, res (B,S,d) -> (x, res, aux) after the block's layers, ``aux``
     the running sum of the layers' aux terms; ``cache`` (stacked) is
-    filled in place.  Each repeat unit runs under ``remat_wrap(cfg, ·,
-    remat)``: serving passes ``"none"`` and a cache, training its remat
-    mode and no cache."""
+    filled in place; ``enc_out`` is the encoder's output that
+    cross-attention layers attend to.  Each repeat unit runs under
+    ``remat_wrap(cfg, ·, remat)``: serving passes ``"none"`` and a
+    cache, training its remat mode and no cache."""
 
     def unit(lp, x, res, aux, lc):
         for i, (mixer, mlp) in enumerate(bdef.pattern):
             x, res, a = apply_layer_full(
                 cfg, lp[f"l{i}"], x, res, mixer, mlp, rope_cs=rope_cs,
                 causal=causal, cache=None if lc is None else lc[f"l{i}"],
+                enc_out=enc_out,
             )
             aux = aux + a
         return x, res, aux

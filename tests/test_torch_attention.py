@@ -80,6 +80,31 @@ def test_plain_matches_chunked_attention_at_ragged_length(causal):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("sq,sk", [(7, 65), (128, 37), (1, 16), (40, 40)])
+def test_plain_matches_chunked_attention_across_lengths(sq, sk):
+    """Cross-attention: Sq decoder queries against Sk encoder frames,
+    not causal, as the JAX model's ``apply_cross_attn`` calls
+    ``chunked_attention`` (16-row query chunks, the last padded), at
+    whisper's head dim 64 with KH < H."""
+    rng = np.random.default_rng(sq * 100 + sk)
+    q = rng.standard_normal((2, sq, 4, 64), dtype=np.float32)
+    k, v = (rng.standard_normal((2, sk, 2, 64), dtype=np.float32)
+            for _ in range(2))
+    want = chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                             query_chunk=16, causal=False)
+    got = ops.attention(*(torch.from_numpy(a).transpose(1, 2)
+                          for a in (q, k, v)), causal=False)
+    assert tuple(got.shape) == (2, 4, sq, 64)
+    np.testing.assert_allclose(_np(got).transpose(0, 2, 1, 3), _np(want),
+                               atol=2e-5)
+
+
+def test_causal_needs_equal_lengths():
+    q, k, v = (torch.zeros((1, 2, n, 64)) for n in (8, 12, 12))
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        ops.attention(q, k, v, causal=True)
+
+
 def test_cpu_dispatch_takes_the_plain_version():
     args = [torch.from_numpy(a) for a in _inputs(5, 1, 4, 2, 40, 64)]
     qv = args[0].transpose(1, 2).contiguous().transpose(1, 2)  # strided
@@ -104,6 +129,11 @@ def test_bound_model():
     assert kernel.attention_flops(1, 1, 8, 64, False) == 4 * 64 * 64
     assert kernel.attention_bytes(4, 32, 4, 512, 128, 2) == \
         2 * 512 * 128 * 4 * (2 * 32 + 2 * 4)
+    # whisper's cross-attention: 128 queries against 1500 frames, MHA
+    assert kernel.attention_flops(8, 20, 128, 64, False, sk=1500) == \
+        4 * 8 * 20 * 64 * 128 * 1500
+    assert kernel.attention_bytes(8, 20, 20, 128, 64, 2, sk=1500) == \
+        2 * 8 * 20 * 2 * 64 * (128 + 1500)
 
 
 @pytest.mark.parametrize("D", kernel.HEAD_DIMS)
@@ -170,3 +200,39 @@ def test_kernel_refuses_strides_off_16_bytes(cuda_device):
     with pytest.raises(ValueError, match="multiples of 16"):
         kernel.flash_attention_cuda(q, k, v)
     assert kernel.flash_attention_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_causal_across_lengths(cuda_device):
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    k = torch.zeros((1, 2, 12, 64), dtype=torch.bfloat16, device=cuda_device)
+    before = kernel.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        kernel.flash_attention_cuda(q, k, k, causal=True)
+    assert kernel.flash_attention_cuda.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H,KH,Sq,Sk", [(8, 20, 20, 128, 1500),
+                                          (2, 4, 4, 7, 65)])
+def test_kernel_matches_plain_across_lengths(cuda_device, B, H, KH, Sq, Sk,
+                                             dtype):
+    """whisper's cross-attention on the card: the decoder's queries and
+    the (B, F, KH, D) cross cache as the model's transposed views, not
+    causal, the last key tile ragged."""
+    _, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(Sq + Sk)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, 64),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, KH, 64),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device, tdt).transpose(1, 2) for t in (q, k, v))
+    want = attention_ref(q, k, v, causal=False)
+    before = kernel.flash_attention_cuda.launches
+    got = ops.attention(q, k, v, causal=False)
+    assert kernel.flash_attention_cuda.launches == before + 1
+    assert tuple(got.shape) == (B, H, Sq, 64)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)

@@ -86,13 +86,16 @@ def test_striped_modules_stand_alone(name):
 
 
 #: the mixture-of-experts module and the configs of the Jamba and dense
-#: slice; multi-head latent attention and the DeepSeek configs
+#: slice; multi-head latent attention and the DeepSeek configs; the
+#: whisper encoder and the qwen2-vl and whisper configs
 MOE = ["models/moe.py", "models/transformer.py", "configs/jamba_v0_1_52b.py",
        "configs/yi_9b.py", "configs/granite_8b.py", "configs/minitron_8b.py",
        "models/mla.py", "configs/deepseek_v2_236b.py",
-       "configs/deepseek_v3_671b.py"]
+       "configs/deepseek_v3_671b.py", "models/encdec.py",
+       "configs/qwen2_vl_72b.py", "configs/whisper_large_v3.py"]
 CONFIGS = ["jamba_v0_1_52b", "yi_9b", "granite_8b", "minitron_8b",
-           "deepseek_v2_236b", "deepseek_v3_671b"]
+           "deepseek_v2_236b", "deepseek_v3_671b", "qwen2_vl_72b",
+           "whisper_large_v3"]
 
 
 @pytest.mark.parametrize("name", MOE)

@@ -33,7 +33,7 @@ from repro.configs.base import dense_blocks as jdense_blocks  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.sharding.rules import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import dense_blocks  # noqa: E402
+from repro_torch.configs.base import BlockDef, dense_blocks  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -256,15 +256,28 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 
 def test_unported_configs_raise():
-    """What the port does not serve yet: whisper's encoder, qwen2-vl's
-    embedding inputs and M-RoPE, layernorm (MLA and MTP are served)."""
+    """What the port still refuses: a logit soft-cap (no kernel takes
+    it), a layer kind it does not serve, and a MoE or MLA layer without
+    its config.  Whisper's encoder, qwen2-vl's embedding inputs and
+    M-RoPE and layernorm are served, and both archs resolve."""
     t = smoke_config(get_config("yi-6b"))
-    for change in (dict(encoder_layers=2), dict(input_mode="embeds"),
-                   dict(rope_type="mrope"), dict(norm="layernorm")):
-        with pytest.raises(NotImplementedError):
-            M.schema(dataclasses.replace(t, **change))
-    with pytest.raises(KeyError):
-        get_config("qwen2-vl-72b")
+    capped = dataclasses.replace(t, attn_logit_softcap=30.0)
+    params = serve.make_params(capped, "cpu")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        M.prefill(capped, params, {"tokens": torch.zeros((1, 4),
+                                                         dtype=torch.long)})
+    with pytest.raises(NotImplementedError):
+        M.schema(dataclasses.replace(t, blocks=(
+            BlockDef(pattern=(("attn", "none"),), repeat=1),)))
+    with pytest.raises(ValueError, match="needs cfg.moe"):
+        M.schema(dataclasses.replace(t, blocks=(
+            BlockDef(pattern=(("attn", "moe"),), repeat=1),)))
+    with pytest.raises(ValueError, match="needs cfg.mla"):
+        M.schema(dataclasses.replace(t, blocks=(
+            BlockDef(pattern=(("mla", "dense"),), repeat=1),)))
+    ln = M.schema(dataclasses.replace(t, norm="layernorm"))
+    assert set(ln["b0"]["l0"]["norm1"]) == {"scale", "bias"}
+    assert get_config("qwen2-vl-72b").rope_type == "mrope"
 
 
 # ---------------------------------------------------------------------------

@@ -201,15 +201,32 @@ def test_pipeline_batches_are_bitwise_jax(arch):
 
 
 def test_unported_configs_raise_in_training():
+    """What the port still refuses to train: a logit soft-cap, a layer
+    kind it does not serve, a MoE or MLA layer without its config.
+    whisper's and qwen2-vl's batches (frame embeddings, patch
+    embeddings, M-RoPE positions) are drawn and trained."""
     t = smoke_config(get_config("yi-6b"))
-    for change in (dict(encoder_layers=2), dict(cross_attention=True),
-                   dict(input_mode="embeds"), dict(rope_type="mrope")):
-        bad = dataclasses.replace(t, **change)
-        with pytest.raises(NotImplementedError):
-            SyntheticLMPipeline(bad, SHAPE)
-        with pytest.raises(NotImplementedError):
-            M.loss_fn(bad, {},
-                      {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    batch = SyntheticLMPipeline(t, SHAPE).batch_at(0)
+    capped = dataclasses.replace(t, attn_logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        M.loss_fn(capped, init_params(M.train_schema(capped),
+                                      torch.Generator().manual_seed(0),
+                                      "cpu"), batch)
+    for pattern, err in (((("attn", "none"),), NotImplementedError),
+                         ((("attn", "moe"),), ValueError),
+                         ((("mla", "dense"),), ValueError)):
+        bad = dataclasses.replace(t, blocks=(BlockDef(pattern=pattern,
+                                                      repeat=1),))
+        with pytest.raises(err):
+            M.train_schema(bad)
+    for arch, keys in (("whisper-large-v3", {"enc_embeds"}),
+                       ("qwen2-vl-72b", {"embeds", "positions"})):
+        cfg = smoke_config(get_config(arch))
+        b = SyntheticLMPipeline(cfg, SHAPE).batch_at(0)
+        assert set(b) == {"tokens", "loss_mask"} | keys
+        loss, _ = M.loss_fn(cfg, init_params(
+            M.train_schema(cfg), torch.Generator().manual_seed(0), "cpu"), b)
+        assert bool(torch.isfinite(loss))
 
 
 def test_train_schema_is_jax_schema(arch):

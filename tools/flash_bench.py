@@ -7,7 +7,10 @@ Builds only ``flash_attention.cu``, prints its ptxas report, runs
 ``chip_smoke.py``'s ``attention_vs_plain`` cases, then times the bf16
 kernel at Yi-6B's prefill (4, 32, 4, 512, 128), at a long prompt
 (1, 32, 4, 4096, 128) and at DeepSeek-V2's MLA prefill (4, 128, 128,
-2048, q·k 192, v 128), causal, on the model's strided views, against
+2048, q·k 192, v 128), causal, and at whisper-large-v3's encoder
+(8, 20, 20, 1500, 64, not causal), its cross-attention (Sq = 128
+queries against Sk = 1500 frames) and qwen2-vl-72b's prefill (4, 64, 8,
+2048, 128, causal), on the model's strided views, against
 ``F.scaled_dot_product_attention`` and the bound, ``--rounds`` times in
 turn.  Every line is JSON; the card's ``nvidia-smi`` name and power
 limit come first.  Exits 2 without a card.
@@ -53,11 +56,16 @@ def main() -> int:
     cs.emit({k: att[k] for k in ("phase", "tolerance", "max_abs_err")})
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     for r in range(args.rounds):
-        for label, shape in (("yi6b", cs.FLASH_SHAPE),
-                             ("long", cs.FLASH_SHAPE_LONG),
-                             ("mla", cs.FLASH_SHAPE_MLA)):
-            cs.emit({"round": r, "shape": label, "BHKSD": shape}
-                    | cs.flash_timing(dev, shape, bw, bf16, g))
+        for label, (shape, causal, sk) in (
+                ("yi6b", (cs.FLASH_SHAPE, True, None)),
+                ("long", (cs.FLASH_SHAPE_LONG, True, None)),
+                ("mla", (cs.FLASH_SHAPE_MLA, True, None)),
+                ("whisper_enc", cs.FLASH_WHISPER_ENC),
+                ("cross", cs.FLASH_CROSS),
+                ("qwen2vl", cs.FLASH_QWEN2VL)):
+            cs.emit({"round": r, "shape": label, "BHKSD": shape,
+                     "causal": causal, "Sk": sk}
+                    | cs.flash_timing(dev, shape, bw, bf16, g, causal, sk))
     return 0
 
 
