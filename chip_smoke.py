@@ -280,6 +280,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -733,6 +734,8 @@ def main() -> int:
     emit(trained)
     mtrained = run_mamba_train(dev, smi)
     emit(mtrained)
+    strained = run_sharded_train(dev, smi)
+    emit(strained)
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -750,6 +753,8 @@ def main() -> int:
                 entry[f"launches_{key}"] = cell["launches"][entry["name"]]
                 entry[f"launches_{key}_per_step"] = \
                     cell["launches_per_step"][entry["name"]]
+        entry["launches_sharded_train"] = strained["launches"].get(
+            entry["name"], 0)
 
     # 23. kernels
     windows = window_timings(dev, rng, bw, f32)
@@ -4534,6 +4539,162 @@ def run_mamba_train(dev, smi):
     del res
     torch.cuda.empty_cache()
     return {"phase": "mamba_train", **rec}
+
+
+#: the sharded step against the unsharded one on the one-rank mesh
+SHARDED_LOSS_RTOL = 1e-6
+SHARDED_STEPS = 2
+
+
+def _sharded_cell(dev, cfg, run, shape, smi):
+    """``SHARDED_STEPS`` steps of the unsharded step and of
+    ``launch.train.build_session``'s on ``make_host_mesh()``, each from
+    the seeded state (drawn anew for each, so at most two states are on
+    the card at once, as in ``train``): losses, the gradients of the
+    first microbatch (held on the host), the launches of each step and
+    the host ms a step both ways."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels.local import LOCAL_MAP_CALLS
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding.rules import axis_rules, distribute_params
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mesh = make_host_mesh(device=dev)
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == dev.type,
+          f"host mesh {mesh}")
+    opt, sch, shardings, step, rules = train_mod.build_session(
+        cfg, run, mesh, SHARDED_STEPS)
+    plain = ts.build_train_step(cfg, run, opt)
+    pipe = SyntheticLMPipeline(cfg, shape, device=dev)
+    batches = [pipe.batch_at(i) for i in range(SHARDED_STEPS)]
+    mb = {k: v[:run.microbatch or shape.global_batch]
+          for k, v in batches[0].items()}
+
+    def state0():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ts.new_state(ts.init_state(sch, gen, dev), opt)
+
+    def host_grads(params, batch, ctx, gsh=None):
+        with ctx:
+            g, _ = ts.compute_grads(cfg, run, params, batch, gsh)
+        out = [ts.full_tensor(x).to("cpu") for x in tree_leaves(g)]
+        del g
+        torch.cuda.empty_cache()
+        return out
+
+    def run_steps(fn, holder, bs):
+        """The steps from ``holder``'s one state, which they consume."""
+        state = holder.pop()
+        losses, ms, per_step = [], [], []
+        for b in bs:
+            _counts_zero()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = fn(state, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.monotonic() - t0) * 1e3)
+            per_step.append(_counts())
+        del state
+        torch.cuda.empty_cache()
+        return losses, ms, per_step
+
+    holder = [state0()]
+    want_g = host_grads(holder[0]["params"], mb, contextlib.nullcontext())
+    want_l, want_ms, want_n = run_steps(plain, holder, batches)
+    holder = [distribute_params(state0(), shardings)]
+    dbatches = [ts.distribute_batch(b, rules) for b in batches]
+    dmb = ts.distribute_batch(mb, rules)
+    calls0 = dict(LOCAL_MAP_CALLS)
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(axis_rules(rules))
+    ctx.enter_context(implicit_replication())
+    got_g = host_grads(holder[0]["params"], dmb, ctx, shardings["params"])
+    got_l, got_ms, got_n = run_steps(step, holder, dbatches)
+    calls = {k: LOCAL_MAP_CALLS[k] - calls0[k] for k in calls0}
+    shares, bitwise_g = {}, True
+    for nm, g, w in zip(_leaf_names(M.train_schema(cfg)), got_g, want_g):
+        scale = float(w.abs().max())
+        bitwise_g = bitwise_g and torch.equal(g, w)
+        shares[nm] = float((g - w).abs().max()) / scale if scale else 0.0
+    worst = max(shares, key=shares.get)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got_l, want_l)]
+    n_mb = shape.global_batch // (run.microbatch or shape.global_batch)
+    per_step = {k: n_mb * v for k, v in
+                M.launches_per_pass(cfg, "train", remat=run.remat).items()}
+    for i in range(SHARDED_STEPS):
+        check({k: got_n[i][k] for k in per_step} == per_step
+              == {k: want_n[i][k] for k in per_step},
+              f"{cfg.name} step {i}: launches sharded {got_n[i]}, "
+              f"unsharded {want_n[i]}, predicted {per_step}")
+    check(all(r <= SHARDED_LOSS_RTOL for r in rel),
+          f"{cfg.name}: losses sharded {got_l} unsharded {want_l}")
+    check(shares[worst] <= TRAIN_GRAD_SHARE,
+          f"{cfg.name}: gradient {worst} parts by {shares[worst]}")
+    check(all(calls[k] > 0 for k in per_step),
+          f"{cfg.name}: local_map branch calls {calls}")
+    del dbatches, dmb, got_g, want_g
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "seq": shape.seq_len,
+            "global_batch": shape.global_batch,
+            "microbatch": run.microbatch, "mesh": list(mesh.shape),
+            "losses_sharded": got_l, "losses_unsharded": want_l,
+            "losses_bitwise": got_l == want_l, "loss_rel_diff": rel,
+            "grads_bitwise": bitwise_g, "worst_leaf": worst,
+            "worst_leaf_share": shares[worst],
+            "host_ms_per_step_sharded": got_ms,
+            "host_ms_per_step_unsharded": want_ms,
+            "launches_per_step": got_n, "launches_per_step_unsharded":
+            want_n, "launches_predicted_per_step": per_step,
+            "local_map_calls": calls, "nvidia_smi": smi}
+
+
+def run_sharded_train(dev, smi):
+    """The sharded train step (``build_session`` on a one-rank NCCL
+    mesh, every placement ``Replicate()``) against the unsharded step
+    from the same state, at the ``train`` phase's Yi-6B cell (full
+    width, 4 layers, S=4096, B=8 in microbatches of 2) and the
+    ``mamba_train`` phase's mamba2-370m cell, ``SHARDED_STEPS`` steps
+    each: losses within ``SHARDED_LOSS_RTOL``, gradients within
+    ``TRAIN_GRAD_SHARE``·max|g|, each kernel launched as often a step
+    both ways (the kernels ran under DTensor, through their
+    ``local_map`` branch).  The launches of the whole phase feed the
+    kernels line."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+
+    cells = (
+        (_train_cfg("yi-6b", layers=TRAIN_LAYERS),
+         RunConfig(microbatch=TRAIN_MB, loss_chunk=512, remat="full",
+                   optimizer="adamw"),
+         ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)),
+        (_train_cfg("mamba2-370m"),
+         RunConfig(microbatch=1, loss_chunk=512, remat="full",
+                   optimizer="adamw"),
+         ShapeConfig("mamba_train", "train", 2048, 4)),
+    )
+    check(not dist.is_initialized(), "a process group is already running")
+    out, launches = [], {}
+    try:
+        for cfg, run, shape in cells:
+            rec = _sharded_cell(dev, cfg, run, shape, smi)
+            for n in rec["launches_per_step"]:
+                for k, v in n.items():
+                    launches[k] = launches.get(k, 0) + v
+            out.append(rec)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"phase": "sharded_train", "steps": SHARDED_STEPS,
+            "tolerance": {"loss_rel": SHARDED_LOSS_RTOL,
+                          "grad_share_of_max": TRAIN_GRAD_SHARE},
+            "cells": out, "launches": launches, "nvidia_smi": smi}
 
 
 if __name__ == "__main__":

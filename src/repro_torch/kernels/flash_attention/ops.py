@@ -1,6 +1,8 @@
 """Dispatch of attention by the device of the tensors.
 
-CPU tensors take the plain version (``ref.py``) under plain autograd;
+A DTensor (the sharded train step) takes ``kernels/local.py``: the
+same dispatch on its local shards through ``local_map``.  CPU tensors
+take the plain version (``ref.py``) under plain autograd;
 CUDA tensors take the Hopper kernel (``kernel.py::flash_attention_cuda``),
 or the call raises.  Nothing falls back from one to the other.  Where
 grad is enabled and an input requires it, the kernel runs inside
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
+from repro_torch.kernels.local import attention_local, is_dtensor
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -48,6 +51,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k (B, KH, Sk, D) and v (B, KH, Sk, Dv), Dv = D or not (MLA's 192 /
     128), Sk = Sq or not (cross-attention, which is not causal: a causal
     call with Sk ≠ Sq raises).  Returns (B, H, Sq, Dv) in q's dtype."""
+    if is_dtensor(q):
+        return attention_local(attention, q, k, v, causal)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type == "cuda":

@@ -1,7 +1,9 @@
 """Dispatch of the fused residual-add + RMSNorm by the device of the
 tensors.
 
-CPU tensors take the plain version (``ref.py``) under plain autograd;
+A DTensor (the sharded train step) takes ``kernels/local.py``: the
+same dispatch on its local shards through ``local_map``.  CPU tensors
+take the plain version (``ref.py``) under plain autograd;
 CUDA tensors take the Hopper kernel (``kernel.py::rmsnorm_residual_cuda``),
 or the call raises.  Nothing falls back from one to the other.  Where
 grad is enabled and an input requires it, the kernel runs inside
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
+from repro_torch.kernels.local import is_dtensor, rmsnorm_local
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_residual_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_residual_ref
 
@@ -47,6 +50,8 @@ def rmsnorm_residual(x: torch.Tensor, res: torch.Tensor,
                      scale: torch.Tensor, eps: float = 1e-5):
     """(normed(x + res), x + res) over the last axis; x and res (N, d),
     scale (d,).  Both outputs in x's dtype."""
+    if is_dtensor(x):
+        return rmsnorm_local(rmsnorm_residual, x, res, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_residual_ref(x, res, scale, eps)
     if x.device.type == "cuda":

@@ -1,6 +1,8 @@
 """Dispatch of the SSD intra-chunk block by the device of the tensors.
 
-CPU tensors take the plain version (``ref.py``) under plain autograd;
+A DTensor (the sharded train step) takes ``kernels/local.py``: the
+same dispatch on its local shards through ``local_map``.  CPU tensors
+take the plain version (``ref.py``) under plain autograd;
 CUDA tensors take the Hopper kernel (``kernel.py::ssd_chunk_cuda``), or
 the call raises.  Nothing falls back from one to the other.  Where grad
 is enabled and an input requires it, the kernel runs inside
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
+from repro_torch.kernels.local import is_dtensor, ssd_local
 from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
@@ -42,6 +45,8 @@ def ssd_chunk(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
               csum: torch.Tensor):
     """xdt (BC,H,Q,P), b/c (BC,H,Q,N), csum (BC,H,Q) f32 ->
     (y_intra (BC,H,Q,P) in xdt's dtype, state (BC,H,N,P) f32)."""
+    if is_dtensor(xdt):
+        return ssd_local(ssd_chunk, xdt, b, c, csum)
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, b, c, csum)
     if xdt.device.type == "cuda":

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import param, zeros_param
+from repro_torch.sharding.rules import shard
 
 NEG_INF = -1e30
 
@@ -49,9 +50,16 @@ def attn_schema(cfg: ModelConfig):
     }
 
 
+def seq_axis(batch: int) -> str:
+    """The cache's sequence axis: a batch under 8 (the batch-1
+    long-context cells) shards it over "data" and "model", as the JAX
+    package's ``cache_schema`` rules."""
+    return "kv_seq_long" if batch < 8 else "kv_seq"
+
+
 def attn_cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
     KH, Dh = cfg.num_kv_heads, cfg.head_dim
-    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    axes = ("batch", seq_axis(batch), "kv_heads", "head_dim")
     return {
         "k": zeros_param((batch, max_seq, KH, Dh), axes, cfg.cdtype),
         "v": zeros_param((batch, max_seq, KH, Dh), axes, cfg.cdtype),
@@ -93,18 +101,31 @@ def apply_attn_full(
     q = _project(x, p["wq"].to(dt))
     kk = _project(x, p["wk"].to(dt))
     vv = _project(x, p["wv"].to(dt))
+    q = shard(q, "batch", None, "heads", None)
     if rope_cs is not None:
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
         kk = apply_rope(kk, cos, sin)
-    out = attention(q.transpose(1, 2), kk.transpose(1, 2),
-                    vv.transpose(1, 2), causal=causal).transpose(1, 2)
-    y = _out(out, p["wo"].to(dt))
+    out = _attend(q, kk, vv, causal)
+    y = shard(_out(out, p["wo"].to(dt)), "batch", None, "d_model")
     if cache is not None:
-        S = x.shape[1]
-        cache["k"][:, :S] = kk
-        cache["v"][:, :S] = vv
+        B, S = x.shape[:2]
+        seq = seq_axis(B)
+        cache["k"][:, :S] = shard(kk, "batch", seq, "kv_heads", None)
+        cache["v"][:, :S] = shard(vv, "batch", seq, "kv_heads", None)
     return y
+
+
+def _attend(q, k, v, causal: bool):
+    """The attention kernel on the model's (B, S, heads, D) tensors, as
+    (B, heads, S, D) views; under rules, k and v are placed on their kv
+    heads (the JAX package repeats them to H and places them on "heads":
+    the kernel's DTensor branch gives each rank the kv heads its q heads
+    use) and the output on "heads"."""
+    k = shard(k.transpose(1, 2), "batch", "kv_heads", None, None)
+    v = shard(v.transpose(1, 2), "batch", "kv_heads", None, None)
+    out = attention(q.transpose(1, 2), k, v, causal=causal)
+    return shard(out, "batch", "heads", None, None).transpose(1, 2)
 
 
 def apply_attn_decode(
@@ -132,6 +153,8 @@ def apply_attn_decode(
     k, v = cache["k"], cache["v"]
     k[:, pos] = k_new
     v[:, pos] = v_new
+    k = shard(k, "batch", seq_axis(B), "kv_heads", None)
+    v = shard(v, "batch", seq_axis(B), "kv_heads", None)
     Smax = k.shape[1]
     # factored GQA decode: q (B, KH, rep, Dh) against the whole cache
     qf = q.reshape(B, KH, rep, Dh)
@@ -180,9 +203,8 @@ def apply_cross_attn(
     q = _project(x, p["wq"].to(dt))
     k, v = kv["k"], kv["v"]
     if x.ndim == 3:                               # prefill: the kernel
-        out = attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=False).transpose(1, 2)
-        return _out(out, p["wo"].to(dt))
+        q = shard(q, "batch", None, "heads", None)
+        return _out(_attend(q, k, v, False), p["wo"].to(dt))
     B, H, Dh = q.shape                            # decode: one query
     KH = k.shape[2]
     qf = q.reshape(B, KH, H // KH, Dh)

@@ -30,6 +30,7 @@ from repro_torch.models.params import (
     scale_param,
     zeros_param,
 )
+from repro_torch.sharding.rules import shard
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -90,6 +91,7 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["up"].to(dt)))
     else:  # gelu
         h = F.gelu(x @ p["up"].to(dt), approximate="tanh")
+    h = shard(h, "batch", *(None,) * (h.ndim - 2), "mlp")
     return h @ p["down"].to(dt)
 
 

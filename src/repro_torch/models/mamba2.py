@@ -36,6 +36,7 @@ from repro_torch.models.params import (
     scale_param,
     zeros_param,
 )
+from repro_torch.sharding.rules import local_along, shard
 
 
 def _dims(cfg: ModelConfig):
@@ -108,14 +109,21 @@ def _weights(p, dt) -> dict:
     return {k: p[k].to(dt) for k in CAST_AT_USE}
 
 
+def _shift(x: torch.Tensor, i: int) -> torch.Tensor:
+    """x (B,S,C) moved ``i`` rows later along S, zeros in front.  Along
+    S alone, on local shards: the pad's backward gives a wrong shape on
+    a DTensor in torch 2.11."""
+    S = x.shape[1]
+    return local_along(lambda a: F.pad(a, (0, 0, i, 0))[:, :S], x, 1)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv as shifted adds.  x (B,S,C), w (W,C)."""
-    W, S = w.shape[0], x.shape[1]
+    W = w.shape[0]
     out = x * w[-1]
     for i in range(1, W):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
-        out = out + shifted * w[W - 1 - i]
+        out = out + _shift(x, i) * w[W - 1 - i]
     return out + b
 
 
@@ -150,7 +158,7 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     xs = F.silu(_causal_conv(xs_raw, w["conv_x"], w["conv_x_bias"]))
     bs = F.silu(_causal_conv(b_raw, w["conv_b"], w["conv_b_bias"]))
     cs = F.silu(_causal_conv(c_raw, w["conv_c"], w["conv_c_bias"]))
-    xs = xs.reshape(B_, S, H, P)
+    xs = shard(xs.reshape(B_, S, H, P), "batch", None, "ssm_heads", None)
     bs = bs.reshape(B_, S, G, N)
     cs = cs.reshape(B_, S, G, N)
     dt = F.softplus(dt_in.float() + p["dt_bias"].float())   # (B,S,H)
@@ -162,7 +170,7 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     y = y + xs * w["D"][None, None, :, None]
     y = y.reshape(B_, S, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ w["out"]
+    out = shard(y @ w["out"], "batch", None, "d_model")
     if cache is not None:
         cw = s.d_conv - 1
         cache["conv_x"].copy_(_tail(xs_raw, cw))
@@ -195,7 +203,8 @@ def ssd_chunked(xs, bs, cs, dt, dA, *, chunk: int, n_heads: int):
     if pad:
         # zero-pad is exact: dA=0 -> decay exp(0)=1, x*dt=0 -> no input
         def zseq(a):
-            return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+            return local_along(
+                lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)), a, 1)
         xs, bs, cs, dt, dA = map(zseq, (xs, bs, cs, dt, dA))
     Sp = S + pad
     nc = Sp // chunk
@@ -207,7 +216,9 @@ def ssd_chunked(xs, bs, cs, dt, dA, *, chunk: int, n_heads: int):
     cc = cs.reshape(B_, nc, Q, G, N)
     dtc = dt.reshape(B_, nc, Q, H)
     dAc = dA.reshape(B_, nc, Q, H)
-    csum = torch.cumsum(dAc, dim=2)                         # (B,nc,Q,H)
+    # (B,nc,Q,H), along the chunk alone, on local shards: cumsum's
+    # backward (a flip) has no DTensor strategy in torch 2.11
+    csum = local_along(lambda a: torch.cumsum(a, dim=2), dAc, 2)
 
     xdt = (xc.float() * dtc[..., None]).to(dt_c)            # (B,nc,Q,H,P)
     # intra-chunk y and chunk states on views: (B·nc, H, Q, ·)

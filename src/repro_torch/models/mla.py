@@ -63,11 +63,12 @@ def mla_schema(cfg: ModelConfig):
 
 def mla_cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
     m = cfg.mla
+    seq = attn.seq_axis(batch)
     return {
         "ckv": zeros_param((batch, max_seq, m.kv_lora_rank),
-                           ("batch", "kv_seq", "kv_lora"), cfg.cdtype),
+                           ("batch", seq, "kv_lora"), cfg.cdtype),
         "kpe": zeros_param((batch, max_seq, m.qk_rope_head_dim),
-                           ("batch", "kv_seq", "rope"), cfg.cdtype),
+                           ("batch", seq, "rope"), cfg.cdtype),
     }
 
 

@@ -67,6 +67,7 @@ from repro_torch.models.transformer import (
     fused_norm,
     layer_schema,
 )
+from repro_torch.sharding.rules import replicate_dims, shard
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +199,9 @@ def _mrope_positions(cfg: ModelConfig, positions):
 
 def rope_full(cfg: ModelConfig, S: int, device, positions=None):
     """cos/sin for a full sequence, shaped to broadcast with (B,S,H,D);
-    M-RoPE takes ``positions`` (B, 3, S)."""
+    M-RoPE takes ``positions`` (B, 3, S), plain RoPE an (S,)
+    ``positions`` where one is given (``arange(S)`` otherwise), as the
+    JAX package does."""
     if cfg.rope_type == "none":
         return None
     if cfg.rope_type == "mrope":
@@ -206,8 +209,8 @@ def rope_full(cfg: ModelConfig, S: int, device, positions=None):
                                  _rope_dim(cfg), cfg.rope_theta,
                                  cfg.mrope_sections)         # (B,S,D2)
         return cos[:, :, None, :], sin[:, :, None, :]
-    cos, sin = rope_cos_sin(torch.arange(S, device=device), _rope_dim(cfg),
-                            cfg.rope_theta)                  # (S,D2)
+    pos = torch.arange(S, device=device) if positions is None else positions
+    cos, sin = rope_cos_sin(pos, _rope_dim(cfg), cfg.rope_theta)  # (S,D2)
     return cos[None, :, None, :], sin[None, :, None, :]
 
 
@@ -237,7 +240,7 @@ def _inputs_to_x(cfg: ModelConfig, params, inputs, S: int):
         x = embed_tokens(cfg, params, inputs["tokens"])
     if cfg.pos_embed == "sinusoidal":
         x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(cfg.cdtype)
-    return x
+    return shard(x, "batch", "seq_res", "d_model")
 
 
 def _encode(cfg: ModelConfig, params, inputs, remat="none"):
@@ -280,8 +283,12 @@ def chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
 
     def piece(h_c, lab_c, m_c):
         logits = unembed(cfg, params, h_c)                   # (B,c,V) f32
+        logits = shard(logits, "batch", None, "vocab")
         lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, lab_c[..., None].long())[..., 0]
+        # the label's logit is gathered from the whole vocab row: a
+        # vocab-sharded gather has no working DTensor strategy
+        lab = torch.gather(replicate_dims(logits, -1), -1,
+                           lab_c[..., None].long())[..., 0]
         return torch.sum((lse - lab) * m_c), torch.sum(m_c)
 
     if S <= loss_chunk:
@@ -292,7 +299,9 @@ def chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
     nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, S, loss_chunk):
         sl = slice(c, c + loss_chunk)
-        n, m = piece(h[:, sl], labels[:, sl], mask[:, sl])
+        n, m = piece(shard(h[:, sl], "batch", None, None),
+                     shard(labels[:, sl], "batch", None),
+                     shard(mask[:, sl], "batch", None))
         nll, cnt = nll + n, cnt + m
     return nll, cnt
 

@@ -22,8 +22,9 @@ products, the einsums and the router stay ``torch.einsum`` /
 ``torch.matmul``: the JAX package computes them outside any Pallas
 kernel.  ``apply_moe_ep`` (expert parallelism over the data axis) is a
 ``shard_map`` in the JAX package; without a mesh it takes the grouped
-path, and the port has no mesh yet, so it always does here.  The
-expert-parallel form waits for the port's sharding.
+path, and so it always does here: the port's placements
+(``sharding/rules.py``) do not reach the MoE layer yet, and the
+expert-parallel form is not ported.
 
 Each group's work runs inside three profiler ranges, ``moe_dispatch``
 (routing, the dispatch and combine tensors, the tokens' copy into the

@@ -13,9 +13,9 @@ the inverse softplus of a log-uniform draw in ``[dt_min, dt_max]``.
 Values come from an explicit ``torch.Generator`` on an explicit device;
 the random ones do not equal JAX's draws.
 
-Sharding (``AxisRules``, ``shard``) has no meaning on one card and is
-not ported; a spec keeps its axis names only so the schemas read the
-same.
+The placement half (``AxisRules``, ``shard``, ``param_shardings``) is
+``sharding/rules.py``: it resolves each spec's axis names to DTensor
+placements on a device mesh.
 """
 from __future__ import annotations
 

@@ -61,6 +61,7 @@ from repro_torch.models.layers import (
     norm_schema,
 )
 from repro_torch.models.params import stack_schema, tree_map
+from repro_torch.sharding.rules import shard
 
 
 #: the (mixer, mlp) layer kinds the port serves
@@ -192,13 +193,17 @@ def apply_layer_full(
                 cache["cross"][name].copy_(kv[name])
             kv = cache["cross"]
         y = attn.apply_cross_attn(cfg, p["cross"], hx, kv)
-    if mlp == "none":
-        return x, y, 0.0
-    h2, x = fused_norm(cfg, p["norm2"], x, y)
-    if mlp == "moe":
-        y2, moe_aux = moe_mod.apply_moe(cfg, p["mlp"], h2)
-        return x, y2, moe_aux["lb_loss"] + moe_aux["z_loss"]
-    return x, apply_mlp(cfg, p["mlp"], h2), 0.0
+    aux = 0.0
+    if mlp != "none":
+        h2, x = fused_norm(cfg, p["norm2"], x, y)
+        if mlp == "moe":
+            y, moe_aux = moe_mod.apply_moe(cfg, p["mlp"], h2)
+            aux = moe_aux["lb_loss"] + moe_aux["z_loss"]
+        else:
+            y = apply_mlp(cfg, p["mlp"], h2)
+    # the JAX layer's x + y, held as its two terms
+    return (shard(x, "batch", "seq_res", "d_model"),
+            shard(y, "batch", "seq_res", "d_model"), aux)
 
 
 def apply_layer_decode(

@@ -4,14 +4,21 @@ package's ``optim/adamw.py`` on torch tensors.
 The state is a nested dict laid out as the JAX package's (``m``, ``v``,
 ``count`` and, for bf16 leaves, the f32 ``master``), so a checkpoint of
 either package restores in the other.  Updates are functional: new
-tensors, the old state untouched.  Sharding (ZeRO-1) has no meaning on
-one card and is not ported.
+tensors, the old state untouched.  The ZeRO-1 placements are
+``runtime/train_step.py``'s.
 
 int8 moments use blockwise (last-dim blocks of ``QBLOCK``) quantization:
 absmax for the first moment, an affine code of log(v) for the second
 (v spans many orders of magnitude within a block).  q keeps the
 parameter's shape; only the scales carry the block structure.  Weight
 decay applies to every leaf, as in the JAX package.
+
+On DTensors (the sharded train step, ``runtime/train_step.py``) the
+update is elementwise at the state's placements and moves no data; the
+int8 codes are the one exception: a block runs along the last dim and
+may straddle the shards of a sharded last dim (Yi-6B's 11008-wide MLP
+is 86 blocks, which 16 "model" ranks do not split), so ``_whole_blocks``
+gathers that dim before a leaf is quantised or dequantised.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.models.params import (
     zeros_param,
 )
 from repro_torch.optim.schedule import constant
+from repro_torch.sharding.rules import replicate_dims
 
 QBLOCK = 128
 _VLOG_FLOOR = 1e-24
@@ -49,11 +57,17 @@ def _blocks(shape) -> tuple:
     return tuple(shape[:-1]) + (shape[-1] // QBLOCK, QBLOCK)
 
 
+def _whole_blocks(x: torch.Tensor) -> torch.Tensor:
+    """x with its last dim whole on every rank (an all-gather where a
+    DTensor shards it; a plain tensor as it is)."""
+    return replicate_dims(x, -1)
+
+
 def _q8(x: torch.Tensor):
     """Blockwise signed linear int8 quantization (for the 1st moment)."""
     if not _quantizable(x.shape, x.numel()):
         return x.to(torch.float32), None
-    xb = x.reshape(_blocks(x.shape))
+    xb = _whole_blocks(x).reshape(_blocks(x.shape))
     scale = torch.amax(torch.abs(xb), dim=-1, keepdim=True) / 127.0
     q = torch.round(xb / torch.clamp(scale, min=1e-20)).to(torch.int8)
     return q.reshape(x.shape), scale.to(torch.float32)
@@ -62,15 +76,15 @@ def _q8(x: torch.Tensor):
 def _dq8(q, scale, shape):
     if scale is None:
         return q
-    return (q.reshape(_blocks(shape)).to(torch.float32) * scale
-            ).reshape(shape)
+    return (_whole_blocks(q).reshape(_blocks(shape)).to(torch.float32)
+            * scale).reshape(shape)
 
 
 def _q8log(x: torch.Tensor):
     """Blockwise log-space 8-bit quantization (for the 2nd moment)."""
     if not _quantizable(x.shape, x.numel()):
         return x.to(torch.float32), None, None
-    xl = torch.log(x.reshape(_blocks(x.shape)) + _VLOG_FLOOR)
+    xl = torch.log(_whole_blocks(x).reshape(_blocks(x.shape)) + _VLOG_FLOOR)
     lo = torch.amin(xl, dim=-1, keepdim=True)
     hi = torch.amax(xl, dim=-1, keepdim=True)
     span = torch.clamp(hi - lo, min=1e-6)
@@ -81,7 +95,8 @@ def _q8log(x: torch.Tensor):
 def _dq8log(q, lo, span, shape):
     if lo is None:
         return q
-    xl = (q.reshape(_blocks(shape)).to(torch.float32) + 128.0) / 255.0 \
+    xl = (_whole_blocks(q).reshape(_blocks(shape)).to(torch.float32)
+          + 128.0) / 255.0 \
         * span + lo
     return (torch.exp(xl) - _VLOG_FLOOR).reshape(shape)
 

@@ -1,20 +1,34 @@
-"""The train step on one card: microbatched gradient accumulation and
-the optimizer update.
+"""The train step: microbatched gradient accumulation and the
+optimizer update, on one device or over a DTensor mesh.
 
-The JAX package's ``runtime/train_step.py`` without its sharding:
-``state_schema``, ``init_state``, ``compute_grads`` and
-``build_train_step``.  ``jax.value_and_grad`` becomes
-``torch.autograd.grad`` of ``models/model.py::loss_fn`` with respect to
-leaves that alias the parameters; microbatches run in the JAX package's
-order, each loss normalised by its own token count, gradients summed in
+The JAX package's ``runtime/train_step.py``: ``state_schema``,
+``state_shardings``, ``init_state``, ``batch_pspecs``,
+``batch_shardings``, ``compute_grads`` and ``build_train_step``.
+``jax.value_and_grad`` becomes ``torch.autograd.grad`` of
+``models/model.py::loss_fn`` with respect to leaves that alias the
+parameters; microbatches run in the JAX package's order, each loss
+normalised by its own token count, gradients summed in
 ``run.grad_dtype`` and divided by their number.  On the card the
 forward runs the LM kernels through their ``autograd.Function``s.
-``state_shardings``, ``batch_shardings`` and
-``build_compressed_train_step`` wait for the port's sharding.
+
+With rules (``sharding/rules.py``) the parameters, the optimizer state
+and the batch are DTensors placed by ``state_shardings`` and
+``batch_shardings``; the step runs under ``axis_rules`` (the models'
+``shard`` sites place the activations) and ``implicit_replication``
+(the tables a model builds, RoPE's cos/sin and the masks, are the same
+on every rank), and each gradient is redistributed to its parameter's
+placements before the update, as the JAX package's ``grad_pspecs``
+constrain them.  Under ``run.zero1`` the update runs at the optimizer
+state's placements (the parameter's plus a "data" split): gradients and
+parameters are cut to them (a local slice) and the new parameters are
+gathered back.  ``build_compressed_train_step`` (the int8 cross-pod
+reduction) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, RunConfig, torch_dtype
 from repro_torch.models import model as M
@@ -25,8 +39,20 @@ from repro_torch.models.params import (
     tree_leaves,
     tree_map,
     tree_unflatten,
+    tree_zip,
 )
 from repro_torch.optim import Optimizer
+from repro_torch.sharding.rules import (
+    AxisRules,
+    Sharding,
+    axis_rules,
+    distribute_params,
+    param_shardings,
+    place,
+    replicate_dims,
+    shard,
+    zero1_shardings,
+)
 
 
 def state_schema(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer):
@@ -36,6 +62,45 @@ def state_schema(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer):
         "opt": optimizer.state_schema(psch),
         "step": ParamSpec((), (), torch.int32, ZEROS),
     }
+
+
+def state_shardings(sch, rules: AxisRules, run: RunConfig):
+    """The ``Sharding`` of every leaf of ``state_schema``'s tree: the
+    parameters by their rules, the optimizer state by ZeRO-1's when
+    ``run.zero1``, the step replicated."""
+    out = {
+        "params": param_shardings(sch["params"], rules),
+        "step": rules.sharding((), ()),
+    }
+    shard_fn = zero1_shardings if run.zero1 else param_shardings
+    out["opt"] = shard_fn(sch["opt"], rules)
+    return out
+
+
+def _batch_axes(shape) -> tuple:
+    """An input's logical axes: its first dim the batch, a scalar none."""
+    return ("batch",) + (None,) * (len(shape) - 1) if len(shape) else ()
+
+
+def batch_pspecs(batch_specs: dict, rules: AxisRules):
+    """Specs for a train/serve input dict (batch-dim sharded); each value
+    is anything with a ``shape``."""
+    return {k: rules.spec(_batch_axes(v.shape), tuple(v.shape))
+            for k, v in batch_specs.items()}
+
+
+def batch_shardings(batch_specs: dict, rules: AxisRules):
+    return {k: rules.sharding(_batch_axes(v.shape), tuple(v.shape))
+            for k, v in batch_specs.items()}
+
+
+def _place(x, s: Sharding):
+    return place(x, s.placements, s.mesh)
+
+
+def full_tensor(x):
+    """A DTensor gathered whole on every rank; a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def init_state(sch, gen: torch.Generator, device):
@@ -61,26 +126,41 @@ def loss_and_grads(cfg: ModelConfig, run: RunConfig, params, batch):
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
-def compute_grads(cfg: ModelConfig, run: RunConfig, params, batch):
+def compute_grads(cfg: ModelConfig, run: RunConfig, params, batch,
+                  grad_shardings=None):
     """Returns (grads, metrics).  Microbatched when run.microbatch is set
-    and smaller than the global batch."""
+    and smaller than the global batch.  With ``grad_shardings`` each
+    microbatch's gradients are redistributed to the parameters'
+    placements (a reduce-scatter of the partial sums over the batch
+    shards where the parameter is sharded, an all-reduce where it is
+    replicated)."""
     B = batch["tokens"].shape[0]
     mb_size = run.microbatch or B
+
+    def constrain(g):
+        if grad_shardings is None:
+            return g
+        return tree_zip(_place, g, grad_shardings)
+
     if mb_size >= B:
         _, metrics, grads = loss_and_grads(cfg, run, params, batch)
-        return grads, metrics
+        return constrain(grads), metrics
     if B % mb_size:
         raise ValueError(f"batch {B} is not a multiple of microbatch "
                          f"{mb_size}")
     n_acc = B // mb_size
     gdtype = torch_dtype(run.grad_dtype)
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=gdtype,
-                                          device=p.device), params)
+    gsum = tree_map(lambda p: torch.zeros_like(p, dtype=gdtype), params)
     lsum = nll = cnt = torch.zeros((), dtype=torch.float32,
                                    device=batch["tokens"].device)
     for i in range(n_acc):
-        mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
+        # a microbatch is a slice of the batch dim, cut from the whole
+        # batch and placed again by the rules
+        mb = {k: shard(replicate_dims(v, 0)[i * mb_size:(i + 1) * mb_size],
+                       "batch", *(None,) * (v.ndim - 1))
+              for k, v in batch.items()}
         loss, metrics, g = loss_and_grads(cfg, run, params, mb)
+        g = constrain(g)
         for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
             a.add_(b.to(gdtype))
         lsum = lsum + loss
@@ -92,15 +172,46 @@ def compute_grads(cfg: ModelConfig, run: RunConfig, params, batch):
     return grads, {"loss": lsum / n_acc, "nll_sum": nll, "token_count": cnt}
 
 
-def build_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer):
+def build_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
+                     rules: AxisRules | None = None):
     """``step(state, batch) -> (state, metrics)`` with ``state =
-    {"params", "opt", "step"}``; the old state is left as it was."""
+    {"params", "opt", "step"}``; the old state is left as it was.  With
+    ``rules`` the state and the batch are DTensors (``state_shardings``,
+    ``batch_shardings``); the new state keeps its placements, and the
+    metrics come back as plain (replicated) tensors."""
+    if rules is None:
+        def step(state, batch):
+            grads, metrics = compute_grads(cfg, run, state["params"], batch)
+            new_params, new_opt = optimizer.update(
+                grads, state["opt"], state["params"], state["step"])
+            return ({"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}, metrics)
 
-    def step(state, batch):
-        grads, metrics = compute_grads(cfg, run, state["params"], batch)
-        new_params, new_opt = optimizer.update(
-            grads, state["opt"], state["params"], state["step"])
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}, metrics)
+        return step
 
-    return step
+    sh = state_shardings(state_schema(cfg, run, optimizer), rules, run)
+    psh = sh["params"]
+    # the update's placements: the optimizer state's under ZeRO-1
+    ush = zero1_shardings(M.train_schema(cfg), rules) if run.zero1 else psh
+
+    def sharded_step(state, batch):
+        with axis_rules(rules), implicit_replication():
+            grads, metrics = compute_grads(cfg, run, state["params"], batch,
+                                           psh)
+            new_params, new_opt = optimizer.update(
+                tree_zip(_place, grads, ush), state["opt"],
+                tree_zip(_place, state["params"], ush), state["step"])
+            new_params = tree_zip(_place, new_params, psh)
+            new_opt = tree_zip(_place, new_opt, sh["opt"])
+            new_step = _place(state["step"] + 1, sh["step"])
+            metrics = {k: full_tensor(v) for k, v in metrics.items()}
+        return ({"params": new_params, "opt": new_opt, "step": new_step},
+                metrics)
+
+    return sharded_step
+
+
+def distribute_batch(batch, rules: AxisRules):
+    """A batch built the same way on every rank as DTensors placed by
+    ``batch_shardings``."""
+    return distribute_params(batch, batch_shardings(batch, rules))

@@ -1,0 +1,402 @@
+"""Logical-axis placement rules with divisibility fallback, over a
+``torch.distributed`` device mesh.
+
+The placement half of the JAX package's ``sharding/rules.py``.  Every
+parameter and activation dimension carries a *logical* axis name
+("batch", "heads", "mlp", ...).  A rule table maps each name to an
+ordered list of candidate mesh axes; the first candidate whose size
+divides the dimension (and is not already taken by another dimension of
+the same tensor) wins, otherwise the dimension is replicated.  The
+tables, the preference order, the exclusivity, the ZeRO-1 extra split
+and the trailing-``None`` trim are the JAX package's, so a spec here
+equals ``tuple()`` of the JAX ``PartitionSpec`` for the same mesh
+sizes, and one model definition serves the (16, 16) pod, the
+(2, 16, 16) two-pod mesh, the one-card (1, 1) mesh and the CPU's gloo
+ranks.
+
+A spec becomes DTensor placements, one per mesh dimension:
+``Shard(i)`` where the spec puts tensor dimension ``i`` over that mesh
+axis, else ``Replicate()``.  An entry over several axes, such as
+``("pod", "data")``, shards one dimension over each of them in the
+mesh's order, pod-major as in JAX.  ``Sharding`` (mesh, spec,
+placements) is the port's ``NamedSharding``.  ``AbstractMesh`` holds
+ordered axis names and sizes and no devices, so rules resolve at
+production sizes on any machine.
+
+``shard(x, *axes)`` is the port's ``with_sharding_constraint``: a no-op
+outside an ``axis_rules`` context or on a plain tensor, a
+``redistribute`` to the rule's placements on a DTensor.  The JAX
+package's manual-axis branch of ``shard`` (``compat.mesh_and_manual``,
+the rule inside a region manual over "pod") belongs to the compressed
+cross-pod step and is not ported here.
+
+The parameter schema (``ParamSpec`` and its inits) lives in
+``models/params.py``; the helpers here map over those schemas.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Sequence
+
+import torch
+from torch.distributed.tensor import (
+    DTensor,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.models.params import map_specs, tree_zip
+
+# ---------------------------------------------------------------------------
+# Rule tables (the JAX package's, entry for entry)
+# ---------------------------------------------------------------------------
+
+# Training rules.  Order within each entry = preference order.  A tuple
+# entry like ("pod", "data") means "shard over the product of these axes"
+# (all must exist in the mesh; divisibility checked on the product).
+#
+# "embed" is the *parameter* d_model axis: sharded over "data" for
+# training (FSDP weight sharding), replicated for serving.  "d_model" is
+# the *activation* embedding axis: always replicated on "model"
+# (Megatron-style TP).
+TRAIN_RULES: dict[str, tuple[Any, ...]] = {
+    # activations / data
+    "batch": (("pod", "data"), ("data",), ("pod",)),
+    "seq": (),
+    "seq_res": (),
+    "kv_seq": (("model",),),
+    "kv_seq_long": (("data", "model"), ("model",),),
+    "d_model": (),
+    # parameters
+    "embed": (("data",),),
+    "heads": (("model",),),
+    "kv_heads": (("model",),),      # falls back to replicate when kv<model
+    "mlp": (("model",),),
+    "vocab": (("model",),),
+    "experts": (("model",),),
+    "experts_ep": (("data",), ("model",)),
+    "ep_embed": (("model",),),
+    "expert_cap": (),
+    "layers": (),
+    "ssm_inner": (("model",),),
+    "ssm_heads": (("model",),),
+    "ssm_state": (),
+    "conv_w": (),
+    "kv_lora": (),
+    "q_lora": (),
+    "rope": (),
+    "head_dim": (),
+    "frames": (),
+    # optimizer-state extra sharding (ZeRO-1)
+    "zero1": (("data",),),
+}
+
+# Serving rules: weights resident (no FSDP gather); giant MoE expert
+# banks spread over (pod, data) with TP on the expert hidden dim.
+SERVE_RULES: dict[str, tuple[Any, ...]] = {
+    **TRAIN_RULES,
+    "embed": (),
+    "experts": (("pod", "data"), ("data",), ("model",)),
+}
+
+DEFAULT_RULES = TRAIN_RULES
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: a mesh axis name, a tuple of
+    names, or None (replicated); trailing Nones trimmed.  A plain tuple,
+    so it compares equal to ``tuple(jax.sharding.PartitionSpec(...))``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Ordered mesh axis names and sizes, no devices."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"sizes {self.axis_sizes} vs names "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis name: size}`` in the mesh's order, for a ``DeviceMesh``
+    with ``mesh_dim_names`` or an ``AbstractMesh``."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("the device mesh needs mesh_dim_names")
+    return dict(zip(names, mesh.shape))
+
+
+def _entry_axes(part) -> tuple[str, ...]:
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def spec_placements(mesh, spec: Sequence) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: for each mesh axis,
+    ``Shard(i)`` where entry ``i`` names it, else ``Replicate()``.  An
+    entry over several axes must name them in the mesh's order (the
+    left axis splits first, as in JAX)."""
+    names = list(mesh_shape(mesh))
+    out: list = [Replicate()] * len(names)
+    for i, part in enumerate(spec):
+        axes = _entry_axes(part)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {part!r} is not in the mesh's axis "
+                             f"order {tuple(names)}")
+        for j in idx:
+            out[j] = Shard(i)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """The port's ``NamedSharding``: a spec bound to a mesh, with its
+    DTensor placements."""
+
+    mesh: Any
+    spec: PartitionSpec
+    placements: tuple
+
+
+def make_rules(mesh, phase: str = "train",
+               flat_dp: bool = False) -> "AxisRules":
+    """flat_dp: treat "model" as a second data axis — for archs whose
+    head count does not divide the model axis (whisper: 20 heads vs 16),
+    where tensor parallelism would otherwise replicate the attention
+    compute on every model rank."""
+    table = dict(TRAIN_RULES if phase == "train" else SERVE_RULES)
+    if flat_dp:
+        table["batch"] = (
+            ("pod", "data", "model"), ("pod", "data"), ("data", "model"),
+            ("data",),
+        )
+        table["heads"] = ()
+        table["kv_heads"] = ()
+        table["mlp"] = ()
+        table["ssm_inner"] = ()
+        table["ssm_heads"] = ()
+    return AxisRules(mesh, table)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """A rule table bound to a mesh (a ``DeviceMesh`` with
+    ``mesh_dim_names``, or an ``AbstractMesh``)."""
+
+    mesh: Any
+    rules: dict[str, tuple[Any, ...]] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_RULES)
+    )
+
+    def mesh_axis_size(self, axes: Sequence[str]) -> int:
+        shape = mesh_shape(self.mesh)
+        n = 1
+        for a in axes:
+            n *= shape.get(a, 1)
+        return n
+
+    def resolve_dim(self, logical: str | None, size: int, taken: set[str]):
+        """Pick mesh axes for one dim, honoring divisibility +
+        exclusivity."""
+        if logical is None:
+            return None
+        shape = mesh_shape(self.mesh)
+        for cand in self.rules.get(logical, ()):
+            axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            if any(a in taken for a in axes):
+                continue
+            if any(a not in shape for a in axes):
+                continue
+            n = self.mesh_axis_size(axes)
+            if n > 1 and size % n == 0:
+                taken.update(axes)
+                return axes if len(axes) > 1 else axes[0]
+        return None
+
+    def spec(self, logical_axes: Sequence[str | None],
+             shape: Sequence[int]) -> PartitionSpec:
+        if len(logical_axes) != len(shape):
+            raise ValueError(
+                f"logical axes {logical_axes} rank != shape {shape} rank"
+            )
+        taken: set[str] = set()
+        parts = [self.resolve_dim(name, dim, taken)
+                 for name, dim in zip(logical_axes, shape)]
+        while parts and parts[-1] is None:
+            parts.pop()
+        return P(*parts)
+
+    def zero1_spec(self, logical_axes: Sequence[str | None],
+                   shape: Sequence[int]) -> PartitionSpec:
+        """Param spec + an extra 'data' split on the largest
+        still-unsharded divisible dim (ZeRO-1 optimizer-state
+        sharding)."""
+        base = self.spec(logical_axes, shape)
+        parts = list(base) + [None] * (len(shape) - len(base))
+        taken = {a for p in parts for a in _entry_axes(p)}
+        mshape = mesh_shape(self.mesh)
+        if "data" in taken or "data" not in mshape:
+            return base
+        dsize = mshape["data"]
+        order = sorted(range(len(shape)), key=lambda i: -shape[i])
+        for i in order:
+            if parts[i] is None and shape[i] % dsize == 0 \
+                    and shape[i] >= dsize:
+                parts[i] = "data"
+                break
+        while parts and parts[-1] is None:
+            parts.pop()
+        return P(*parts)
+
+    def placements(self, logical_axes, shape) -> tuple:
+        return spec_placements(self.mesh, self.spec(logical_axes, shape))
+
+    def sharding(self, logical_axes, shape) -> Sharding:
+        spec = self.spec(logical_axes, shape)
+        return Sharding(self.mesh, spec, spec_placements(self.mesh, spec))
+
+    def zero1_sharding(self, logical_axes, shape) -> Sharding:
+        spec = self.zero1_spec(logical_axes, shape)
+        return Sharding(self.mesh, spec, spec_placements(self.mesh, spec))
+
+
+# ---------------------------------------------------------------------------
+# Thread-local rule context (used by model code for activation placement)
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def axis_rules(rules: AxisRules | None):
+    prev = getattr(_CTX, "rules", None)
+    _CTX.rules = rules
+    try:
+        yield
+    finally:
+        _CTX.rules = prev
+
+
+def current_rules() -> AxisRules | None:
+    return getattr(_CTX, "rules", None)
+
+
+def shard(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
+    """Place an activation by the current rules: a no-op outside an
+    ``axis_rules`` context or on a plain tensor; a DTensor is
+    redistributed to the rule's placements (gradients flow back through
+    the inverse redistribution)."""
+    rules = current_rules()
+    if rules is None or not isinstance(x, DTensor):
+        return x
+    want = rules.placements(logical_axes, x.shape)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def place(x: torch.Tensor, placements: Sequence, mesh=None) -> DTensor:
+    """x redistributed to ``placements`` (a no-op where it is there); a
+    plain tensor, the same on every rank, is taken as replicated on
+    ``mesh``."""
+    placements = tuple(placements)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """x with its shards of tensor dims ``dims`` gathered (``Replicate()``
+    there), for an op that has no DTensor strategy over them; a plain
+    tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    drop = {d % x.ndim for d in dims}
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.ndim in drop
+                 else p for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def local_along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that works along tensor dim ``dim`` alone
+    (a scan, say), run on each rank's shard through ``local_map``: for
+    an op whose DTensor strategy, or its backward's, is missing.  A
+    DTensor sharded along ``dim`` is gathered there first, a partial sum
+    reduced; a plain tensor goes straight to ``fn``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    d = dim % x.ndim
+    want = tuple(p if isinstance(p, Shard) and p.dim % x.ndim != d
+                 else Replicate() for p in x.placements)
+    if want != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return local_map(fn, out_placements=list(want), in_placements=(want,),
+                     in_grad_placements=(want,),
+                     device_mesh=x.device_mesh)(x)
+
+
+# ---------------------------------------------------------------------------
+# Schema-wide helpers
+# ---------------------------------------------------------------------------
+
+
+def param_pspecs(schema, rules: AxisRules):
+    return map_specs(lambda _, s: rules.spec(s.axes, s.shape), schema)
+
+
+def param_shardings(schema, rules: AxisRules):
+    return map_specs(lambda _, s: rules.sharding(s.axes, s.shape), schema)
+
+
+def zero1_pspecs(schema, rules: AxisRules):
+    return map_specs(lambda _, s: rules.zero1_spec(s.axes, s.shape), schema)
+
+
+def zero1_shardings(schema, rules: AxisRules):
+    return map_specs(lambda _, s: rules.zero1_sharding(s.axes, s.shape),
+                     schema)
+
+
+def distribute_params(tree, shardings):
+    """A tree of full tensors, built the same way on every rank, as
+    DTensors placed by ``shardings`` (a tree of ``Sharding``s of the same
+    structure)."""
+    return tree_zip(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
+                    tree, shardings)

@@ -197,3 +197,14 @@ def test_sim_probes_are_the_cards():
     assert all(t > 0 for t in batch["t_step_s"])
     assert re.search(r"NVIDIA H100", comment)
     assert re.search(r"\d+\.\d+ W", comment)
+
+
+#: the placements and the kernels' DTensor branch
+PLACEMENTS = ["sharding/__init__.py", "sharding/rules.py", "launch/mesh.py",
+              "kernels/local.py"]
+
+
+@pytest.mark.parametrize("name", PLACEMENTS)
+def test_placement_modules_are_held_to_no_jax(name):
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
