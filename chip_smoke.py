@@ -736,6 +736,8 @@ def main() -> int:
     emit(mtrained)
     strained = run_sharded_train(dev, smi)
     emit(strained)
+    dstrained = run_deepseek_sharded_train(dev, smi)
+    emit(dstrained)
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -755,6 +757,8 @@ def main() -> int:
                     cell["launches_per_step"][entry["name"]]
         entry["launches_sharded_train"] = strained["launches"].get(
             entry["name"], 0)
+        entry["launches_deepseek_sharded_train"] = \
+            dstrained["launches"].get(entry["name"], 0)
 
     # 23. kernels
     windows = window_timings(dev, rng, bw, f32)
@@ -1124,6 +1128,12 @@ def _copy_split(prof: dict, steps: int) -> dict:
     """A profile's device ms per step: the block kernel's, the rest
     (the exchange's and the stitch's copies and fills), and their
     share."""
+    if not prof["by_kernel_ms"]:                     # ``event_timed``'s
+        return {"device_ms_per_step": prof["device_ms"] / steps,
+                "kernel_ms_per_step": None, "copy_ms_per_step": None,
+                "copy_share": None, "busy_share": None,
+                "launches_per_step": None,
+                "device_time_from": prof["device_time_from"]}
     kern = sum(v for key, v in prof["by_kernel_ms"].items()
                if "wave_block" in key)
     rest = prof["device_ms"] - kern
@@ -1693,12 +1703,43 @@ PLAIN_BACKWARD = "_plain_backward"
 SMOKE_RANGES = ("layernorm",)
 
 
+#: traces ``profile_device`` takes before it times the call with CUDA
+#: events instead: on the card's machine a ``torch.profiler`` trace of a
+#: few milliseconds has now and then held no device activity at all
+PROFILE_TRIES = 3
+
+
+def event_timed(fn) -> dict:
+    """``profile_device``'s fallback: wall ms and the device ms from a
+    CUDA event before the first launch of one call of ``fn`` to one
+    after its last (idle gaps included, so no busy share), with no
+    split by kernel or range."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    device_ms = start.elapsed_time(end)
+    check(device_ms > 0, "neither the profiler nor CUDA events saw "
+                         "device time")
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy_share": None, "kernels_per_call": None,
+            "by_kernel_ms": {}, "profiler_tries": PROFILE_TRIES,
+            "device_time_from": "cuda events (first to last launch): "
+                                "the profiler saw no device activity"}
+
+
 def profile_device(fn, calls: int) -> dict:
     """``torch.profiler`` over one synchronised call of ``fn`` (warmed
     up first): wall ms, the kernels' device ms and launches per call
     (``calls`` steps or blocks), the device's busy share, and the device
     ms inside each ``*_plain_backward`` range and each MoE range
-    (``models/moe.py::MOE_RANGES``)."""
+    (``models/moe.py::MOE_RANGES``).  After ``PROFILE_TRIES`` traces
+    with no device activity, ``event_timed``'s CUDA-event span instead."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.moe import MOE_RANGES
@@ -1709,21 +1750,25 @@ def profile_device(fn, calls: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not is_range(e.key)]
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not is_range(e.key)]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if device_ms > 0:
+            break
+    else:
+        return event_timed(fn)
     ranges = {e.key: e.device_time_total / 1e3 for e in events
               if e.device_type == torch.autograd.DeviceType.CPU
               and is_range(e.key)}
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(device_ms > 0, "the profiler saw no device time")
     # names cut to 48 characters: kernels that share a prefix are summed
     by_kernel: dict = {}
     for e in kernels:
@@ -1733,7 +1778,7 @@ def profile_device(fn, calls: int) -> dict:
     out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
            "busy_share": device_ms / (wall * 1e3),
            "kernels_per_call": sum(e.count for e in kernels) / calls,
-           "by_kernel_ms": by_kernel}
+           "by_kernel_ms": by_kernel, "profiler_tries": tries}
     backward = {k: v for k, v in ranges.items() if k.endswith(PLAIN_BACKWARD)}
     if backward:
         out["plain_backward_ms"] = backward
@@ -4696,6 +4741,193 @@ def run_sharded_train(dev, smi):
                           "grad_share_of_max": TRAIN_GRAD_SHARE},
             "cells": out, "launches": launches, "nvidia_smi": smi}
 
+
+
+#: DeepSeek-V2 under expert parallelism against the grouped einsum path:
+#: EP adds each token's gated expert outputs one by one in bf16 where the
+#: einsum sums them in one f32 contraction, so the two part by bf16
+#: roundings, carried into bf16 gradients (one bf16 ulp at a leaf's
+#: largest gradient is 2^-8 = 3.9e-3 of it; a leaf's relative L2 is
+#: reported, not held: a small leaf summed over 8192 tokens cancels)
+DS_SHARDED_LOSS_RTOL = 1e-3
+DS_SHARDED_GRAD_SHARE = 5e-2
+#: (B, S): N = 4096 tokens, one MoE group (the config's 8192 cut to the
+#: tokens there are), C = 192.  At B = 4 the plain attention backward's
+#: f32 (B, 128, 2048, 2048) scores (8.6 GB a tensor, ~45 GB at its peak)
+#: on top of 21 GB of parameters and gradients come near the card's 80
+DS_SHARDED_SHAPE = (2, 2048)
+
+
+def run_deepseek_sharded_train(dev, smi):
+    """DeepSeek-V2 at full width cut to 2 layers, (mla, dense) and (mla,
+    moe) (160 experts, top-6, 2 shared), bf16 as the config, remat
+    "full", B x S = 2 x 2048: ``SHARDED_STEPS`` gradient passes of the
+    train step through ``launch.train.build_session``'s rules and
+    placements on the one-rank NCCL mesh (the MoE layer on the
+    expert-parallel path) against the unsharded pass (the grouped einsum
+    path), each side from the seeded parameters drawn anew: losses
+    within ``DS_SHARDED_LOSS_RTOL``, every gradient leaf within
+    ``DS_SHARDED_GRAD_SHARE``·max|g|, drops per MoE call equal, every MoE call on its path,
+    each kernel launched as often a pass both ways (the sharded side's
+    through its ``local_map`` branch), host ms a pass, peak memory and a
+    profile of one pass with the device ms of the three MoE ranges.  The
+    step's update (the config's 8-bit AdamW) is left out: the old and the
+    new state of 5.36 B parameters (43 GB each) and the f32 temporaries
+    of a 1.26 B-element expert leaf do not fit the card's 80 GB."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels.local import LOCAL_MAP_CALLS
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding.rules import axis_rules, distribute_params
+
+    cfg = _deepseek_cut(V2, 1, 1, "bfloat16")
+    run = RunConfig(loss_chunk=512, remat="full")
+    B, S = DS_SHARDED_SHAPE
+    n_moe = sum(mlp == "moe" for b in cfg.blocks for _ in range(b.repeat)
+                for _, mlp in b.pattern)
+    per_pass = M.launches_per_pass(cfg, "train", remat=run.remat)
+    check(not dist.is_initialized(), "a process group is already running")
+
+    def side(params, batch, ctx, gsh, path):
+        """``SHARDED_STEPS`` gradient passes and a profiled one: losses,
+        host ms, launches, MoE path calls, the first pass's drops and
+        gradients (on the host), peak memory."""
+        def grads():
+            with ctx():
+                return ts.compute_grads(cfg, run, params, batch, gsh)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms, launches, calls = [], [], [], []
+        first = None
+        for i in range(SHARDED_STEPS):
+            _counts_zero()
+            c0 = dict(moe.MOE_CALLS)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with moe.record_drops() as log:
+                g, m = grads()
+                losses.append(float(ts.full_tensor(m["loss"])))
+            ms.append((time.monotonic() - t0) * 1e3)
+            launches.append(_counts())
+            calls.append({k: moe.MOE_CALLS[k] - c0[k] for k in c0})
+            if first is None:
+                first = ([ts.full_tensor(x).to("cpu") for x in
+                          tree_leaves(g)], [(p_, int(n)) for p_, n in log])
+            del g
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        prof = by_kind(profile_device(grads, 1), 1)
+        prof["host_s_with_trace"] = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        for c in calls:
+            check(c == {"grouped": 0, "ep": 0, path: 2 * n_moe},
+                  f"MoE calls a pass {c}, want {2 * n_moe} on {path}")
+        for n in launches:
+            check({k: n[k] for k in per_pass} == per_pass,
+                  f"launches a pass {n}, predicted {per_pass}")
+        return {"losses": losses, "host_ms_per_pass": ms,
+                "launches_per_pass": launches, "moe_calls_per_pass": calls,
+                "drops": [n for _, n in first[1]],
+                "drop_paths": [p_ for p_, _ in first[1]],
+                "peak_memory_bytes": peak, "profile_pass": prof}, first[0]
+
+    out = {}
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+        opt, sch, shardings, _, rules = train_mod.build_session(
+            cfg, run, mesh, SHARDED_STEPS)
+        batch = SyntheticLMPipeline(cfg, ShapeConfig(
+            "deepseek_sharded", "train", S, B), device=dev).batch_at(0)
+
+        def params0():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return ts.init_state(sch, gen, dev)
+
+        params = params0()
+        plain, want_g = side(params, batch, contextlib.nullcontext, None,
+                             "grouped")
+        del params
+        torch.cuda.empty_cache()
+        dparams = distribute_params(params0(), shardings["params"])
+        dbatch = ts.distribute_batch(batch, rules)
+        calls0 = dict(LOCAL_MAP_CALLS)
+
+        def ctx():
+            stack = contextlib.ExitStack()
+            stack.enter_context(axis_rules(rules))
+            stack.enter_context(implicit_replication())
+            return stack
+
+        sharded, got_g = side(dparams, dbatch, ctx, shardings["params"],
+                              "ep")
+        local = {k: LOCAL_MAP_CALLS[k] - calls0[k] for k in calls0}
+        del dparams
+        shares, rel_l2 = {}, {}
+        names = _leaf_names(M.train_schema(cfg))
+        for nm, g, w in zip(names, got_g, want_g):
+            g, w = g.to(dev).float(), w.to(dev).float()
+            diff = g - w
+            scale = float(w.abs().max())
+            shares[nm] = float(diff.abs().max()) / scale if scale else 0.0
+            norm = float(w.norm())
+            rel_l2[nm] = float(diff.norm()) / norm if norm else 0.0
+            del g, w, diff
+        del got_g, want_g
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    worst = max(shares, key=shares.get)
+    worst_l2 = max(rel_l2, key=rel_l2.get)
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"],
+                                               plain["losses"])]
+    check(all(r <= DS_SHARDED_LOSS_RTOL for r in rel),
+          f"losses sharded {sharded['losses']} unsharded {plain['losses']}")
+    check(shares[worst] <= DS_SHARDED_GRAD_SHARE,
+          f"gradient {worst} parts by {shares[worst]} of its max")
+    check(sharded["drops"] == plain["drops"]
+          and len(plain["drops"]) == 2 * n_moe,
+          f"drops sharded {sharded['drops']} unsharded {plain['drops']}")
+    check(sharded["launches_per_pass"] == plain["launches_per_pass"],
+          "launches a pass differ")
+    check(all(local[k] > 0 for k in per_pass if per_pass[k]),
+          f"local_map branch calls {local}")
+    launches = {}
+    for n in sharded["launches_per_pass"]:
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"phase": "deepseek_sharded_train", "arch": cfg.name,
+           "reduced": _reduced(get_config(V2), (1, 1)),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+           "params": count_params(M.train_schema(cfg)),
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "batch": B, "seq": S,
+           "capacity": moe.expert_capacity(B * S, cfg),
+           "remat": run.remat, "optimizer": run.optimizer or cfg.optimizer,
+           "update": "not run: the old and new state do not fit",
+           "mesh": list(mesh.shape), "passes": SHARDED_STEPS,
+           "tolerance": {"loss_rel": DS_SHARDED_LOSS_RTOL,
+                         "grad_share_of_max": DS_SHARDED_GRAD_SHARE},
+           "loss_rel_diff": rel, "worst_leaf": worst,
+           "worst_leaf_share": shares[worst], "worst_leaf_l2": worst_l2,
+           "worst_leaf_rel_l2": rel_l2[worst_l2],
+           "sharded": sharded, "unsharded": plain,
+           "local_map_calls": local, "launches_predicted_per_pass":
+           per_pass, "launches": launches, "nvidia_smi": smi}
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -35,6 +35,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import NEG_INF, _out, _project
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import param, scale_param, zeros_param
+from repro_torch.sharding.rules import shard
 
 
 def mla_schema(cfg: ModelConfig):
@@ -114,14 +115,18 @@ def apply_mla_full(
     q_full = torch.cat([q[..., :nope], q_pe], dim=-1)
     k_full = torch.cat([kv[..., :nope],
                         k_pe[:, :, None].expand(-1, -1, H, -1)], dim=-1)
+    # k has H heads (KH = H): it is placed on "heads" with q
+    q_full = shard(q_full, "batch", None, "heads", None)
+    k_full = shard(k_full, "batch", None, "heads", None)
     out = attn.attention(q_full.transpose(1, 2), k_full.transpose(1, 2),
                          kv[..., nope:].transpose(1, 2),
                          causal=causal).transpose(1, 2)  # (B,S,H,v)
-    y = _out(out, p["wo"].to(dt))
+    y = shard(_out(out, p["wo"].to(dt)), "batch", None, "d_model")
     if cache is not None:
-        S = x.shape[1]
-        cache["ckv"][:, :S] = ckv
-        cache["kpe"][:, :S] = k_pe
+        B, S = x.shape[:2]
+        seq = attn.seq_axis(B)
+        cache["ckv"][:, :S] = shard(ckv, "batch", seq, None)
+        cache["kpe"][:, :S] = shard(k_pe, "batch", seq, None)
     return y
 
 
@@ -148,6 +153,9 @@ def apply_mla_decode(
     ckv, kpe = cache["ckv"], cache["kpe"]
     ckv[:, pos] = ckv_new
     kpe[:, pos] = kpe_new
+    seq = attn.seq_axis(x.shape[0])
+    ckv = shard(ckv, "batch", seq, None)
+    kpe = shard(kpe, "batch", seq, None)
     # absorbed attention in latent space
     w_uk = p["wkv_b"][..., :nope].to(dt)                 # (R,H,nope)
     w_uv = p["wkv_b"][..., nope:].to(dt)                 # (R,H,v)

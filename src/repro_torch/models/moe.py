@@ -20,11 +20,29 @@ Two dispatches compute the same function:
 The groups run as a Python loop where the JAX package scans.  The expert
 products, the einsums and the router stay ``torch.einsum`` /
 ``torch.matmul``: the JAX package computes them outside any Pallas
-kernel.  ``apply_moe_ep`` (expert parallelism over the data axis) is a
-``shard_map`` in the JAX package; without a mesh it takes the grouped
-path, and so it always does here: the port's placements
-(``sharding/rules.py``) do not reach the MoE layer yet, and the
-expert-parallel form is not ported.
+kernel.
+
+Under rules (``sharding/rules.py``) the grouped path cuts the tokens
+into ``_dp_size()`` shard-local runs of groups, as the JAX package
+does, and its nine ``shard`` sites place the group input, the dispatch
+and combine tensors, the expert inputs and outputs and the layer's
+output.  On DTensors a group's routing (the router, the stable top-k,
+the one-hots, the queue positions and, for the einsum dispatch, the
+dispatch and combine tensors) runs on each rank's own groups through
+``local_map`` (``_on_group_shards``): routing never crosses a group,
+and the card's torch has no DTensor rule for some of its ops (cumsum's
+backward among them).  lb and z leave that region as partial sums of
+the ranks' means.
+
+``apply_moe_ep`` is the JAX package's expert-parallel path (a
+``shard_map`` there, one ``local_map`` region here): experts over
+"data", their d_model over "model", each (data, model) rank routing its
+own tokens, an all-to-all each way over "data" and the hidden sum over
+"model" before the SiLU as autograd-aware collectives on the mesh's
+sub-groups (``_AllToAll``, ``torch.distributed.nn.functional``'s
+all-reduce).  It takes the grouped path where the JAX package does.
+``MOE_CALLS`` counts the layer calls of each path; ``record_drops``
+collects each call's dropped assignments.
 
 Each group's work runs inside three profiler ranges, ``moe_dispatch``
 (routing, the dispatch and combine tensors, the tokens' copy into the
@@ -39,15 +57,56 @@ compute dtype for serving and in the parameter dtype for training
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.local import keep_shards, split_grads
 from repro_torch.models.params import normal_param, param
+from repro_torch.sharding.rules import (
+    P,
+    current_rules,
+    mesh_shape,
+    place,
+    shard,
+    spec_placements,
+)
 
 #: the profiler ranges of a group's dispatch, expert products and combine
 MOE_RANGES = ("moe_dispatch", "moe_experts", "moe_combine")
+
+#: MoE layer calls by the path they took (a rematerialised layer counts
+#: again in the backward)
+MOE_CALLS = {"grouped": 0, "ep": 0}
+
+_drop_log: list | None = None
+
+
+@contextlib.contextmanager
+def record_drops():
+    """While active, every MoE layer call appends ``(path, dropped)`` to
+    the list it yields: ``dropped`` the (token, expert) assignments this
+    rank's routing dropped, a tensor on the tokens' device (the layer's
+    groups on one device, the rank's own groups or tokens on a mesh)."""
+    global _drop_log
+    prev, _drop_log = _drop_log, []
+    try:
+        yield _drop_log
+    finally:
+        _drop_log = prev
+
+
+def _note_drops(path: str, keep: torch.Tensor) -> None:
+    if _drop_log is not None:
+        _drop_log.append((path, torch.sum(~keep).detach()))
 
 # ---------------------------------------------------------------------------
 # Schema
@@ -91,9 +150,12 @@ def expert_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
 
 
 def _dp_size() -> int:
-    """The data-parallel ranks the tokens are split over: 1 until the
-    port has a mesh."""
-    return 1
+    """The data-parallel ranks the tokens are split over: the rules'
+    ("pod", "data") size, 1 without rules."""
+    rules = current_rules()
+    if rules is None:
+        return 1
+    return rules.mesh_axis_size(("pod", "data"))
 
 
 # ---------------------------------------------------------------------------
@@ -149,34 +211,120 @@ def _experts(p, dt):
     return p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt)
 
 
+def _on_group_shards(fn, n_rows: int, x_g: torch.Tensor, *rest):
+    """``fn(x_g, *rest) -> (*rows, lb, z)`` for x_g (G, T, d): a plain
+    call on plain tensors.  On a DTensor, one ``local_map`` region over
+    x_g's group shards (its dim 0; any other placement of it gathered)
+    with ``rest`` replicated: the ``n_rows`` row outputs come back
+    sharded as x_g, and lb and z, each rank's mean over its groups, as
+    partial sums over the group shards (each local mean divided by their
+    number), so that their value is the mean over every group.  A
+    replicated input's gradient is partial over the group shards."""
+    if not isinstance(x_g, DTensor):
+        return fn(x_g, *rest)
+    mesh = x_g.device_mesh
+    xp = keep_shards(x_g, (0,))
+    rep = (Replicate(),) * mesh.ndim
+    parts = 1
+    for j, pl in enumerate(xp):
+        if isinstance(pl, Shard):
+            parts *= mesh.size(j)
+    mean = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                 for pl in xp)
+
+    def local(xl, *rl):
+        *rows, lb, z = fn(xl, *rl)
+        return (*rows, lb / parts, z / parts)
+
+    n = len(rest)
+    return local_map(local, out_placements=(*(xp,) * n_rows, mean, mean),
+                     in_placements=(xp, *(rep,) * n),
+                     in_grad_placements=(xp, *(split_grads(rep, xp),) * n),
+                     device_mesh=mesh)(
+        place(x_g, xp), *(place(t, rep, mesh) for t in rest))
+
+
 # ---------------------------------------------------------------------------
 # Einsum (t5x-style) dispatch — baseline
 # ---------------------------------------------------------------------------
 
 
+def _einsum_routing(cfg: ModelConfig, C: int, x_g, router):
+    """x_g (G, T, d) -> (dispatch, combine (G, T, E, C) in the compute
+    dtype, lb, z)."""
+    dt = cfg.cdtype
+    gate, idx, mask, lb, z = route(cfg, {"router": router},
+                                   x_g.to(torch.float32))
+    pos = _positions_in_expert(mask)                          # (G,T,k)
+    keep = pos < C
+    _note_drops("grouped", keep)
+    slots = torch.arange(C, dtype=pos.dtype, device=pos.device)
+    pos_oh = (pos[..., None] == slots).to(torch.float32) \
+        * keep.to(torch.float32)[..., None]
+    dispatch = torch.einsum("gtke,gtkc->gtec", mask, pos_oh).to(dt)
+    # the gate folded into the expert one-hot: one nonzero term per
+    # (t, e), so the values are the JAX three-operand einsum's exactly
+    combine = torch.einsum("gtke,gtkc->gtec", mask * gate[..., None],
+                           pos_oh).to(dt)
+    return dispatch, combine, lb, z
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of two operands.  On DTensors one
+    ``local_map`` region: each mesh dim that shards an index of either
+    operand (a's first) shards that index in both operands and in the
+    output; an operand without the index is replicated there and its
+    gradient partial, an output without it (a contracted index) is a
+    partial sum.  Mesh dims that shard neither are replicated."""
+    if not isinstance(a, DTensor):
+        return torch.einsum(eq, a, b)
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    mesh = a.device_mesh
+    index = []
+    for j in range(mesh.ndim):
+        found = None
+        for t, sub in ((a, sa), (b, sb)):
+            pl = t.placements[j] if isinstance(t, DTensor) else None
+            if found is None and isinstance(pl, Shard):
+                found = sub[pl.dim % t.ndim]
+        index.append(found)
+
+    def placements(sub, missing):
+        return tuple(Replicate() if i is None else Shard(sub.index(i))
+                     if i in sub else missing for i in index)
+
+    pa, pb = placements(sa, Replicate()), placements(sb, Replicate())
+    return local_map(
+        functools.partial(torch.einsum, eq),
+        out_placements=list(placements(so, Partial())),
+        in_placements=(pa, pb),
+        in_grad_placements=(placements(sa, Partial()),
+                            placements(sb, Partial())),
+        device_mesh=mesh)(place(a, pa), place(b, pb, mesh))
+
+
 def _moe_group_einsum(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
-    """x_g (G, T, d) -> (y (G, T, d) in the compute dtype, lb, z)."""
+    """x_g (G, T, d) -> (y (G, T, d) in the compute dtype, lb, z).  On
+    DTensors each product runs on local shards (``_einsum``): G over
+    the batch axes and E where the rules place the experts, the expert
+    weights gathered along the rest (the JAX package's FSDP gather)."""
     dt = cfg.cdtype
     with record_function(MOE_RANGES[0]):
-        gate, idx, mask, lb, z = route(cfg, p, x_g.to(torch.float32))
-        pos = _positions_in_expert(mask)                      # (G,T,k)
-        keep = (pos < C).to(torch.float32)
-        slots = torch.arange(C, dtype=pos.dtype, device=pos.device)
-        pos_oh = (pos[..., None] == slots).to(torch.float32) \
-            * keep[..., None]
-        dispatch = torch.einsum("gtke,gtkc->gtec", mask, pos_oh).to(dt)
-        # the gate folded into the expert one-hot: one nonzero term per
-        # (t, e), so the values are the JAX three-operand einsum's exactly
-        combine = torch.einsum("gtke,gtkc->gtec", mask * gate[..., None],
-                               pos_oh).to(dt)
-        xe = torch.einsum("gtd,gtec->gecd", x_g.to(dt), dispatch)
+        dispatch, combine, lb, z = _on_group_shards(
+            functools.partial(_einsum_routing, cfg, C), 2, x_g, p["router"])
+        dispatch = shard(dispatch, "batch", None, "experts", None)
+        combine = shard(combine, "batch", None, "experts", None)
+        xe = _einsum("gtd,gtec->gecd", x_g.to(dt), dispatch)
+        xe = shard(xe, "batch", "experts", None, None)
     with record_function(MOE_RANGES[1]):
         wg, wu, wd = _experts(p, dt)
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe, wg)) \
-            * torch.einsum("gecd,edf->gecf", xe, wu)
-        ye = torch.einsum("gecf,efd->gecd", h, wd)
+        h = F.silu(_einsum("gecd,edf->gecf", xe, wg)) \
+            * _einsum("gecd,edf->gecf", xe, wu)
+        ye = _einsum("gecf,efd->gecd", h, wd)
+        ye = shard(ye, "batch", "experts", None, None)
     with record_function(MOE_RANGES[2]):
-        y = torch.einsum("gecd,gtec->gtd", ye, combine)
+        y = _einsum("gecd,gtec->gtd", ye, combine)
+        y = shard(y, "batch", None, None)
     return y, lb, z
 
 
@@ -185,18 +333,18 @@ def _moe_group_einsum(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
 # ---------------------------------------------------------------------------
 
 
-def _moe_group_scatter(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
-    """Same contract as ``_moe_group_einsum``, routed by index copies:
-    no (T, E, C) one-hot products.  One group at a time, where the JAX
-    package maps over them."""
+def _scatter_groups(cfg: ModelConfig, C: int, x_g, router, w_gate, w_up,
+                    w_down):
     m = cfg.moe
     dt = cfg.cdtype
     G, T, d = x_g.shape
     E, K = m.num_experts, m.top_k
-    gate, idx, mask, lb, z = route(cfg, p, x_g.to(torch.float32))
+    gate, idx, mask, lb, z = route(cfg, {"router": router},
+                                   x_g.to(torch.float32))
     pos = _positions_in_expert(mask)                          # (G,T,K)
     keep = pos < C
-    wg, wu, wd = _experts(p, dt)
+    _note_drops("grouped", keep)
+    wg, wu, wd = w_gate.to(dt), w_up.to(dt), w_down.to(dt)
     dev = x_g.device
     src = torch.arange(T, device=dev).repeat_interleave(K)
     ys = []
@@ -218,6 +366,16 @@ def _moe_group_scatter(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
     return torch.stack(ys), lb, z
 
 
+def _moe_group_scatter(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
+    """Same contract as ``_moe_group_einsum``, routed by index copies:
+    no (T, E, C) one-hot products.  One group at a time, where the JAX
+    package maps over them; on DTensors each rank's groups in one region
+    with the experts gathered, as the JAX package's map places nothing."""
+    return _on_group_shards(functools.partial(_scatter_groups, cfg, C), 1,
+                            x_g, p["router"], p["w_gate"], p["w_up"],
+                            p["w_down"])
+
+
 _GROUP_FNS = {"einsum": _moe_group_einsum, "scatter": _moe_group_scatter}
 
 
@@ -226,13 +384,143 @@ _GROUP_FNS = {"einsum": _moe_group_einsum, "scatter": _moe_group_scatter}
 # ---------------------------------------------------------------------------
 
 
+class _AllToAll(torch.autograd.Function):
+    """t (n, ...) with block i sent to rank i of ``group``; block i of
+    the result came from rank i.  The backward is the same exchange of
+    the gradient, which sends each block's gradient back to its sender.
+    c10d's ``all_to_all_single``, which gloo's CPU ranks run as an
+    all-to-all (the functional collective falls back to an all-gather
+    there)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g, ctx.group), None
+
+
 def apply_moe_ep(cfg: ModelConfig, p, x: torch.Tensor):
-    """The JAX package's expert-parallel MoE (experts over the data
-    axis, an all-to-all each way) is a ``shard_map`` over a mesh; with no
-    mesh it takes the grouped path.  The port has no mesh yet, so this
-    is the grouped path; the expert-parallel form waits for the port's
-    sharding."""
-    return _apply_moe_grouped(cfg, p, x)
+    """EP over "data" with TP over "model": the JAX package's
+    ``shard_map`` as one ``local_map`` region over the rules' mesh.
+
+    Per (data, model) rank: route the rank's Tl = N / (pods·data) tokens
+    (capacity C from Tl), put its d/tp slice of each kept assignment in
+    its expert's slot of an (E·C, d/tp) buffer, all-to-all the buffer
+    over "data" to the experts' owners, the expert products against the
+    E→data, d→model weight shards with the hidden summed over "model"
+    before the SiLU, the down product, the reverse all-to-all, and each
+    kept slot back to its token times its gate.  The collectives are
+    autograd-aware: the all-to-all's backward is the reverse exchange,
+    the all-reduce's a sum (the psum's transpose).  The d-slices leave
+    the region sharded over "model" and are gathered by a DTensor
+    redistribution (the JAX body's all-gather; its backward a slice),
+    and lb and z as partial sums of each rank's value over the mesh's
+    size (the JAX body's pmean over the batch axes: the model ranks hold
+    the same value).  Gradients: the tokens' are partial over "model"
+    (each model rank's share comes through its own d-slice), the
+    router's over every axis (each rank routes its own tokens), the
+    experts' over "pod".
+
+    Takes the grouped path where the JAX package does: no rules, no
+    "data" axis, or E, N or d indivisible by the mesh.  Under rules
+    the tokens must be a DTensor on the rules' mesh, which names a
+    "model" axis, as the JAX package's specs do."""
+    m = cfg.moe
+    rules = current_rules()
+    shape = mesh_shape(rules.mesh) if rules is not None else {}
+    if "data" not in shape or m.num_experts % shape["data"]:
+        return _apply_moe_grouped(cfg, p, x)
+    dp, tp, pods = shape["data"], shape["model"], shape.get("pod", 1)
+    E, K = m.num_experts, m.top_k
+    B, S, d = x.shape
+    N = B * S
+    if N % (dp * pods) or d % tp:
+        return _apply_moe_grouped(cfg, p, x)
+    if not isinstance(x, DTensor):
+        raise TypeError("apply_moe_ep: under rules the tokens must be a "
+                        "DTensor on the rules' mesh")
+    MOE_CALLS["ep"] += 1
+    mesh, dt = x.device_mesh, cfg.cdtype
+    Tl = N // (dp * pods)
+    C = expert_capacity(Tl, cfg)
+    El, dl = E // dp, d // tp
+    batch = ("pod", "data") if pods > 1 else ("data",)
+    names = tuple(shape)
+
+    def spec(*parts):
+        return spec_placements(mesh, P(*parts))
+
+    xp, rep = spec(batch, None), spec()
+    up, downp = spec("data", "model", None), spec("data", None, "model")
+    yp = spec(batch, "model")
+    part = (Partial(),) * mesh.ndim
+    x_grad = tuple(Partial() if a == "model" else q
+                   for a, q in zip(names, xp))
+
+    def w_grad(pl):
+        return tuple(Partial() if a == "pod" else q
+                     for a, q in zip(names, pl))
+
+    data_group, tp_group = mesh.get_group("data"), mesh.get_group("model")
+    j = mesh.get_local_rank("model")
+    n_ranks = mesh.size()
+
+    def psum(t):
+        return dist_fn.all_reduce(t, group=tp_group)
+
+    def body(xl, router, wg, wu, wd):
+        # xl (Tl, d); wg/wu (El, dl, f); wd (El, f, dl)
+        with record_function(MOE_RANGES[0]):
+            gate, idx, mask, lb, z = route(cfg, {"router": router},
+                                           xl.to(torch.float32))
+            pos = _positions_in_expert(mask)                  # (Tl, K)
+            keep = pos < C
+            _note_drops("ep", keep)
+            slot = torch.where(keep, idx * C + pos.long(),
+                               E * C).reshape(Tl * K)
+            # each token's d-slice once per choice: (Tl·K, dl), token-major
+            xsl = xl.to(dt)[:, j * dl:(j + 1) * dl]
+            rows = xsl[:, None].expand(Tl, K, dl).reshape(Tl * K, dl)
+            buf = xsl.new_zeros((E * C + 1, dl)).index_put((slot,), rows)
+            # token-major -> expert-major over the same ranks
+            xe = _AllToAll.apply(buf[:E * C].reshape(dp, El * C, dl),
+                                 data_group)
+            xe = xe.reshape(dp, El, C, dl).transpose(0, 1) \
+                .reshape(El, dp * C, dl)
+        with record_function(MOE_RANGES[1]):
+            # the contraction over d is split over "model"
+            hg = psum(torch.einsum("ead,edf->eaf", xe, wg.to(dt)))
+            hu = psum(torch.einsum("ead,edf->eaf", xe, wu.to(dt)))
+            ye = torch.einsum("eaf,efd->ead", F.silu(hg) * hu, wd.to(dt))
+        with record_function(MOE_RANGES[2]):
+            back = ye.reshape(El, dp, C, dl).transpose(0, 1) \
+                .reshape(dp, El * C, dl)
+            back = _AllToAll.apply(back, data_group).reshape(E * C, dl)
+            gath = back[torch.clamp(slot, 0, E * C - 1)] \
+                * keep.reshape(Tl * K, 1).to(dt)
+            w = gate.reshape(Tl * K, 1).to(dt)
+            # a token's K gated outputs summed in one reduction (the
+            # JAX package's scatter-add onto its row): an index_add's
+            # atomics would sum them in another order on every run
+            y = (gath * w).reshape(Tl, K, dl).sum(1)
+        return y, lb / n_ranks, z / n_ranks
+
+    y, lb, z = local_map(
+        body, out_placements=(yp, part, part),
+        in_placements=(xp, rep, up, up, downp),
+        in_grad_placements=(x_grad, part, w_grad(up), w_grad(up),
+                            w_grad(downp)),
+        device_mesh=mesh,
+    )(place(x.reshape(N, d), xp), place(p["router"], rep, mesh),
+      place(p["w_gate"], up, mesh), place(p["w_up"], up, mesh),
+      place(p["w_down"], downp, mesh))
+    return place(y, xp).reshape(B, S, d), lb, z
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +541,7 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
         sp = p["shared"]
         xd = x.to(dt)
         hs = F.silu(xd @ sp["gate"].to(dt)) * (xd @ sp["up"].to(dt))
+        hs = shard(hs, "batch", None, "mlp")
         y = y + hs @ sp["down"].to(dt)
 
     aux = {
@@ -263,9 +552,10 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
 
 
 def _apply_moe_grouped(cfg: ModelConfig, p, x: torch.Tensor):
-    """The tokens as ``n_iter`` groups of ``g_eff`` rows each, lb and z
-    averaged over the groups; one group of every token when the group
-    size does not divide them."""
+    """The tokens as ``dp_g`` shard-local runs of ``n_iter`` groups of
+    ``g_eff`` rows each, lb and z averaged over the groups; one group of
+    every shard's tokens when the group size does not divide them."""
+    MOE_CALLS["grouped"] += 1
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -286,18 +576,21 @@ def _apply_moe_grouped(cfg: ModelConfig, p, x: torch.Tensor):
 
     # (N, d) -> (dp_g, n_iter, g_eff, d): shard-local contiguous rows
     xg = xf.reshape(dp_g, n_iter, g_eff, d)
+    xg = shard(xg, "batch", None, None, None)
 
     if n_iter == 1:
         y, lb, z = group_fn(cfg, p, xg[:, 0], C)
         y = y[:, None]
     else:
-        lb = z = 0.0
+        # the JAX package's scan input: the runs' i-th groups stacked
+        xs = shard(xg.movedim(1, 0), None, "batch", None, None)
         ys = []
         for i in range(n_iter):
-            y_it, lb_it, z_it = group_fn(cfg, p, xg[:, i], C)
-            lb, z = lb + lb_it, z + z_it
+            y_it, lb_it, z_it = group_fn(cfg, p, xs[i], C)
+            lb, z = (lb_it, z_it) if i == 0 else (lb + lb_it, z + z_it)
             ys.append(y_it)
         lb, z = lb / n_iter, z / n_iter
         y = torch.stack(ys, dim=1)   # (dp_g, n_iter, g_eff, d)
 
-    return y.reshape(B, S, d), lb, z
+    y = y.reshape(B, S, d)
+    return shard(y, "batch", None, "d_model"), lb, z

@@ -61,7 +61,7 @@ from repro_torch.models.layers import (
     norm_schema,
 )
 from repro_torch.models.params import stack_schema, tree_map
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import placement_context, shard
 
 
 #: the (mixer, mlp) layer kinds the port serves
@@ -95,18 +95,33 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def remat_wrap(cfg: ModelConfig, fn, override: str | None = None):
     """``fn`` under the remat mode ``override`` (default ``cfg.remat``):
     ``none`` as it is, ``full`` checkpointed (nothing saved), ``dots``
-    checkpointed saving the 2-D matrix products' outputs."""
+    checkpointed saving the 2-D matrix products' outputs.  A
+    checkpointed ``fn`` is recomputed under the placement rules and
+    implicit replication of its call (``placement_context``): the
+    recompute runs in the backward, for CUDA tensors on the autograd
+    engine's own thread, where the thread-local rules are not set, and
+    without them a MoE layer would take another path than it took in the
+    forward."""
     mode = override if override is not None else cfg.remat
     if mode == "none":
         return fn
-    if mode == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+    kw = {"use_reentrant": False}
     if mode == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _dots_policy))
-    raise ValueError(f"remat {mode!r}: expected none, dots or full")
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif mode != "full":
+        raise ValueError(f"remat {mode!r}: expected none, dots or full")
+
+    def wrapped(*args):
+        enter = placement_context()
+
+        def under_context(*a):
+            with enter():
+                return fn(*a)
+
+        return checkpoint(under_context, *args, **kw)
+
+    return wrapped
 
 
 def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):

@@ -313,6 +313,34 @@ def current_rules() -> AxisRules | None:
     return getattr(_CTX, "rules", None)
 
 
+@contextlib.contextmanager
+def _implicit_replication_as(on: bool):
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = on
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
+
+
+def placement_context():
+    """A context manager factory that re-enters the rules and DTensor's
+    implicit replication in force at this call, on any thread: for work
+    that runs later elsewhere (a checkpointed layer's recompute runs in
+    the backward, for CUDA tensors on the autograd engine's own thread,
+    where neither is set)."""
+    rules = current_rules()
+    implicit = DTensor._op_dispatcher._allow_implicit_replication
+
+    @contextlib.contextmanager
+    def enter():
+        with axis_rules(rules), _implicit_replication_as(implicit):
+            yield
+
+    return enter
+
+
 def shard(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
     """Place an activation by the current rules: a no-op outside an
     ``axis_rules`` context or on a plain tensor; a DTensor is

@@ -8,7 +8,14 @@ state and the batch as DTensors by the train rules and run the port's
 on the same full tensors.  Four ranks take (2, 2) ("data", "model"),
 and (1, 4) for the GQA head mappings; two ranks take (2,) ("data",).
 The parameters are the JAX package's (``models/convert.py``), the batch
-its pipeline's (smoke ``train_4k``: B=4, S=64), 2 layers, f32.
+its pipeline's (smoke ``train_4k``: B=4, S=64), 2 layers, f32: the
+smoke DeepSeek-V2's dense and MoE layers (MLA, the expert-parallel MoE
+path; its MoE group set to the tokens a data rank holds in a
+microbatch, so that the single device's groups are the ranks' token
+sets and lb is the same function; its config's 8-bit AdamW, whose int8
+blocks gather a sharded last dim), and a 2-layer cut of the smoke Jamba
+period, (mamba, moe) and (attn, dense) (the grouped MoE path cut into
+shard-local groups).  Each case steps with its config's optimizer.
 
 * the sharded loss is within 5e-4 of the JAX package's single-device
   loss (``loss_fn`` averaged over the step's microbatches, as its
@@ -24,9 +31,12 @@ its pipeline's (smoke ``train_4k``: B=4, S=64), 2 layers, f32.
   axis (one q head a rank, kv replicated and sliced per rank), 12 over
   6 (three q heads a rank over two kv heads, gathered per q head), and
   8 over 4 on (2, 2) (kv heads sharded with the q heads);
-* every kernel wrapper the arch runs took its ``local_map`` branch.
+* every kernel wrapper the arch runs took its ``local_map`` branch, and
+  every MoE layer its path: expert parallelism under an
+  ``ep_over_dp`` config, the grouped path otherwise.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -55,23 +65,53 @@ GRAD_SHARE = 1e-3
 RANK_TIMEOUT = 240
 LOSS_CHUNK = 16
 
-#: name -> (arch, layers, heads, kv heads, mesh, axes, microbatch)
+#: name -> (arch, layers, heads, kv heads, mesh, axes, microbatch, MoE
+#: group size); layers: every block repeated that often, or the indices
+#: of the one block's pattern to keep, or None for the smoke's blocks
 CASES = {
-    "yi-2x2": ("yi-6b", 2, None, None, (2, 2), ("data", "model"), 2),
+    "yi-2x2": ("yi-6b", 2, None, None, (2, 2), ("data", "model"), 2, None),
     "mamba-2x2": ("mamba2-370m", 2, None, None, (2, 2), ("data", "model"),
-                  None),
-    "gqa-4over2-1x4": ("yi-6b", 1, 4, 2, (1, 4), ("data", "model"), None),
-    "gqa-12over6-1x4": ("yi-6b", 1, 12, 6, (1, 4), ("data", "model"), None),
-    "gqa-8over4-2x2": ("yi-6b", 1, 8, 4, (2, 2), ("data", "model"), None),
-    "yi-2": ("yi-6b", 2, None, None, (2,), ("data",), None),
-    "mamba-2": ("mamba2-370m", 2, None, None, (2,), ("data",), 2),
+                  None, None),
+    "gqa-4over2-1x4": ("yi-6b", 1, 4, 2, (1, 4), ("data", "model"), None,
+                       None),
+    "gqa-12over6-1x4": ("yi-6b", 1, 12, 6, (1, 4), ("data", "model"), None,
+                        None),
+    "gqa-8over4-2x2": ("yi-6b", 1, 8, 4, (2, 2), ("data", "model"), None,
+                       None),
+    "yi-2": ("yi-6b", 2, None, None, (2,), ("data",), None, None),
+    "mamba-2": ("mamba2-370m", 2, None, None, (2,), ("data",), 2, None),
+    "deepseek-v2-2x2": ("deepseek-v2-236b", None, None, None, (2, 2),
+                        ("data", "model"), 2, 64),
+    "jamba-2x2": ("jamba-v0.1-52b", (3, 4), None, None, (2, 2),
+                  ("data", "model"), None, None),
 }
 #: the spawned worlds, run side by side (each started as soon as its
 #: cases' parameters are drawn): (ranks, cases run in turn)
 WORLDS = ((4, ("mamba-2x2",)),
+          (4, ("jamba-2x2",)),
+          (4, ("deepseek-v2-2x2",)),
           (2, ("yi-2", "mamba-2")),
           (4, ("yi-2x2", "gqa-4over2-1x4", "gqa-12over6-1x4",
                "gqa-8over4-2x2")))
+
+
+def _cut(cfg, block_def, layers, heads, kv, group):
+    """A case's config from the smoke one (either package's: its
+    ``BlockDef`` is ``block_def``)."""
+    if isinstance(layers, int):
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers,
+            blocks=tuple(block_def(b.pattern, layers) for b in cfg.blocks))
+    elif layers is not None:
+        pattern = tuple(cfg.blocks[0].pattern[i] for i in layers)
+        cfg = dataclasses.replace(cfg, num_layers=len(pattern),
+                                  blocks=(block_def(pattern, 1),))
+    if heads:
+        cfg = dataclasses.replace(cfg, num_heads=heads, num_kv_heads=kv)
+    if group:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, group_size=group))
+    return cfg
 
 _RANK = r"""
 import dataclasses, json, sys
@@ -85,6 +125,7 @@ from repro_torch.configs import RunConfig, get_config, smoke_config
 from repro_torch.configs.base import BlockDef
 from repro_torch.kernels.local import LOCAL_MAP_CALLS
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import constant, make_optimizer
@@ -95,6 +136,7 @@ from repro_torch.sharding.rules import (axis_rules, distribute_params,
 rank, world, store, work = (int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4], sys.argv[5])
 cases = json.loads(sys.argv[6])
+$CUT
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world)
 
@@ -110,20 +152,17 @@ def unflatten(flat):
     return out
 
 
-for name, (arch, layers, heads, kv, mesh_shape, axes, mb) in cases.items():
-    cfg = smoke_config(get_config(arch))
-    cfg = dataclasses.replace(
-        cfg, num_layers=layers,
-        blocks=tuple(BlockDef(b.pattern, layers) for b in cfg.blocks))
-    if heads:
-        cfg = dataclasses.replace(cfg, num_heads=heads, num_kv_heads=kv)
+for name, (arch, layers, heads, kv, mesh_shape, axes, mb, group) in \
+        cases.items():
+    cfg = _cut(smoke_config(get_config(arch)), BlockDef, layers, heads, kv,
+               group)
     data = np.load(f"{work}/{name}.npz")
     params = params_from_numpy(
         cfg, unflatten({k[2:]: data[k] for k in data if k[:2] == "p/"}),
         "cpu", train=True)
     batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "loss_mask")}
     run = RunConfig(loss_chunk=$CHUNK, microbatch=mb)
-    opt = make_optimizer("adamw", constant(1e-3))
+    opt = make_optimizer(cfg.optimizer, constant(1e-3))
     mesh = make_mesh(tuple(mesh_shape), tuple(axes), "cpu")
     rules = make_rules(mesh, "train")
     sch = TS.state_schema(cfg, run, opt)
@@ -132,6 +171,7 @@ for name, (arch, layers, heads, kv, mesh_shape, axes, mb) in cases.items():
     dstate = distribute_params(state, sh)
     dbatch = TS.distribute_batch(batch, rules)
     before = dict(LOCAL_MAP_CALLS)
+    moe_before = dict(moe.MOE_CALLS)
     with axis_rules(rules), implicit_replication():
         dgrads, _ = TS.compute_grads(cfg, run, dstate["params"], dbatch,
                                      sh["params"])
@@ -142,13 +182,14 @@ for name, (arch, layers, heads, kv, mesh_shape, axes, mb) in cases.items():
         _, m2 = TS.compute_grads(cfg, run, s1["params"], dbatch)
     loss2 = float(m2["loss"].full_tensor())     # a collective: every rank
     calls = {k: LOCAL_MAP_CALLS[k] - before[k] for k in before}
+    moe_calls = {k: moe.MOE_CALLS[k] - moe_before[k] for k in moe_before}
     if rank == 0:
         grads, _ = TS.compute_grads(cfg, run, params, batch)
         u1, n1 = TS.build_train_step(cfg, run, opt)(state, batch)
         _, n2 = TS.compute_grads(cfg, run, u1["params"], batch)
         out = {"loss": [float(m1["loss"]), loss2],
                "plain_loss": [float(n1["loss"]), float(n2["loss"])],
-               "calls": calls}
+               "calls": calls, "moe_calls": moe_calls}
         np.savez(f"{work}/{name}.out.npz",
                  **{f"g{i}": g.numpy() for i, g in enumerate(dgrads)},
                  **{f"w{i}": g.numpy()
@@ -162,13 +203,8 @@ print("RANK_OK", rank)
 
 def _cfgs(name):
     arch, layers, heads, kv = CASES[name][:4]
-    j = jsmoke_config(jget_config(arch))
-    j = dataclasses.replace(
-        j, num_layers=layers,
-        blocks=tuple(JBlockDef(b.pattern, layers) for b in j.blocks))
-    if heads:
-        j = dataclasses.replace(j, num_heads=heads, num_kv_heads=kv)
-    return j
+    return _cut(jsmoke_config(jget_config(arch)), JBlockDef, layers, heads,
+                kv, CASES[name][7])
 
 
 def _flat(tree, prefix=""):
@@ -186,8 +222,10 @@ def _spawn(world, names, work):
     store = work / f"store-{names[0]}"
     cases = json.dumps({n: CASES[n] for n in names})
     env = dict(os.environ, OMP_NUM_THREADS="1")
+    script = _RANK.replace("$CUT", "import dataclasses\n"
+                           + inspect.getsource(_cut))
     return [subprocess.Popen(
-        [sys.executable, "-c", _RANK, SRC, str(r), str(world), str(store),
+        [sys.executable, "-c", script, SRC, str(r), str(world), str(store),
          str(work), cases],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for r in range(world)]
@@ -263,14 +301,34 @@ def test_sharded_step_equals_unsharded(runs, name):
         assert float(np.abs(g - w).max()) <= GRAD_SHARE * scale, (name, i)
 
 
+def _kinds(name):
+    return {kind for b in _cfgs(name).blocks for kind in b.pattern}
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_each_kernel_took_its_local_map_branch(runs, name):
-    arch = CASES[name][0]
+    mixers = {mixer for mixer, _ in _kinds(name)}
     want = {"rmsnorm_residual"} | (
-        {"ssd_chunk"} if arch.startswith("mamba") else {"flash_attention"})
+        {"ssd_chunk"} if "mamba" in mixers else set()) | (
+        {"flash_attention"} if mixers & {"attn", "mla"} else set())
     calls = runs[name]["calls"]
     assert all(calls[k] > 0 for k in want), calls
     assert all(calls[k] == 0 for k in set(calls) - want), calls
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_each_moe_layer_took_its_path(runs, name):
+    """Every MoE layer call of the step took expert parallelism under an
+    ``ep_over_dp`` config and the grouped path otherwise; no call
+    without MoE layers."""
+    cfg = _cfgs(name)
+    calls = runs[name]["moe_calls"]
+    if not any(mlp == "moe" for _, mlp in _kinds(name)):
+        assert calls == {"grouped": 0, "ep": 0}, calls
+        return
+    path = "ep" if cfg.moe.ep_over_dp else "grouped"
+    assert calls[path] > 0, calls
+    assert calls["ep" if path == "grouped" else "grouped"] == 0, calls
 
 
 # ---------------------------------------------------------------------------
@@ -278,14 +336,37 @@ def test_each_kernel_took_its_local_map_branch(runs, name):
 # ---------------------------------------------------------------------------
 
 
+def _card_cfg(tc):
+    """A smoke config at head dims the card's flash kernel takes (32),
+    Jamba cut to its (mamba, moe) and (attn, dense) layers, and a MoE
+    group of the step's every token (the one rank's expert-parallel
+    routing set)."""
+    from repro_torch.configs.base import BlockDef, MLAConfig
+
+    if tc.mla is not None:
+        tc = dataclasses.replace(tc, mla=MLAConfig(
+            q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=24,
+            qk_rope_head_dim=8, v_head_dim=32))
+    elif tc.head_dim:
+        tc = dataclasses.replace(tc, head_dim=32)
+    if tc.ssm is not None and tc.moe is not None:
+        tc = _cut(tc, BlockDef, (3, 4), None, None, None)
+    if tc.moe is not None:
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(
+            tc.moe, group_size=4 * 64))
+    return tc
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ("yi-6b", "mamba2-370m"))
+@pytest.mark.parametrize("arch", ("yi-6b", "mamba2-370m",
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"))
 def test_card_one_rank_mesh_step_equals_unsharded(arch):
     """``build_session`` on ``make_host_mesh()`` (a one-rank NCCL group,
     every placement ``Replicate()``): two steps' losses and the
     gradients equal the unsharded step's, and each kernel launches as
     often a step (the kernels, not the plain versions, run under
-    DTensor)."""
+    DTensor); DeepSeek's MoE layers take the expert-parallel path on
+    the mesh and the grouped one off it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import torch.distributed as dist
@@ -296,15 +377,14 @@ def test_card_one_rank_mesh_step_equals_unsharded(arch):
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
     from repro_torch.models.params import tree_leaves
     from repro_torch.runtime import train_step as TS
     from repro_torch.sharding.rules import axis_rules, distribute_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    tc = smoke_config(get_config(arch))
-    if arch == "yi-6b":
-        tc = dataclasses.replace(tc, head_dim=32)   # a head dim it takes
+    tc = _card_cfg(smoke_config(get_config(arch)))
     run = RunConfig(loss_chunk=32, remat="full")
     own = not dist.is_initialized()
     mesh = make_host_mesh()
@@ -319,16 +399,16 @@ def test_card_one_rank_mesh_step_equals_unsharded(arch):
             return {k: fn.launches for k, fn in train_cli.KERNELS.items()}
 
         plain = TS.build_train_step(tc, run, opt)
-        c0 = counts()
+        c0, p0 = counts(), dict(moe.MOE_CALLS)
         u1, n1 = plain(state, batch)
-        c1 = counts()
+        c1, p1 = counts(), dict(moe.MOE_CALLS)
         _, n2 = plain(u1, batch)
         want_g, _ = TS.compute_grads(tc, run, state["params"], batch)
         dstate = distribute_params(state, sh)
         dbatch = TS.distribute_batch(batch, rules)
-        c2 = counts()
+        c2, p2 = counts(), dict(moe.MOE_CALLS)
         s1, m1 = step(dstate, dbatch)
-        c3 = counts()
+        c3, p3 = counts(), dict(moe.MOE_CALLS)
         _, m2 = step(s1, dbatch)
         with axis_rules(rules), implicit_replication():
             got_g, _ = TS.compute_grads(tc, run, dstate["params"], dbatch,
@@ -336,6 +416,12 @@ def test_card_one_rank_mesh_step_equals_unsharded(arch):
         torch.cuda.synchronize()
         assert {k: c3[k] - c2[k] for k in c3} == \
             {k: c1[k] - c0[k] for k in c1}
+        n_moe = p1["grouped"] - p0["grouped"]
+        assert p1["ep"] == p0["ep"]
+        assert (n_moe > 0) == (tc.moe is not None)
+        path = "ep" if tc.moe is not None and tc.moe.ep_over_dp \
+            else "grouped"
+        assert p3[path] - p2[path] == n_moe
         for a, b in ((m1, n1), (m2, n2)):
             assert abs(float(a["loss"]) - float(b["loss"])) <= \
                 1e-6 * abs(float(b["loss"]))

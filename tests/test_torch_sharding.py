@@ -17,7 +17,19 @@ The JAX 8-bit AdamW schema gives a bare spec for the moments of a leaf
 too small to quantise where its state (and the port's schema) holds
 ``{"q": ...}`` (ROADMAP caveat 8): such a ``q`` is compared with the
 JAX leaf one level up.
+
+The activation placements at the MLA and MoE ``shard`` sites (the JAX
+package's ``models/mla.py`` and ``models/moe.py``) equal the JAX ones
+too: each package's ``shard`` is replaced by a recorder of (logical
+axes, shape, the rules' spec), and the MoE layer, MLA's prefill with
+its cache and one decode step run at full width on abstract values
+(``jax.eval_shape``; the port on the meta device) under rules on
+``AbstractMesh``es up to (2, 16, 16), for DeepSeek-V2 (both MoE
+layouts), -V3 and Jamba.  The expert-parallel body has no site in the
+JAX package; it is stubbed in both.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -32,10 +44,14 @@ from repro.configs.shapes import SHAPES as JSHAPES  # noqa: E402
 from repro.configs.shapes import SMOKE_SHAPES as JSMOKE_SHAPES  # noqa: E402
 from repro.configs.shapes import input_specs as jinput_specs  # noqa: E402
 from repro.launch import mesh as jmesh  # noqa: E402
+from repro.models import mla as JMLA  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import moe as JMOE  # noqa: E402
 from repro.optim import make_optimizer as jmake_optimizer  # noqa: E402
 from repro.runtime import train_step as JTS  # noqa: E402
 from repro.sharding import rules as JR  # noqa: E402
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import (  # noqa: E402
     DTensor,
@@ -53,7 +69,11 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_residual_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_chunk  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import mla as TMLA  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as TMOE  # noqa: E402
+from repro_torch.models.params import map_specs  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.runtime import serve_step as SS  # noqa: E402
 from repro_torch.runtime import train_step as TS  # noqa: E402
@@ -139,6 +159,131 @@ def test_specs_equal_jax(name, smoke, mesh, phase):
             assert set(got) == set(want)
             for k in want:
                 assert got[k] == tuple(want[k]), (tag, cell, k)
+
+
+#: (config, ep_over_dp override) of the activation-site check
+SITE_ARCHS = (("deepseek-v2-236b", None), ("deepseek-v2-236b", False),
+              ("deepseek-v3-671b", None), ("jamba-v0.1-52b", None))
+#: (B, S) of the site check: a training batch, a long-context prompt
+SITE_SHAPES = ((256, 4096), (1, 8192))
+SITE_MESHES = ("2x2", "16x16", "2x16x16")
+
+
+def _recorder(out, current):
+    def shard(x, *axes):
+        shape = tuple(x.shape)
+        out.add((axes, shape, tuple(current().spec(axes, shape))))
+        return x
+    return shard
+
+
+def _jax_sites(jc, B, S, rules, monkeypatch):
+    """The JAX package's site records of one MoE layer, one MLA prefill
+    with its cache and one MLA decode step."""
+    out = set()
+    rec = _recorder(out, JR.current_rules)
+    monkeypatch.setattr(JMOE, "shard", rec)
+    monkeypatch.setattr(JMLA, "shard", rec)
+    monkeypatch.setattr(JMOE, "apply_moe_ep", lambda cfg, p, x: (
+        x, jnp.zeros(()), jnp.zeros(())))
+    dt = jnp.dtype(jc.compute_dtype)
+
+    def run(moe_p, mla_p, x, cache):
+        JMOE.apply_moe(jc, moe_p, x)
+        if jc.mla is None:
+            return 0
+        long = B < 8
+        JMLA.apply_mla_full(jc, mla_p, x, rope_cs=JM.rope_full(jc, S),
+                            return_cache=True, long=long)
+        pos = jnp.asarray(S - 1)
+        JMLA.apply_mla_decode(jc, mla_p, x[:, 0], cache, pos,
+                              rope_cs=JM.rope_decode(jc, pos), long=long)
+        return 0
+
+    mla_p = JR.abstract_params(JMLA.mla_schema(jc)) if jc.mla else None
+    cache = None
+    if jc.mla:
+        m = jc.mla
+        cache = {"ckv": jax.ShapeDtypeStruct((B, S, m.kv_lora_rank), dt),
+                 "kpe": jax.ShapeDtypeStruct((B, S, m.qk_rope_head_dim), dt)}
+    with JR.axis_rules(rules):
+        jax.eval_shape(run, JR.abstract_params(JMOE.moe_schema(jc)), mla_p,
+                       jax.ShapeDtypeStruct((B, S, jc.d_model), dt), cache)
+    return out
+
+
+def _port_sites(tc, B, S, rules, monkeypatch):
+    """The port's site records of the same calls, on the meta device."""
+    out = set()
+    rec = _recorder(out, R.current_rules)
+    monkeypatch.setattr(TMOE, "shard", rec)
+    monkeypatch.setattr(TMLA, "shard", rec)
+    monkeypatch.setattr(TMOE, "apply_moe_ep", lambda cfg, p, x: (
+        x, torch.zeros(()), torch.zeros(())))
+    monkeypatch.setattr(tattn, "attention", lambda q, k, v, causal: (
+        q.new_empty(*q.shape[:3], v.shape[-1])))
+
+    def meta(schema):
+        return map_specs(lambda _, s: torch.empty(
+            s.shape, dtype=s.dtype, device="meta"), schema)
+
+    x = torch.empty((B, S, tc.d_model), dtype=tc.cdtype, device="meta")
+    with R.axis_rules(rules):
+        TMOE.apply_moe(tc, meta(TMOE.moe_schema(tc)), x)
+        if tc.mla is not None:
+            p = meta(TMLA.mla_schema(tc))
+            cache = meta(TMLA.mla_cache_schema(tc, B, S))
+            TMLA.apply_mla_full(tc, p, x, rope_cs=M.rope_full(tc, S, "meta"),
+                                cache=cache)
+            TMLA.apply_mla_decode(tc, p, x[:, 0], cache, S - 1,
+                                  rope_cs=M.rope_decode(tc, S - 1, "meta"))
+    return out
+
+
+SITE_CASES = [(a, ep, mesh, phase) for a, ep in SITE_ARCHS
+              for mesh in SITE_MESHES for phase in ("train", "serve")]
+
+
+@pytest.mark.parametrize(
+    "arch,ep,mesh,phase", SITE_CASES,
+    ids=[f"{a}{'' if ep is None else '-grouped'}-{m}-{p}"
+         for a, ep, m, p in SITE_CASES])
+def test_mla_and_moe_activation_specs_equal_jax(arch, ep, mesh, phase,
+                                                 monkeypatch):
+    """Every (axes, shape, spec) the JAX package's MLA and MoE ``shard``
+    sites record, the port's record too, and no other: the grouped MoE
+    path's nine sites (Jamba, V2 with ``ep_over_dp`` off), the shared
+    expert's (DeepSeek) and MLA's seven (prefill's q, k, output and
+    latent cache, decode's latent cache)."""
+    jc, tc = jget_config(arch), get_config(arch)
+    if ep is not None:
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(
+            jc.moe, ep_over_dp=ep))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(
+            tc.moe, ep_over_dp=ep))
+    shape, axes = MESHES[mesh]
+    jr = JR.make_rules(JAbstractMesh(shape, axes), phase)
+    tr = R.make_rules(R.AbstractMesh(shape, axes), phase)
+    for B, S in SITE_SHAPES:
+        want = _jax_sites(jc, B, S, jr, monkeypatch)
+        got = _port_sites(tc, B, S, tr, monkeypatch)
+        assert got == want, (B, S, got ^ want)
+        # every site the path reaches was recorded: the scan input only
+        # where the shard holds more than one group
+        need, scan = set(), {(None, "batch", None, None)}
+        if not tc.moe.ep_over_dp:
+            need |= {("batch", None, None, None),
+                     ("batch", None, "experts", None),
+                     ("batch", "experts", None, None),
+                     ("batch", None, None), ("batch", None, "d_model")}
+        if tc.moe.num_shared_experts:
+            need.add(("batch", None, "mlp"))
+        if tc.mla is not None:
+            need |= {("batch", None, "heads", None),
+                     ("batch", None, "d_model"),
+                     ("batch", "kv_seq_long" if B < 8 else "kv_seq", None)}
+        seen = {a for a, _, _ in got}
+        assert need <= seen <= need | scan, (B, S, seen)
 
 
 def test_rule_tables_and_resolution_match_jax():
@@ -333,3 +478,61 @@ def test_train_state_on_one_rank_mesh_is_whole(host_mesh):
         else:
             assert s.placements[1] == Replicate(), path
             assert set(s.spec) <= {"data", None}, path
+
+
+def test_remat_recompute_keeps_the_rules_on_another_thread(host_mesh):
+    """A checkpointed layer's recompute runs under the rules of its
+    forward, also on another thread (the autograd engine's for CUDA
+    tensors), where the thread-local rules and DTensor's implicit
+    replication are unset: the smoke
+    DeepSeek-V2 MoE layer takes the expert-parallel path in the forward
+    and again in the recompute, and the gradient equals the one taken
+    on the forward's thread.  Without the rules the recompute would take
+    the grouped path, and ``torch.utils.checkpoint`` refuses the
+    different graph."""
+    import threading
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import BlockDef
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = smoke_config(get_config("deepseek-v2-236b"))
+    bdef = BlockDef((("mla", "moe"),), 1)
+    rules = R.make_rules(host_mesh)
+    gen = torch.Generator().manual_seed(0)
+    p = init_params(TF.block_schema(cfg, bdef), gen, "cpu")
+    x = torch.randn(2, 16, cfg.d_model, generator=gen)
+    rope = M.rope_full(cfg, 16, "cpu")
+
+    def grads(on_thread: bool):
+        wrt = tree_map(lambda t: R.place(t, (Replicate(),) * 2, host_mesh)
+                       .detach().requires_grad_(), p)
+        calls = dict(TMOE.MOE_CALLS)
+        with R.axis_rules(rules), implicit_replication():
+            dx = R.place(x, (Replicate(),) * 2, host_mesh)
+            y, res, aux = TF.apply_block_full(
+                cfg, bdef, wrt, dx, torch.zeros_like(dx), rope_cs=rope,
+                remat="full")
+            loss = (y * y).sum() + (res * res).sum() + aux
+            out = []
+
+            def run():
+                out.append(torch.autograd.grad(
+                    loss, [wrt["l0"]["mlp"]["w_up"]])[0])
+
+            if on_thread:
+                t = threading.Thread(target=run)
+                t.start()
+                t.join()
+            else:
+                run()
+        assert out, "the backward raised"
+        return out[0].full_tensor(), {k: TMOE.MOE_CALLS[k] - calls[k]
+                                      for k in calls}
+
+    g_main, c_main = grads(False)
+    g_thread, c_thread = grads(True)
+    assert c_main == c_thread == {"grouped": 0, "ep": 2}
+    assert torch.equal(g_main, g_thread)
