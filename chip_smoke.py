@@ -739,6 +739,12 @@ def main() -> int:
     dstrained = run_deepseek_sharded_train(dev, smi)
     emit(dstrained)
 
+    # 22b.-22c. sharded serving and the compressed cross-pod step
+    sserved = run_sharded_serve(dev, smi)
+    emit(sserved)
+    ctrained = run_compressed_train(dev, smi)
+    emit(ctrained)
+
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
     lm_entries.append(ssd_kernel_entry(ssd, mserved))
@@ -759,6 +765,10 @@ def main() -> int:
             entry["name"], 0)
         entry["launches_deepseek_sharded_train"] = \
             dstrained["launches"].get(entry["name"], 0)
+        entry["launches_sharded_serve"] = sserved["launches"].get(
+            entry["name"], 0)
+        entry["launches_compressed_train"] = ctrained["launches"].get(
+            entry["name"], 0)
 
     # 23. kernels
     windows = window_timings(dev, rng, bw, f32)
@@ -4928,6 +4938,384 @@ def run_deepseek_sharded_train(dev, smi):
            "local_map_calls": local, "launches_predicted_per_pass":
            per_pass, "launches": launches, "nvidia_smi": smi}
     return out
+
+
+#: sharded_serve: DeepSeek-V2 served under the serve rules (its MoE
+#: layers on the expert-parallel path) against the plain serve (the
+#: grouped einsum path), as a share of max|logit|: EP adds a token's
+#: gated expert outputs in bf16 where the einsum sums them in f32 (the
+#: deepseek_sharded_train phase's 1.6e-6 loss gap in f32 grows to bf16
+#: roundings here), well under a wrong expert's or a wrong cache slot's
+DS_SERVE_SHARE = 5e-2
+#: sharded_serve's cells: Yi-6B whole, the serve cell's 4 x 512 prompts
+#: and 32 tokens; DeepSeek-V2 at deepseek_serve's 4-layer cut, 4 x 512
+#: prompts and 8 tokens
+SHARDED_SERVE_YI = (4, 512, 32)
+SHARDED_SERVE_DS = (4, 512, 8)
+
+
+def _serve_both(dev, cfg, B, P, G):
+    """``serve`` of ``cfg`` on plain tensors and under
+    ``make_rules(make_host_mesh(), "serve")`` (a one-rank NCCL group,
+    started and closed here), each after a warm-up of 2 tokens, from the
+    same seeded weights and prompts: the two results, host ms of the
+    prefill and a decode step, launches per prefill and decode step,
+    the drops of every MoE call, ``local_map`` calls and peak memory;
+    and the last logits of the decode steps under the rules fed the
+    plain serve's tokens (``forced_last_logits``)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.local import LOCAL_MAP_CALLS
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.runtime import serve_step
+    from repro_torch.sharding.rules import make_rules
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = serve.make_prompts(cfg, B, P, rng)
+    check(not dist.is_initialized(), "a process group is already running")
+
+    def one(rules):
+        serve.serve(cfg, params, prompts, 2, rules=rules)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _counts_zero()
+        calls0, moe0 = dict(LOCAL_MAP_CALLS), dict(moe.MOE_CALLS)
+        with moe.record_drops() as log:
+            res = serve.serve(cfg, params, prompts, G, rules=rules)
+        steps = res.decode_steps
+        return res, {
+            "prefill_ms": res.prefill_s * 1e3,
+            "decode_ms_per_step": res.decode_s / steps * 1e3,
+            "launches_per_prefill": res.launches["prefill"],
+            "launches_per_decode_step": {
+                k: v / steps for k, v in res.launches["decode"].items()},
+            "launches": _counts(),
+            "local_map_calls": {k: LOCAL_MAP_CALLS[k] - calls0[k]
+                                for k in calls0},
+            "moe_calls": {k: moe.MOE_CALLS[k] - moe0[k] for k in moe0},
+            "drops": [int(n) for _, n in log],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+
+    def forced(rules, tokens):
+        """The last logits of the decode steps under ``rules`` fed the
+        plain serve's ``tokens`` (teacher forcing)."""
+        prefill = serve_step.build_prefill(cfg, rules, max_seq=P + G)
+        decode = serve_step.build_decode(cfg, rules)
+        dparams = serve_step.place_params(cfg, params, rules)
+        _, cache = prefill(dparams, serve_step.place_inputs(
+            {"tokens": prompts}, rules))
+        for i in range(G - 1):
+            lg, cache = decode(dparams, cache, serve_step.place_inputs(
+                {"token": tokens[:, i], "pos": P + i}, rules))
+        return lg.full_tensor()
+
+    plain, p_rec = one(None)
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+        rules = make_rules(mesh, "serve")
+        placed, s_rec = one(rules)
+        s_rec["forced_last_logits"] = forced(rules, plain.tokens)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    check(type(placed.last_logits) is torch.Tensor,
+          "serve under rules returned a DTensor")
+    check(s_rec["launches_per_prefill"] == p_rec["launches_per_prefill"]
+          and s_rec["launches_per_decode_step"]
+          == p_rec["launches_per_decode_step"],
+          f"launches under rules {s_rec['launches_per_prefill']} "
+          f"{s_rec['launches_per_decode_step']}, plain "
+          f"{p_rec['launches_per_prefill']} "
+          f"{p_rec['launches_per_decode_step']}")
+    check(all(s_rec["local_map_calls"][k] > 0
+              for k, v in p_rec["launches"].items() if v),
+          f"local_map calls {s_rec['local_map_calls']}")
+    return plain, placed, {"plain": p_rec, "sharded": s_rec}
+
+
+def run_sharded_serve(dev, smi):
+    """Serving under the serve rules on the one-rank NCCL mesh (every
+    placement ``Replicate()``): Yi-6B whole, bf16, the ``serve`` cell
+    (4 x 512 prompts, 32 tokens), through ``serve(..., rules=...)``
+    against ``serve(...)`` from the same seeded weights: tokens equal,
+    first and last logits bitwise, launches equal; then DeepSeek-V2 at
+    ``deepseek_serve``'s 4-layer cut, bf16, 4 x 512 prompts and 8
+    tokens: the MoE layers on the expert-parallel path under the rules
+    and on the grouped path without, the drops of the prefill's first
+    MoE layer equal (the later layers' printed), logits within
+    ``DS_SERVE_SHARE``·max|logit|.  Host ms of the prefill and a decode
+    step, launches, ``local_map`` calls and peak memory both ways."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("yi-6b")
+    B, P, G = SHARDED_SERVE_YI
+    plain, placed, yi = _serve_both(dev, cfg, B, P, G)
+    forced_last = yi["sharded"].pop("forced_last_logits")
+    yi |= {"forced_last_logits_bitwise": torch.equal(forced_last,
+                                                     plain.last_logits),
+           "arch": cfg.name, "layers": cfg.num_layers,
+           "compute_dtype": cfg.compute_dtype, "batch": B, "prompt": P,
+           "generated": G,
+           "tokens_equal": torch.equal(placed.tokens, plain.tokens),
+           "first_logits_bitwise": torch.equal(placed.first_logits,
+                                               plain.first_logits),
+           "last_logits_bitwise": torch.equal(placed.last_logits,
+                                              plain.last_logits),
+           "decode_host_ms_ratio": yi["sharded"]["decode_ms_per_step"]
+           / yi["plain"]["decode_ms_per_step"],
+           "sample_ids": placed.tokens[0, :12].tolist()}
+    check(yi["tokens_equal"] and yi["first_logits_bitwise"]
+          and yi["last_logits_bitwise"]
+          and yi["forced_last_logits_bitwise"],
+          f"Yi-6B under the serve rules: tokens "
+          f"{yi['tokens_equal']}, logits {yi['first_logits_bitwise']} "
+          f"{yi['last_logits_bitwise']}")
+    del plain, placed, forced_last
+
+    dcfg = _deepseek_cut(V2, 1, 3, "bfloat16")
+    B, P, G = SHARDED_SERVE_DS
+    plain, placed, ds = _serve_both(dev, dcfg, B, P, G)
+    n_moe = 3
+    # the prefill's logits, and the last step's with the decode steps
+    # fed the plain serve's tokens: greedy tokens may part at a near-tie
+    # of the top two logits, and then the free-running last logits are
+    # those of other sequences (printed)
+    forced_last = ds["sharded"].pop("forced_last_logits")
+    diffs = [float((a - b).abs().max()) for a, b in (
+        (placed.first_logits, plain.first_logits),
+        (forced_last, plain.last_logits))]
+    scale = max(float(plain.first_logits.abs().max()),
+                float(plain.last_logits.abs().max()))
+    ds |= {"arch": dcfg.name, "reduced": _reduced(get_config(V2), (1, 3)),
+           "layers": dcfg.num_layers, "compute_dtype": dcfg.compute_dtype,
+           "batch": B, "prompt": P, "generated": G,
+           "tolerance_share": DS_SERVE_SHARE,
+           "logits_max_abs_diff": diffs, "max_abs_logit": scale,
+           "free_running_last_logits_max_abs_diff": float(
+               (placed.last_logits - plain.last_logits).abs().max()),
+           "token_agreement": float((placed.tokens == plain.tokens)
+                                    .float().mean()),
+           "decode_host_ms_ratio": ds["sharded"]["decode_ms_per_step"]
+           / ds["plain"]["decode_ms_per_step"]}
+    calls = G * n_moe
+    check(ds["plain"]["moe_calls"] == {"grouped": calls, "ep": 0}
+          and ds["sharded"]["moe_calls"] == {"grouped": 0, "ep": calls},
+          f"MoE paths plain {ds['plain']['moe_calls']} sharded "
+          f"{ds['sharded']['moe_calls']}")
+    # the first MoE layer of the prefill sees bitwise-equal inputs both
+    # ways (the dense layer and MLA run alike); later layers see the
+    # bf16 roundings of the paths' gated sums, and a router near-tie
+    # among 160 experts may then move an assignment: printed
+    ds["drops_first_moe_layer_equal"] = \
+        ds["sharded"]["drops"][0] == ds["plain"]["drops"][0]
+    ds["drops_equal"] = ds["sharded"]["drops"] == ds["plain"]["drops"]
+    check(ds["drops_first_moe_layer_equal"]
+          and len(ds["sharded"]["drops"]) == len(ds["plain"]["drops"]),
+          f"drops sharded {ds['sharded']['drops']} plain "
+          f"{ds['plain']['drops']}")
+    check(max(diffs) <= DS_SERVE_SHARE * scale,
+          f"DeepSeek-V2 logits under the rules part by {diffs} "
+          f"(max|logit| {scale})")
+    del plain, placed
+    torch.cuda.empty_cache()
+    launches = {}
+    for cell in (yi, ds):
+        for k, v in cell["sharded"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"phase": "sharded_serve", "mesh": [1, 1], "yi": yi,
+            "deepseek_v2": ds, "launches": launches, "nvidia_smi": smi}
+
+
+#: compressed_train: the step's losses and parameters against
+#: build_train_step's: with one pod no hop is made and the gradients are
+#: scaled by the token count and divided by it again
+COMPRESSED_LOSS_RTOL = 1e-6
+COMPRESSED_PARAM_SHARE = 1e-6
+COMPRESSED_STEPS = 2
+
+
+def run_compressed_train(dev, smi):
+    """The train cell (Yi-6B at full width, 4 layers, S=4096, B=8 in
+    microbatches of 2, AdamW at a constant 1e-4, remat "full"):
+    ``COMPRESSED_STEPS`` steps
+    of ``build_compressed_train_step`` with int8 compression on a (1, 1,
+    1) ("pod", "data", "model") NCCL mesh against ``build_train_step``
+    on plain tensors, each from the seeded state: losses within
+    ``COMPRESSED_LOSS_RTOL``, every parameter leaf within
+    ``COMPRESSED_PARAM_SHARE``·max|w|, no byte through the exchange, the
+    launches of a step equal.  Then one microbatch's gradients through
+    ``_q8`` / ``_dq8`` on the card: the wire bytes against f32, each
+    leaf's round-trip error against absmax/127, and the quantiser's
+    device ms against its bytes bound (the f32 read, the int8 write and
+    the scales at the card's memory rate)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels.local import LOCAL_MAP_CALLS
+    from repro_torch.launch.mesh import ensure_process_group, make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding.rules import distribute_params, make_rules
+
+    cfg = _train_cfg("yi-6b", layers=TRAIN_LAYERS)
+    run = RunConfig(microbatch=TRAIN_MB, loss_chunk=512, remat="full",
+                    optimizer="adamw", gradient_compression="int8")
+    shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
+    # a constant 1e-4: the train cell's warm-up would move the first
+    # steps by ~1e-6 and leave the comparison nothing to see
+    opt = make_optimizer("adamw", constant(1e-4))
+    sch = ts.state_schema(cfg, run, opt)
+    pipe = SyntheticLMPipeline(cfg, shape, device=dev)
+    batches = [pipe.batch_at(i) for i in range(COMPRESSED_STEPS)]
+    bw = peaks_for(torch.cuda.get_device_name(0))[0]
+
+    def state0():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ts.new_state(ts.init_state(sch, gen, dev), opt)
+
+    def steps(fn, state, bs):
+        losses, ms, per_step = [], [], []
+        for b in bs:
+            _counts_zero()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = fn(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+            per_step.append(_counts())
+        return state, losses, ms, per_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state, want_l, want_ms, want_n = steps(
+        ts.build_train_step(cfg, run, opt), state0(), batches)
+    want_p = [t.to("cpu") for t in tree_leaves(state["params"])]
+    del state
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "a process group is already running")
+    try:
+        ensure_process_group(dev)
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), dev)
+        rules = make_rules(mesh, "train")
+        sh = ts.state_shardings(sch, rules, run)
+        step = ts.build_compressed_train_step(cfg, run, opt, rules)
+        dbatches = [ts.distribute_batch(b, rules) for b in batches]
+        sent0, calls0 = dict(comp.SENT), dict(LOCAL_MAP_CALLS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, got_l, got_ms, got_n = steps(
+            step, distribute_params(state0(), sh), dbatches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        sent = {k: comp.SENT[k] - sent0[k] for k in sent0}
+        calls = {k: LOCAL_MAP_CALLS[k] - calls0[k] for k in calls0}
+        placed = all(tuple(t.placements) == s.placements for t, s in
+                     zip(tree_leaves(state), tree_leaves(sh)))
+        shares = {}
+        for nm, g, w in zip(_leaf_names(M.train_schema(cfg)),
+                            tree_leaves(state["params"]), want_p):
+            w = w.to(dev)
+            scale = float(w.abs().max())
+            shares[nm] = float((g.to_local() - w).abs().max()) / scale \
+                if scale else 0.0
+        del state, dbatches
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del want_p
+    worst = max(shares, key=shares.get)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got_l, want_l)]
+    bitwise = got_l == want_l and shares[worst] == 0.0
+    check(all(r <= COMPRESSED_LOSS_RTOL for r in rel),
+          f"compressed losses {got_l}, train step {want_l}")
+    check(shares[worst] <= COMPRESSED_PARAM_SHARE,
+          f"parameter {worst} parts by {shares[worst]} of its max")
+    check(sent == {"int8": 0, "float32": 0}, f"one pod sent {sent}")
+    check(got_n == want_n, f"launches compressed {got_n}, plain {want_n}")
+    check(placed, "the new state left its placements")
+
+    # the quantiser on one microbatch's gradients
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = ts.init_state(sch, gen, dev)
+    mb = {k: v[:TRAIN_MB] for k, v in batches[0].items()}
+    grads, _ = ts.compute_grads(cfg, RunConfig(loss_chunk=512,
+                                               remat="full"), params, mb)
+    del params
+    torch.cuda.empty_cache()
+    leaves = [g.float() for g in tree_leaves(grads)]
+    del grads
+    n = sum(g.numel() for g in leaves)
+    int8_bytes = sum(comp.compressed_bytes(g.numel())[0] for g in leaves)
+    worst_err = 0.0
+    for g in leaves:
+        q, s, k = comp._q8(g)
+        err = float((comp._dq8(q, s, k, g.shape) - g).abs().max())
+        bound = float(g.abs().max()) / 127.0
+        check(err <= bound, f"int8 round trip {err} > absmax/127 {bound}")
+        worst_err = max(worst_err, err / bound if bound else 0.0)
+        del q, s
+    blocks = sum((g.numel() + comp.CBLOCK - 1) // comp.CBLOCK
+                 for g in leaves)
+    q_bytes = 4 * n + n + 4 * blocks
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 3
+    for g in leaves:                                        # warm-up
+        comp._q8(g)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        for g in leaves:
+            comp._q8(g)
+    end.record()
+    torch.cuda.synchronize()
+    q_ms = start.elapsed_time(end) / reps
+    del leaves
+    torch.cuda.empty_cache()
+    launches = {}
+    for c in got_n:
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    return {"phase": "compressed_train", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "seq": shape.seq_len, "global_batch": shape.global_batch,
+            "microbatch": run.microbatch, "remat": run.remat,
+            "optimizer": "adamw", "compression": run.gradient_compression,
+            "mesh": {"pod": 1, "data": 1, "model": 1},
+            "steps": COMPRESSED_STEPS,
+            "tolerance": {"loss_rel": COMPRESSED_LOSS_RTOL,
+                          "param_share_of_max": COMPRESSED_PARAM_SHARE},
+            "losses_compressed": got_l, "losses_train_step": want_l,
+            "loss_rel_diff": rel, "worst_leaf": worst,
+            "worst_leaf_share": shares[worst], "bitwise": bitwise,
+            "host_ms_per_step_compressed": got_ms,
+            "host_ms_per_step_train_step": want_ms,
+            "launches_per_step": got_n, "launches": launches,
+            "local_map_calls": calls, "exchange_bytes_sent": sent,
+            "peak_memory_bytes": peak,
+            "quantiser": {
+                "grad_values": n, "leaves": len(tree_leaves(sch["params"])),
+                "wire_bytes_int8": int8_bytes, "wire_bytes_f32": 4 * n,
+                "wire_ratio": 4 * n / int8_bytes,
+                "worst_round_trip_share_of_bound": worst_err,
+                "device_ms": q_ms, "bytes_moved": q_bytes,
+                "bound_ms": q_bytes / bw * 1e3, "bound_by": "bytes",
+                "route": "plain torch ops (XLA code in the JAX package, "
+                         "no Pallas kernel)"},
+            "nvidia_smi": smi}
+
 
 if __name__ == "__main__":
     sys.exit(main())

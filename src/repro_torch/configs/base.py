@@ -165,9 +165,11 @@ def dense_blocks(n: int) -> tuple[BlockDef, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Per-cell runtime knobs, field for field the JAX package's.  On one
-    card ``zero1``, ``seq_shard``, ``gradient_compression`` and the
-    pipeline fields have nothing to act on and are not read."""
+    """Per-cell runtime knobs, field for field the JAX package's.
+    ``zero1`` is read by the sharded train step and
+    ``gradient_compression`` by the compressed cross-pod step
+    (``runtime/train_step.py``); ``seq_shard`` and the pipeline fields
+    are not read yet (the pipeline step is not ported)."""
 
     microbatch: int | None = None    # global microbatch size (None = no accum)
     remat: str | None = None         # override ModelConfig.remat

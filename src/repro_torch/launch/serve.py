@@ -19,7 +19,14 @@ projected k and v).  The stubbed frontends' inputs are drawn as the JAX
 CLI draws them: qwen2-vl's patch embeddings (``embeds``) and its M-RoPE
 ``positions`` (one ``arange`` on all three rows), whisper's frame
 embeddings (``enc_embeds``); decode continues M-RoPE from each
-request's largest position + 1.  Weights are drawn on the device from a seeded
+request's largest position + 1.  As in the JAX CLI, ``main`` serves on
+``make_host_mesh()`` under ``make_rules(mesh, "serve")``: the weights,
+the prompts and each step's inputs are placed as DTensors and the cache
+is allocated at its serving placements (``runtime/serve_step.py``).  On
+one card, or one CPU process, the host mesh is (1, 1) and every
+placement ``Replicate()``; a one-rank group is started for it and
+closed at the end of ``main``.  ``serve(..., rules=None)`` runs on plain
+tensors.  Weights are drawn on the device from a seeded
 ``torch.Generator`` there (Jamba's 13.3 B-parameter period in 0.11 s on
 an H100), never on the host and copied; prompts and samples come from a
 second generator.  ``--device`` defaults to ``cuda`` and
@@ -33,6 +40,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
@@ -40,9 +48,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_residual_cuda
 from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models.params import init_params
 from repro_torch.runtime import serve_step
+from repro_torch.runtime.train_step import full_tensor
+from repro_torch.sharding.rules import AxisRules, make_rules
 
 KERNELS = {"flash_attention": flash_attention_cuda,
            "rmsnorm_residual": rmsnorm_residual_cuda,
@@ -129,21 +140,31 @@ def _counts() -> dict[str, int]:
 
 def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
           inputs: dict | None = None, temperature: float = 0.0,
-          rng: torch.Generator | None = None) -> ServeResult:
+          rng: torch.Generator | None = None,
+          rules: AxisRules | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, P) with the other ``inputs`` the config
     takes (``make_inputs``), then ``gen - 1`` decode steps, sampling
     greedily (``temperature <= 0``) or from the tempered softmax with
     ``rng``.  With M-RoPE ``positions`` (B, 3, P), step i of request b
     sits at position max(positions[b]) + 1 + i on all three rows (the
-    cache index stays P + i).  Times end in a synchronise."""
+    cache index stays P + i).  With ``rules`` the plain ``params``,
+    prompts and inputs (the same on every rank) are placed by the serve
+    placements, the timed steps include placing each step's inputs,
+    and every rank samples from the gathered logits; the result holds
+    plain tensors either way.  Times end in a synchronise."""
     dev = prompts.device
     B, P = prompts.shape
     inputs = dict(inputs or {})
     nxt = None
     if "positions" in inputs:
         nxt = inputs["positions"].amax(dim=(1, 2)) + 1       # (B,)
-    prefill = serve_step.build_prefill(cfg, max_seq=P + gen)
-    decode = serve_step.build_decode(cfg)
+    prefill = serve_step.build_prefill(cfg, rules, max_seq=P + gen)
+    decode = serve_step.build_decode(cfg, rules)
+    if rules is not None:
+        params = serve_step.place_params(cfg, params, rules)
+
+    def feed(d):
+        return d if rules is None else serve_step.place_inputs(d, rules)
 
     def sample(lg):
         if temperature <= 0:
@@ -154,7 +175,8 @@ def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
     _sync(dev)
     c0 = _counts()
     t0 = time.monotonic()
-    logits, cache = prefill(params, {"tokens": prompts, **inputs})
+    logits, cache = prefill(params, feed({"tokens": prompts, **inputs}))
+    logits = full_tensor(logits)
     _sync(dev)
     t_prefill = time.monotonic() - t0
     c1 = _counts()
@@ -164,7 +186,8 @@ def serve(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int, *,
         step = {"token": toks[-1], "pos": P + i}
         if nxt is not None:
             step["positions"] = (nxt + i)[:, None].expand(B, 3)
-        lg, cache = decode(params, cache, step)
+        lg, cache = decode(params, cache, feed(step))
+        lg = full_tensor(lg)
         toks.append(sample(lg))
     _sync(dev)
     t_decode = time.monotonic() - t0
@@ -193,12 +216,18 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_config(cfg)
     dev = resolve_device(args.device)
-    params = make_params(cfg, dev, seed=0)
-    rng = torch.Generator(device=dev).manual_seed(1)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, rng)
-    inputs = make_inputs(cfg, args.batch, args.prompt_len, rng)
-    res = serve(cfg, params, prompts, args.gen, inputs=inputs,
-                temperature=args.temperature, rng=rng)
+    own_group = not dist.is_initialized()
+    try:
+        rules = make_rules(make_host_mesh(device=dev), "serve")
+        params = make_params(cfg, dev, seed=0)
+        rng = torch.Generator(device=dev).manual_seed(1)
+        prompts = make_prompts(cfg, args.batch, args.prompt_len, rng)
+        inputs = make_inputs(cfg, args.batch, args.prompt_len, rng)
+        res = serve(cfg, params, prompts, args.gen, inputs=inputs,
+                    temperature=args.temperature, rng=rng, rules=rules)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
     B, steps = args.batch, res.decode_steps
     print(f"[serve] prefill {args.prompt_len} tok × {B}: "
           f"{res.prefill_s:.3f}s")

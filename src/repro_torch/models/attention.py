@@ -21,19 +21,23 @@ The JAX package's ``models/attention.py``:
   with v, as the JAX package's ``chunked_attention`` computes them).
 
 Each weight is cast to the compute dtype at its use, as in the JAX
-package.  The decode cache is updated in place (``cache[:, pos] =
-...``), where the JAX package donates the buffer for the same effect.
+package.  The cache is written in place (``sharding/rules.py::
+write_along``, the JAX package's ``dynamic_update_slice_in_dim``, whose
+buffer it donates for the same effect): prefill its first S positions,
+decode position ``pos``; on a DTensor cache whose sequence dim is
+sharded, only the rank that holds a position writes it.
 A logit soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import param, zeros_param
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import replicate_dims, shard, write_along
 
 NEG_INF = -1e30
 
@@ -111,8 +115,10 @@ def apply_attn_full(
     if cache is not None:
         B, S = x.shape[:2]
         seq = seq_axis(B)
-        cache["k"][:, :S] = shard(kk, "batch", seq, "kv_heads", None)
-        cache["v"][:, :S] = shard(vv, "batch", seq, "kv_heads", None)
+        write_along(cache["k"], shard(kk, "batch", seq, "kv_heads", None),
+                    0, 1)
+        write_along(cache["v"], shard(vv, "batch", seq, "kv_heads", None),
+                    0, 1)
     return y
 
 
@@ -128,6 +134,23 @@ def _attend(q, k, v, causal: bool):
     return shard(out, "batch", "heads", None, None).transpose(1, 2)
 
 
+def _kv_groups(q: torch.Tensor, KH: int) -> torch.Tensor:
+    """q (B, H, Dh) as (B, KH, H/KH, Dh), the query heads of each kv
+    head together.  A DTensor whose head shards cut a kv head's group
+    (KH not divisible by the heads' shard count, as 4 heads over 2 kv
+    heads on a 4-way "model" axis) is gathered over its heads first;
+    GSPMD reshards the JAX package's reshape the same way."""
+    B, H, Dh = q.shape
+    if isinstance(q, DTensor):
+        n = 1
+        for i, p in enumerate(q.placements):
+            if isinstance(p, Shard) and p.dim % q.ndim == 1:
+                n *= q.device_mesh.size(i)
+        if KH % n:
+            q = replicate_dims(q, 1)
+    return q.reshape(B, KH, H // KH, Dh)
+
+
 def apply_attn_decode(
     cfg: ModelConfig,
     p,
@@ -141,7 +164,6 @@ def apply_attn_decode(
     dt = cfg.cdtype
     B = x.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rep = H // KH
     x = x.to(dt)
     q = _project(x, p["wq"].to(dt))               # (B, H, Dh)
     k_new = _project(x, p["wk"].to(dt))
@@ -151,13 +173,13 @@ def apply_attn_decode(
         q = apply_rope(q[:, None], cos, sin)[:, 0]
         k_new = apply_rope(k_new[:, None], cos, sin)[:, 0]
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new
-    v[:, pos] = v_new
+    write_along(k, k_new[:, None], pos, 1)
+    write_along(v, v_new[:, None], pos, 1)
     k = shard(k, "batch", seq_axis(B), "kv_heads", None)
     v = shard(v, "batch", seq_axis(B), "kv_heads", None)
     Smax = k.shape[1]
     # factored GQA decode: q (B, KH, rep, Dh) against the whole cache
-    qf = q.reshape(B, KH, rep, Dh)
+    qf = _kv_groups(q, KH)
     scores = torch.einsum(
         "bgrd,bsgd->bgrs", qf.to(torch.float32), k.to(torch.float32)
     ) * (Dh ** -0.5)
@@ -207,7 +229,7 @@ def apply_cross_attn(
         return _out(_attend(q, k, v, False), p["wo"].to(dt))
     B, H, Dh = q.shape                            # decode: one query
     KH = k.shape[2]
-    qf = q.reshape(B, KH, H // KH, Dh)
+    qf = _kv_groups(q, KH)
     scores = torch.einsum(
         "bgrd,bfgd->bgrf", qf.to(torch.float32), k.to(torch.float32)
     ) * (Dh ** -0.5)

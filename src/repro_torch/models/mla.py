@@ -21,7 +21,8 @@ The JAX package's ``models/mla.py``, op for op:
 packages, not the fused residual kernel.  The cache holds ``ckv`` (after
 ``kv_norm``) and ``kpe`` (after RoPE), (B, Smax, 512) and (B, Smax, 64)
 at DeepSeek's widths; prefill writes its first S positions in place and
-decode position ``pos``, as ``models/attention.py`` does with k and v.
+decode position ``pos`` (``write_along``), as ``models/attention.py``
+does with k and v.
 Matrices are declared in the compute dtype, the norm scales in the
 parameter dtype (``models/model.py``), and each weight is cast to the
 compute dtype at its use.
@@ -35,7 +36,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import NEG_INF, _out, _project
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import param, scale_param, zeros_param
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import shard, write_along
 
 
 def mla_schema(cfg: ModelConfig):
@@ -125,8 +126,8 @@ def apply_mla_full(
     if cache is not None:
         B, S = x.shape[:2]
         seq = attn.seq_axis(B)
-        cache["ckv"][:, :S] = shard(ckv, "batch", seq, None)
-        cache["kpe"][:, :S] = shard(k_pe, "batch", seq, None)
+        write_along(cache["ckv"], shard(ckv, "batch", seq, None), 0, 1)
+        write_along(cache["kpe"], shard(k_pe, "batch", seq, None), 0, 1)
     return y
 
 
@@ -151,8 +152,8 @@ def apply_mla_decode(
     ckv_new, kpe_new = _latent(cfg, p, x)
     kpe_new = apply_rope(kpe_new[:, None], cos, sin)[:, 0]
     ckv, kpe = cache["ckv"], cache["kpe"]
-    ckv[:, pos] = ckv_new
-    kpe[:, pos] = kpe_new
+    write_along(ckv, ckv_new[:, None], pos, 1)
+    write_along(kpe, kpe_new[:, None], pos, 1)
     seq = attn.seq_axis(x.shape[0])
     ckv = shard(ckv, "batch", seq, None)
     kpe = shard(kpe, "batch", seq, None)

@@ -56,7 +56,6 @@ from repro_torch.models.params import (
     map_specs,
     param,
     tree_leaves,
-    zeros_like_schema,
 )
 from repro_torch.models.transformer import (
     apply_block_decode,
@@ -67,7 +66,12 @@ from repro_torch.models.transformer import (
     fused_norm,
     layer_schema,
 )
-from repro_torch.sharding.rules import replicate_dims, shard
+from repro_torch.sharding.rules import (
+    current_rules,
+    replicate_dims,
+    shard,
+    zeros_placed,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +387,9 @@ def prefill(cfg: ModelConfig, params, inputs, max_seq: int | None = None):
     frames, d) for the encoder.  Returns (last_token_logits (B,V) fp32,
     cache).  The cache is allocated at ``max_seq`` positions (default S)
     and zero past S, the layout the JAX package's ``pad_cache_to``
-    produces; the cross cache holds every frame."""
+    produces; the cross cache holds every frame.  Under rules bound to
+    a device mesh the cache is allocated as DTensors at their serving
+    placements (``runtime/serve_step.py::cache_shardings``)."""
     if cfg.input_mode == "embeds" and "embeds" in inputs:
         B, S = inputs["embeds"].shape[:2]
         dev = inputs["embeds"].device
@@ -396,7 +402,8 @@ def prefill(cfg: ModelConfig, params, inputs, max_seq: int | None = None):
     x = _inputs_to_x(cfg, params, inputs, S)
     rope_cs = rope_full(cfg, S, dev, inputs.get("positions"))
     enc_out = _encode(cfg, params, inputs)
-    cache = zeros_like_schema(cache_schema(cfg, B, max_seq), dev)
+    cache = zeros_placed(cache_schema(cfg, B, max_seq), current_rules(),
+                         dev)
     res = torch.zeros_like(x)
     for i, bdef in enumerate(cfg.blocks):
         x, res, _ = apply_block_full(

@@ -1,6 +1,6 @@
 """Optimizers: AdamW (+int8 moments), Adafactor, schedules — the JAX
-package's ``optim``, on plain tensors or DTensors (``compression.py``,
-the cross-pod int8 gradient exchange, is not ported yet)."""
+package's ``optim``, on plain tensors or DTensors; ``compression.py`` is
+the cross-pod int8 gradient exchange."""
 from repro_torch.optim.adafactor import make_adafactor
 from repro_torch.optim.adamw import Optimizer, make_adamw
 from repro_torch.optim.schedule import constant, warmup_cosine

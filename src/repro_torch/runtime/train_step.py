@@ -21,10 +21,21 @@ placements before the update, as the JAX package's ``grad_pspecs``
 constrain them.  Under ``run.zero1`` the update runs at the optimizer
 state's placements (the parameter's plus a "data" split): gradients and
 parameters are cut to them (a local slice) and the new parameters are
-gathered back.  ``build_compressed_train_step`` (the int8 cross-pod
-reduction) is not ported yet.
+gathered back.
+
+``build_compressed_train_step`` is the JAX package's two-level step, its
+rendering of the paper's cluster <-> cloud synchronisation (Fig. 1 step
+8): each pod runs in a region manual over "pod" (``sharding/rules.py``:
+rules with ``manual=("pod",)`` on the ("data", "model") sub-mesh, the
+batch over "data"), computes its gradients on its slice of the batch,
+and the gradients cross the pod boundary by
+``optim/compression.py::cross_pod_reduce`` as ``run.gradient_compression``
+says (int8 or an exact sum).  Each pod then updates its own copy of the
+state, which comes out ``Replicate()`` over "pod".
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -42,11 +53,15 @@ from repro_torch.models.params import (
     tree_zip,
 )
 from repro_torch.optim import Optimizer
+from repro_torch.optim.compression import cross_pod_reduce
 from repro_torch.sharding.rules import (
     AxisRules,
     Sharding,
     axis_rules,
     distribute_params,
+    into_region,
+    mesh_shape,
+    out_of_region,
     param_shardings,
     place,
     replicate_dims,
@@ -209,6 +224,106 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
                 metrics)
 
     return sharded_step
+
+
+# ---------------------------------------------------------------------------
+# Compressed cross-pod train step (a region per pod)
+# ---------------------------------------------------------------------------
+
+
+def pod_rules(rules: AxisRules) -> AxisRules:
+    """The rules inside a pod's region: manual over "pod", the batch
+    over "data" only (the JAX package's ``inner_rules``)."""
+    if "pod" not in mesh_shape(rules.mesh):
+        raise ValueError("the compressed step needs a 'pod' mesh axis")
+    return dataclasses.replace(
+        rules, rules={**rules.rules, "batch": (("data",),)},
+        manual=("pod",))
+
+
+def _pod_batch(batch, rules: AxisRules, inner: AxisRules):
+    """Each pod's slice of the batch in its region (the JAX package's
+    ``P("pod")`` in-spec), over "data" inside the pod where it
+    divides."""
+    npods = mesh_shape(rules.mesh)["pod"]
+    outer = dataclasses.replace(
+        rules, rules={**rules.rules, "batch": (("pod", "data"), ("pod",))})
+    out = {}
+    for k, v in batch.items():
+        if v.ndim and v.shape[0] % npods:
+            raise ValueError(f"{k}: batch {v.shape[0]} is not a multiple "
+                             f"of the {npods} pods")
+        s = outer.sharding(_batch_axes(v.shape), tuple(v.shape))
+        out[k] = into_region(_place(v, s), inner)
+    return out
+
+
+def _region_grads(cfg: ModelConfig, run: RunConfig, params, batch,
+                  inner: AxisRules, grad_shardings):
+    """A pod's gradients, token-weighted and reduced across the pods,
+    and the metrics averaged over them; under ``inner``'s rules, on the
+    region's DTensors."""
+    group = inner.mesh.get_group("pod")
+    npods = mesh_shape(inner.mesh)["pod"]
+    grads, metrics = compute_grads(cfg, run, params, batch, grad_shardings)
+    # each pod's grads are normalised by its own token count; the global
+    # gradient is the token-weighted mean across the pods.  The JAX
+    # package scales by the count and divides the sum by the total; the
+    # weight count / total is applied here before the exchange instead,
+    # the same sum up to a rounding, and exactly 1 on one pod
+    cnt = full_tensor(metrics["token_count"]).to(torch.float32)
+    weight = cnt / cross_pod_reduce(cnt, group, "none")
+    grads = tree_map(lambda g: g * weight, grads)
+    grads = cross_pod_reduce(grads, group, run.gradient_compression)
+    metrics = {k: cross_pod_reduce(full_tensor(v).to(torch.float32), group,
+                                   "none") / npods
+               for k, v in metrics.items()}
+    return grads, metrics
+
+
+def compressed_grads(cfg: ModelConfig, run: RunConfig, params, batch,
+                     rules: AxisRules):
+    """The compressed step's gradients (DTensors on ``rules.mesh``,
+    ``Replicate()`` over "pod": each pod's own sum) and its metrics
+    (plain), from parameters and a batch placed by ``rules``."""
+    inner = pod_rules(rules)
+    psh = param_shardings(M.train_schema(cfg), inner)
+    with axis_rules(inner), implicit_replication():
+        grads, metrics = _region_grads(
+            cfg, run, tree_map(lambda t: into_region(t, inner), params),
+            _pod_batch(batch, rules, inner), inner, psh)
+    return tree_map(lambda g: out_of_region(g, inner), grads), metrics
+
+
+def build_compressed_train_step(cfg: ModelConfig, run: RunConfig,
+                                optimizer: Optimizer, rules: AxisRules):
+    """``step(state, batch) -> (state, metrics)`` on a mesh with a "pod"
+    axis: the state and the batch DTensors placed by ``rules``
+    (``state_shardings``, ``batch_shardings``), the gradients across
+    the pods in int8 or exactly (``run.gradient_compression``), the
+    update in each pod's region at the optimizer state's placements
+    there.  The new state is ``Replicate()`` over "pod"; the metrics
+    are plain tensors, averaged over the pods."""
+    inner = pod_rules(rules)
+    sh = state_shardings(state_schema(cfg, run, optimizer), inner, run)
+    psh = sh["params"]
+    ush = zero1_shardings(M.train_schema(cfg), inner) if run.zero1 else psh
+
+    def step(state, batch):
+        st = tree_map(lambda t: into_region(t, inner), state)
+        with axis_rules(inner), implicit_replication():
+            grads, metrics = _region_grads(
+                cfg, run, st["params"], _pod_batch(batch, rules, inner),
+                inner, psh)
+            new_params, new_opt = optimizer.update(
+                tree_zip(_place, grads, ush), st["opt"],
+                tree_zip(_place, st["params"], ush), st["step"])
+            new = {"params": tree_zip(_place, new_params, psh),
+                   "opt": tree_zip(_place, new_opt, sh["opt"]),
+                   "step": _place(st["step"] + 1, sh["step"])}
+        return tree_map(lambda t: out_of_region(t, inner), new), metrics
+
+    return step
 
 
 def distribute_batch(batch, rules: AxisRules):

@@ -25,10 +25,18 @@ production sizes on any machine.
 
 ``shard(x, *axes)`` is the port's ``with_sharding_constraint``: a no-op
 outside an ``axis_rules`` context or on a plain tensor, a
-``redistribute`` to the rule's placements on a DTensor.  The JAX
-package's manual-axis branch of ``shard`` (``compat.mesh_and_manual``,
-the rule inside a region manual over "pod") belongs to the compressed
-cross-pod step and is not ported here.
+``redistribute`` to the rule's placements on a DTensor.
+
+Rules with ``manual`` axes are the JAX package's manual-axis branch of
+``shard`` (``compat.mesh_and_manual``: inside a ``shard_map`` region
+manual over "pod", a constraint drops the manual axes from its spec).
+A spec still resolves on the whole mesh's sizes, then loses its manual
+axes; its placements are on the region's mesh, the sub-mesh of the
+other axes (``mesh["data", "model"]``), where each pod's DTensors live,
+the same on every pod or each pod's own slice.  ``into_region`` and
+``out_of_region`` carry a DTensor between the two meshes without
+moving data; the compressed cross-pod step
+(``runtime/train_step.py``) runs its pod's work in such a region.
 
 The parameter schema (``ParamSpec`` and its inits) lives in
 ``models/params.py``; the helpers here map over those schemas.
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Any, Sequence
 
@@ -46,6 +55,10 @@ from torch.distributed.tensor import (
     Replicate,
     Shard,
     distribute_tensor,
+)
+from torch.distributed.tensor import zeros as dtensor_zeros
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset,
 )
 from torch.distributed.tensor.experimental import local_map
 
@@ -219,6 +232,33 @@ class AxisRules:
     rules: dict[str, tuple[Any, ...]] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_RULES)
     )
+    #: mesh axes the caller runs manually, one region each (module
+    #: docstring): dropped from every spec
+    manual: tuple[str, ...] = ()
+
+    @functools.cached_property
+    def region_mesh(self):
+        """The mesh the placements are on: ``mesh`` without its manual
+        axes."""
+        if not self.manual:
+            return self.mesh
+        keep = tuple(a for a in mesh_shape(self.mesh)
+                     if a not in self.manual)
+        if isinstance(self.mesh, AbstractMesh):
+            shape = mesh_shape(self.mesh)
+            return AbstractMesh(tuple(shape[a] for a in keep), keep)
+        return self.mesh[keep]
+
+    def _drop_manual(self, parts: list) -> PartitionSpec:
+        out = []
+        for part in parts:
+            axes = tuple(a for a in _entry_axes(part)
+                         if a not in self.manual)
+            out.append(None if not axes else
+                       axes[0] if len(axes) == 1 else axes)
+        while out and out[-1] is None:
+            out.pop()
+        return P(*out)
 
     def mesh_axis_size(self, axes: Sequence[str]) -> int:
         shape = mesh_shape(self.mesh)
@@ -254,9 +294,7 @@ class AxisRules:
         taken: set[str] = set()
         parts = [self.resolve_dim(name, dim, taken)
                  for name, dim in zip(logical_axes, shape)]
-        while parts and parts[-1] is None:
-            parts.pop()
-        return P(*parts)
+        return self._drop_manual(parts)
 
     def zero1_spec(self, logical_axes: Sequence[str | None],
                    shape: Sequence[int]) -> PartitionSpec:
@@ -276,20 +314,21 @@ class AxisRules:
                     and shape[i] >= dsize:
                 parts[i] = "data"
                 break
-        while parts and parts[-1] is None:
-            parts.pop()
-        return P(*parts)
+        return self._drop_manual(parts)
 
     def placements(self, logical_axes, shape) -> tuple:
-        return spec_placements(self.mesh, self.spec(logical_axes, shape))
+        return spec_placements(self.region_mesh,
+                               self.spec(logical_axes, shape))
 
     def sharding(self, logical_axes, shape) -> Sharding:
         spec = self.spec(logical_axes, shape)
-        return Sharding(self.mesh, spec, spec_placements(self.mesh, spec))
+        mesh = self.region_mesh
+        return Sharding(mesh, spec, spec_placements(mesh, spec))
 
     def zero1_sharding(self, logical_axes, shape) -> Sharding:
         spec = self.zero1_spec(logical_axes, shape)
-        return Sharding(self.mesh, spec, spec_placements(self.mesh, spec))
+        mesh = self.region_mesh
+        return Sharding(mesh, spec, spec_placements(mesh, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +407,32 @@ def place(x: torch.Tensor, placements: Sequence, mesh=None) -> DTensor:
     return x.redistribute(x.device_mesh, placements)
 
 
+def into_region(x: DTensor, rules: AxisRules) -> DTensor:
+    """A DTensor on ``rules.mesh`` as one on ``rules.region_mesh``, its
+    local shard as it is: over each manual axis it must be
+    ``Replicate()`` (the same on every pod) or shard a tensor dim ahead
+    of the other mesh axes that shard it (each pod's slice, as the
+    rules' pod-major entries place a batch)."""
+    names = list(mesh_shape(rules.mesh))
+    for a, p in zip(names, x.placements):
+        if a in rules.manual and not isinstance(p, (Replicate, Shard)):
+            raise ValueError(f"{p} over the manual axis {a!r}")
+    pl = tuple(p for a, p in zip(names, x.placements)
+               if a not in rules.manual)
+    return DTensor.from_local(x.to_local(), rules.region_mesh, pl,
+                              run_check=False)
+
+
+def out_of_region(x: DTensor, rules: AxisRules) -> DTensor:
+    """A DTensor on ``rules.region_mesh`` as one on ``rules.mesh``,
+    ``Replicate()`` over the manual axes, its local shard as it is."""
+    it = iter(x.placements)
+    pl = tuple(Replicate() if a in rules.manual else next(it)
+               for a in mesh_shape(rules.mesh))
+    return DTensor.from_local(x.to_local(), rules.mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
 def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     """x with its shards of tensor dims ``dims`` gathered (``Replicate()``
     there), for an op that has no DTensor strategy over them; a plain
@@ -380,6 +445,31 @@ def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def write_along(dst: torch.Tensor, src: torch.Tensor, start: int,
+                dim: int) -> None:
+    """``dst`` over ``[start, start + n)`` of tensor dim ``dim`` set to
+    ``src`` (n = ``src.shape[dim]``), in place: the JAX package's
+    ``dynamic_update_slice_in_dim``.  On a DTensor ``dst`` each rank
+    writes only the part of the range its own shard holds, from ``src``
+    placed as ``dst`` on every other dim and replicated along ``dim``;
+    a rank whose shard the range misses writes nothing."""
+    n = src.shape[dim]
+    if not isinstance(dst, DTensor):
+        dst.narrow(dim, start, n).copy_(src)
+        return
+    d = dim % dst.ndim
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim % dst.ndim == d
+                 else p for p in dst.placements)
+    src = place(src.to(dst.dtype), want, dst.device_mesh)
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, dst.device_mesh, dst.placements)
+    lo = offset[d]
+    a, b = max(start, lo), min(start + n, lo + shape[d])
+    if a < b:
+        dst.to_local().narrow(d, a - lo, b - a).copy_(
+            src.to_local().narrow(d, a - start, b - a))
 
 
 def local_along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -420,6 +510,18 @@ def zero1_pspecs(schema, rules: AxisRules):
 def zero1_shardings(schema, rules: AxisRules):
     return map_specs(lambda _, s: rules.zero1_sharding(s.axes, s.shape),
                      schema)
+
+
+def zeros_placed(schema, rules: AxisRules | None, device):
+    """Zeros of every leaf of ``schema``: DTensors at the rules'
+    placements where the rules are bound to a device mesh, plain tensors
+    on ``device`` otherwise."""
+    if rules is None or isinstance(rules.mesh, AbstractMesh):
+        return map_specs(lambda _, s: torch.zeros(
+            s.shape, dtype=s.dtype, device=device), schema)
+    return map_specs(lambda _, s: dtensor_zeros(
+        s.shape, dtype=s.dtype, device_mesh=rules.region_mesh,
+        placements=rules.placements(s.axes, s.shape)), schema)
 
 
 def distribute_params(tree, shardings):

@@ -208,3 +208,21 @@ PLACEMENTS = ["sharding/__init__.py", "sharding/rules.py", "launch/mesh.py",
 def test_placement_modules_are_held_to_no_jax(name):
     path = ROOT / "src" / "repro_torch" / name
     assert path in PORT_FILES
+
+
+#: the cross-pod compression and the modules of sharded serving and the
+#: compressed step
+SHARDED = ["optim/compression.py", "runtime/serve_step.py",
+           "runtime/train_step.py", "launch/serve.py", "models/model.py",
+           "models/attention.py", "models/mla.py"]
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_serving_and_compression_modules_are_held_to_no_jax(name):
+    """Each is among the files held to no JAX and no ``repro`` import
+    above, and defines no ``shard_map`` (the JAX lint's tracer-hygiene
+    rule roots on that name)."""
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    test_no_jax_or_repro_imports(path)
+    assert "def shard_map" not in path.read_text()
