@@ -242,6 +242,18 @@ Phases, each printing one JSON line:
 22. ``mamba_train``: mamba2-370m whole (48 layers), f32 parameters and
     bf16 compute, B=4, S=2048 in microbatches of 1, remat "full", AdamW,
     4 steps: the same prints and checks.
+22d. ``pipeline_train``: the ``train`` cell (AdamW at a constant 1e-4,
+    no loss mask) through ``runtime/pipeline.py``'s GPipe step with its
+    stages in one process, 4 microbatches of 2 rows, 2 steps at 2
+    stages and 2 at 4, each from the seeded state, against
+    ``build_train_step`` in microbatches of 2: losses within
+    ``PIPELINE_LOSS_RTOL``, each leaf's update within
+    ``PIPELINE_UPDATE_RL2`` relative L2 (the worst leaf of each step
+    printed), launches a step equal both ways (32 flash, 68 norm), the
+    hops' bytes a step (2 × (stages − 1) × B × S × d bf16 each way)
+    beside each stage's and the model's f32 gradient bytes and the int8
+    wire bytes, host ms a step and peak memory both ways, the bubble
+    share.
 23. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
@@ -270,7 +282,10 @@ Phases, each printing one JSON line:
     its plain, SDPA and bound ms), the norm at qwen2-vl's 8192 rows of
     8192 (``ms_qwen2vl``, ...), both their launches in ``whisper_serve``
     and ``qwen2vl_serve`` (``launches_whisper``, ``..._per_prefill``,
-    ``..._per_step``, ``launches_qwen2vl``, ...).
+    ``..._per_step``, ``launches_qwen2vl``, ...); the LM kernels also
+    their launches in ``sharded_train``, ``deepseek_sharded_train``,
+    ``sharded_serve``, ``compressed_train`` and ``pipeline_train``
+    (``launches_pipeline_train``, both stage counts' steps).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -744,6 +759,9 @@ def main() -> int:
     emit(sserved)
     ctrained = run_compressed_train(dev, smi)
     emit(ctrained)
+    # 22d. GPipe over "pod", its stages in one process
+    ptrained = run_pipeline_train(dev, smi)
+    emit(ptrained)
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -768,6 +786,8 @@ def main() -> int:
         entry["launches_sharded_serve"] = sserved["launches"].get(
             entry["name"], 0)
         entry["launches_compressed_train"] = ctrained["launches"].get(
+            entry["name"], 0)
+        entry["launches_pipeline_train"] = ptrained["launches"].get(
             entry["name"], 0)
 
     # 23. kernels
@@ -5314,6 +5334,187 @@ def run_compressed_train(dev, smi):
                 "bound_ms": q_bytes / bw * 1e3, "bound_by": "bytes",
                 "route": "plain torch ops (XLA code in the JAX package, "
                          "no Pallas kernel)"},
+            "nvidia_smi": smi}
+
+
+#: pipeline_train: the one-process GPipe step against the train step,
+#: each from the seeded state; the bounds were stated before the first
+#: run on the card
+PIPELINE_STAGES = (2, 4)
+PIPELINE_MICRO = 4
+PIPELINE_STEPS = 2
+PIPELINE_LOSS_RTOL = 1e-4
+PIPELINE_UPDATE_RL2 = 5e-2
+
+
+def run_pipeline_train(dev, smi):
+    """The train cell (Yi-6B at full width, 4 layers, S=4096, B=8, remat
+    "full", AdamW at a constant 1e-4) through
+    ``runtime/pipeline.py::build_pipeline_train_step`` with its stages in
+    one process (``rules=None``), ``PIPELINE_MICRO`` microbatches of 2
+    rows: ``PIPELINE_STEPS`` steps at each stage count of
+    ``PIPELINE_STAGES`` (2 layers a stage, then one: the middle stages
+    receive and send), each from the seeded state, against
+    ``build_train_step`` in microbatches of 2 from the same state.  The
+    batches carry no loss mask, so every microbatch counts the same
+    tokens and the train step's mean of its microbatches' means is the
+    pipeline's mean over the batch (the synthetic mask's document
+    lengths would part the two by percents).  Checks: losses within
+    ``PIPELINE_LOSS_RTOL``, each parameter leaf's update within
+    ``PIPELINE_UPDATE_RL2`` relative L2 of the train step's (the worst
+    leaf of each step printed), the launches of a step equal both ways
+    and to ``launches_per_pass``, the hops' bytes a step 2 tensors ×
+    (stages − 1) × B × S × d in the compute dtype (bf16) each way.  Prints host ms a step
+    and peak memory both ways, the hops' bytes beside the f32 gradient
+    bytes of each stage and of the whole model and the int8 wire bytes
+    of ``compressed_train``'s exchange, and the bubble share (stages −
+    1) / (n_micro + stages − 1), which one process does not spend:
+    it skips the inactive ticks."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import pipeline as pp
+    from repro_torch.runtime import train_step as ts
+
+    cfg = _train_cfg("yi-6b", layers=TRAIN_LAYERS)
+    run = RunConfig(microbatch=TRAIN_MB, loss_chunk=512, remat="full",
+                    optimizer="adamw", pp_microbatches=PIPELINE_MICRO)
+    check(TRAIN_BATCH // PIPELINE_MICRO == TRAIN_MB,
+          "a pipeline microbatch is not the train cell's")
+    shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt = make_optimizer("adamw", constant(1e-4))
+    sch = ts.state_schema(cfg, run, opt)
+    pipe = SyntheticLMPipeline(cfg, shape, device=dev)
+    batches = [{"tokens": pipe.batch_at(i)["tokens"]}
+               for i in range(PIPELINE_STEPS)]
+    names = _leaf_names(M.train_schema(cfg))
+    per_step = {k: (TRAIN_BATCH // TRAIN_MB) * v for k, v in
+                M.launches_per_pass(cfg, "train", remat=run.remat).items()}
+
+    def state0():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ts.new_state(ts.init_state(sch, gen, dev), opt)
+
+    def steps(fn, keep):
+        state = state0()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = {"losses": [], "host_ms": [], "launches": [], "hop_bytes": [],
+               "kept": []}
+        for i, b in enumerate(batches):
+            sent0 = {d: dict(v) for d, v in pp.SENT.items()}
+            _counts_zero()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = fn(state, b)
+            out["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["host_ms"].append((time.monotonic() - t0) * 1e3)
+            out["launches"].append(_counts())
+            out["hop_bytes"].append(
+                {d: {k: n - sent0[d].get(k, 0) for k, n in v.items()}
+                 for d, v in pp.SENT.items()})
+            out["kept"].append(keep(i, state["params"]))
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    base = [t.to("cpu") for t in tree_leaves(state0()["params"])]
+    torch.cuda.empty_cache()
+    want = steps(ts.build_train_step(cfg, run, opt),
+                 lambda i, p: [t.to("cpu") for t in tree_leaves(p)])
+
+    def update_rl2(i, params):
+        """Each leaf's |Δ − Δ_train| / |Δ_train| in L2, Δ its update from
+        the seeded state."""
+        out = {}
+        for nm, g, w, b in zip(names, tree_leaves(params), want["kept"][i],
+                               base):
+            w, b = w.to(dev), b.to(dev)
+            ref = torch.linalg.vector_norm(w - b, dtype=torch.float64)
+            err = torch.linalg.vector_norm(g - w, dtype=torch.float64)
+            out[nm] = float(err / ref) if float(ref) else float(err)
+        return out
+
+    runs, launches = [], {}
+    for stages in PIPELINE_STAGES:
+        prun = dataclasses.replace(run, pipeline_stages=stages)
+        step, sh = pp.build_pipeline_train_step(cfg, prun, opt)
+        check(sh is None, "the one-process form returned placements")
+        got = steps(step, update_rl2)
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"])]
+        worst = [max(r.items(), key=lambda kv: kv[1]) for r in got["kept"]]
+        hop = 2 * (stages - 1) * TRAIN_BATCH * TRAIN_SEQ * cfg.d_model \
+            * torch.empty((), dtype=cfg.cdtype).element_size()
+        dtype = str(cfg.cdtype).removeprefix("torch.")
+        check(all(r <= PIPELINE_LOSS_RTOL for r in rel),
+              f"{stages} stages: losses {got['losses']}, train step "
+              f"{want['losses']}")
+        check(all(w <= PIPELINE_UPDATE_RL2 for _, w in worst),
+              f"{stages} stages: worst leaves {worst}")
+        for i in range(PIPELINE_STEPS):
+            n = got["launches"][i]
+            check({k: n[k] for k in per_step} == per_step
+                  == {k: want["launches"][i][k] for k in per_step},
+                  f"{stages} stages, step {i}: launches {n}, train step "
+                  f"{want['launches'][i]}, predicted {per_step}")
+            check(got["hop_bytes"][i] == {"forward": {dtype: hop},
+                                          "backward": {dtype: hop}},
+                  f"{stages} stages: hop bytes {got['hop_bytes'][i]}, "
+                  f"predicted {hop} {dtype} each way")
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+        layers = cfg.num_layers // stages
+        runs.append({
+            "stages": stages, "layers_per_stage": layers,
+            "losses_pipeline": got["losses"],
+            "losses_train_step": want["losses"], "loss_rel_diff": rel,
+            "worst_leaf_per_step": [{"leaf": k, "update_rel_l2": v}
+                                    for k, v in worst],
+            "host_ms_per_step_pipeline": got["host_ms"],
+            "host_ms_per_step_train_step": want["host_ms"],
+            "peak_memory_bytes_pipeline": got["peak_memory_bytes"],
+            "peak_memory_bytes_train_step": want["peak_memory_bytes"],
+            "launches_per_step": got["launches"],
+            "launches_per_step_train_step": want["launches"],
+            "hop_bytes_per_step": got["hop_bytes"][0],
+            "bubble_share": (stages - 1) / (PIPELINE_MICRO + stages - 1)})
+    del base, want
+    torch.cuda.empty_cache()
+    psch = M.train_schema(cfg)
+    layer = count_params(psch["b0"]) // cfg.num_layers
+    shared = {k: count_params(v) for k, v in psch.items() if k != "b0"}
+    stage_bytes = {}
+    for stages in PIPELINE_STAGES:
+        n = [layer * (cfg.num_layers // stages)] * stages
+        n[0] += shared["embed"]
+        n[-1] += shared["final_norm"] + shared.get("unembed", 0)
+        stage_bytes[str(stages)] = [4 * x for x in n]
+    return {"phase": "pipeline_train", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "seq": shape.seq_len, "global_batch": shape.global_batch,
+            "pp_microbatches": PIPELINE_MICRO,
+            "train_step_microbatch": run.microbatch, "remat": run.remat,
+            "optimizer": "adamw", "lr": 1e-4, "steps": PIPELINE_STEPS,
+            "loss_mask": "none (every token counts)",
+            "tolerance": {"loss_rel": PIPELINE_LOSS_RTOL,
+                          "update_rel_l2": PIPELINE_UPDATE_RL2},
+            "runs": runs, "launches": launches,
+            "launches_predicted_per_step": per_step,
+            "grad_bytes_f32_per_stage": stage_bytes,
+            "grad_bytes_f32_model": 4 * count_params(psch),
+            "int8_wire_bytes_model": sum(
+                comp.compressed_bytes(s.size)[0]
+                for s in tree_leaves(psch)),
             "nvidia_smi": smi}
 
 

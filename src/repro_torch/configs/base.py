@@ -168,8 +168,10 @@ class RunConfig:
     """Per-cell runtime knobs, field for field the JAX package's.
     ``zero1`` is read by the sharded train step and
     ``gradient_compression`` by the compressed cross-pod step
-    (``runtime/train_step.py``); ``seq_shard`` and the pipeline fields
-    are not read yet (the pipeline step is not ported)."""
+    (``runtime/train_step.py``); ``pp_microbatches`` by the pipeline
+    step (``runtime/pipeline.py``), and ``pipeline_stages`` by its
+    one-process form (with rules the mesh's "pod" axis sets the stage
+    count); ``seq_shard`` is not read yet."""
 
     microbatch: int | None = None    # global microbatch size (None = no accum)
     remat: str | None = None         # override ModelConfig.remat
