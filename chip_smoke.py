@@ -254,6 +254,24 @@ Phases, each printing one JSON line:
     beside each stage's and the model's f32 gradient bytes and the int8
     wire bytes, host ms a step and peak memory both ways, the bubble
     share.
+22e. ``elastic_burst``: the train run moved between worlds of ranks
+    (``launch/world.py``, ``launch/elastic.py``): Granite-8B at full
+    width cut to 4 layers (``reduced`` 36 -> 4: 36 layers of f32 state
+    do not fit), the train cell's S = 4096, B = 8 in microbatches of 2,
+    remat "full", AdamW at a constant 1e-4; a one-rank NCCL world on (1,
+    1) takes 2 steps from the seeded state, saves a generation, takes 2
+    more (the un-moved run) and closes; a one-rank world on (1, 1, 1)
+    ("pod", "data", "model") restores the generation onto its pod
+    placements and takes the same 2.  Fails unless the losses and every
+    leaf's CRC-32 are equal, every restored leaf is at its placement and
+    each step launches 32 flash and 68 norm kernels; prints host ms a
+    step and peak memory in each world, the parent's allocated bytes,
+    the seconds and bytes of the save, the teardown and restart and the
+    restore beside the demo's modelled overheads.
+    ``examples/torch_elastic_burst_demo.py --meshes 1x1,1x1x1`` runs on
+    the card at the CPU test's cut (24 steps, congestion from step 14)
+    alongside the first world's start, setup and seeded state; its
+    events must equal its modelled clock's.
 23. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
@@ -285,7 +303,10 @@ Phases, each printing one JSON line:
     ``..._per_step``, ``launches_qwen2vl``, ...); the LM kernels also
     their launches in ``sharded_train``, ``deepseek_sharded_train``,
     ``sharded_serve``, ``compressed_train`` and ``pipeline_train``
-    (``launches_pipeline_train``, both stage counts' steps).
+    (``launches_pipeline_train``, both stage counts' steps) and
+    ``elastic_burst`` (``launches_elastic_burst``); the norm also the
+    card's launch floor (``launch_floor_ms``: a one-element
+    ``torch.add`` timed as the kernels are).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -762,6 +783,9 @@ def main() -> int:
     # 22d. GPipe over "pod", its stages in one process
     ptrained = run_pipeline_train(dev, smi)
     emit(ptrained)
+    # 22e. the elastic burst: the train run moved between worlds
+    eburst = run_elastic_burst(dev, smi)
+    emit(eburst)
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -788,6 +812,8 @@ def main() -> int:
         entry["launches_compressed_train"] = ctrained["launches"].get(
             entry["name"], 0)
         entry["launches_pipeline_train"] = ptrained["launches"].get(
+            entry["name"], 0)
+        entry["launches_elastic_burst"] = eburst["launches"].get(
             entry["name"], 0)
 
     # 23. kernels
@@ -2644,6 +2670,8 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
     d_plain = device_time_ms(lambda: rr.rmsnorm_residual_ref(xd, rd, sc), 50)
     db, _ = bound_ms(rk.rmsnorm_bytes(B, d, 2), rk.rmsnorm_flops(B, d),
                      bw, f32)
+    one = torch.ones((1,), device=dev)
+    floor_ms = device_time_ms(lambda: torch.add(one, one), 200)
     norm = {
         "name": "rmsnorm_residual", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/"
@@ -2659,6 +2687,10 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
         "ms_decode": d_ms, "plain_ms_decode": d_plain,
         "bound_ms_decode": db,
         "shape_decode": "N=4, d=4096, bf16 (Yi-6B decode rows)",
+        "launch_floor_ms": floor_ms,
+        "launch_floor": "a one-element torch.add timed as the kernels are "
+                        "(queued behind the sleep kernel): the card's "
+                        "time for a launch that does next to no work",
         "launches_per_pass": served["launches_per_prefill"][
             "rmsnorm_residual"],
         "max_abs_err_served": served["kernels_on_activations"][
@@ -5515,6 +5547,236 @@ def run_pipeline_train(dev, smi):
             "int8_wire_bytes_model": sum(
                 comp.compressed_bytes(s.size)[0]
                 for s in tree_leaves(psch)),
+            "nvidia_smi": smi}
+
+
+#: elastic_burst: the move of the train cell's Granite-8B cut between two
+#: one-rank worlds; steps before the save, and after it in each world
+ELASTIC_STEPS = 2
+ELASTIC_LR = 1e-4
+#: the demo's modelled overheads (``OverheadModel``): checkpoint, then
+#: provision and restart, each in modelled steps of 1 s
+ELASTIC_MODELLED = {"ckpt_s": 1.0, "provision_s": 4.0, "restart_s": 4.0,
+                    "step_s": 1.0}
+#: the demo's run on the card: ``tests/test_torch_elastic.py``'s cut
+#: (steps, congestion from), whose events it holds to the JAX demo's; the
+#: full 120 steps would take ~60 s of the phase's 150
+ELASTIC_DEMO_CUT = (24, 14)
+
+
+def _load_elastic_demo():
+    import importlib.util
+
+    path = ROOT / "examples" / "torch_elastic_burst_demo.py"
+    spec = importlib.util.spec_from_file_location("torch_elastic_demo",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _world_steps(world, E, steps) -> list[dict]:
+    """``steps`` steps on ``world``'s rank, each with its loss, host ms
+    and the kernels' launches (counts set to 0 just before the step and
+    read just after)."""
+    out = []
+    for i in steps:
+        world.call(E.zero_counts)
+        got = world.call(E.step, i)
+        out.append({"step": i, "loss": got["loss"],
+                    "host_ms": got["host_s"] * 1e3,
+                    "launches": world.call(E.counts)})
+    return out
+
+
+def run_elastic_burst(dev, smi):
+    """The elastic burst on the card: Granite-8B at full width cut to 4
+    layers (the train cell's S = 4096, B = 8 in microbatches of 2,
+    remat "full", AdamW at a constant 1e-4) in a one-rank NCCL
+    ``World`` on (1, 1) ("data", "model"): ``ELASTIC_STEPS`` steps from
+    the seeded state, a ``CheckpointManager`` generation, then
+    ``ELASTIC_STEPS`` more (the un-moved run; its losses and every
+    leaf's CRC-32 kept); the world closed; a new one-rank world on (1,
+    1, 1) ("pod", "data", "model") restores the generation onto its pod
+    placements and takes the same steps.  Checks: losses and every
+    leaf's CRC equal, every restored leaf at its placement, launches a
+    step equal to ``launches_per_pass``'s (32 flash, 68 norm), the
+    demo on the card (at ``ELASTIC_DEMO_CUT``, run alongside the first
+    world's start, setup and seeded state, which are no term of the
+    move) equal to the modelled clock's events.  Prints the
+    parent's allocated bytes, host ms a step and peak memory in each
+    world, and the seconds and bytes of the save, the teardown and
+    restart (close, spawn with NCCL and the mesh, the step's build) and
+    the restore, beside the demo's modelled overheads (9 s against a
+    1 s step)."""
+    import io
+    import threading
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import elastic as E
+    from repro_torch.launch.world import World
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+
+    t_phase = time.monotonic()
+    cfg = _train_cfg("granite-8b", layers=TRAIN_LAYERS)
+    run = RunConfig(microbatch=TRAIN_MB, loss_chunk=512, remat="full",
+                    optimizer="adamw")
+    shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
+    spec = E.TrainSpec(cfg, run, shape, ELASTIC_LR)
+    per_step = {k: (TRAIN_BATCH // TRAIN_MB) * v for k, v in
+                M.launches_per_pass(cfg, "train", remat=run.remat).items()}
+    n = ELASTIC_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent = {"allocated_bytes": torch.cuda.memory_allocated(dev),
+              "reserved_bytes": torch.cuda.memory_reserved(dev)}
+    # the demo on the card (one-rank worlds) runs alongside the start of
+    # the first world, whose seconds are no term of the move; it ends
+    # before the first step.  Its events are held to the modelled
+    # clock's, which the JAX demo's equal (tests/test_torch_elastic.py)
+    demo = _load_elastic_demo()
+    steps, congestion_from = ELASTIC_DEMO_CUT
+    buf, box = io.StringIO(), {}
+
+    def run_demo():
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(buf):
+                box["card"] = demo.main([
+                    "--meshes", "1x1,1x1x1", "--steps", str(steps),
+                    "--congestion-from", str(congestion_from)])
+        except BaseException as e:                       # noqa: BLE001
+            box["error"] = e
+        box["seconds"] = time.monotonic() - t0
+
+    demo_thread = threading.Thread(target=run_demo)
+    demo_thread.start()
+    worlds = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        w = None
+        try:
+            w = World((1, 1), ("data", "model"), dev)
+            rec = {"mesh": w.call(E.setup, spec)["mesh"],
+                   "start_s": w.start_s, **w.start_info,
+                   "started_alongside_the_demo": True}
+            rec["init_s"] = w.call(E.init, SEED)["seconds"]
+        except BaseException:
+            if w is not None:
+                w.close()
+            raise
+        finally:
+            demo_thread.join()
+        try:
+            if "error" in box:
+                raise box["error"]
+            w.call(E.memory, True)
+            rec["steps"] = _world_steps(w, E, range(n))
+            rec["save"] = w.call(E.save, ckpt, n)
+            rec["steps"] += _world_steps(w, E, range(n, 2 * n))
+            rec["peak_memory_bytes"] = w.call(E.memory)["peak_bytes"]
+            t0 = time.monotonic()
+            crc_want = w.call(E.state_crcs)
+            rec["crc_s"] = time.monotonic() - t0
+        finally:
+            t0 = time.monotonic()
+            w.close()
+            rec["close_s"] = time.monotonic() - t0
+        worlds["1x1"] = rec
+        w = World((1, 1, 1), ("pod", "data", "model"), dev)
+        try:
+            # the first call imports the train stack on the new rank: a
+            # part of the restart, timed on the parent's clock
+            t0 = time.monotonic()
+            got = w.call(E.setup, spec)
+            rec = {"mesh": got["mesh"], "start_s": w.start_s,
+                   **w.start_info, "setup_s": time.monotonic() - t0,
+                   "build_s": got["seconds"]}
+            rec["restore"] = w.call(E.restore, ckpt, n)
+            rec["placed"] = w.call(E.placed)
+            w.call(E.memory, True)
+            rec["steps"] = _world_steps(w, E, range(n, 2 * n))
+            rec["peak_memory_bytes"] = w.call(E.memory)["peak_bytes"]
+            crc_got = w.call(E.state_crcs)
+        finally:
+            t0 = time.monotonic()
+            w.close()
+            rec["close_s"] = time.monotonic() - t0
+        worlds["1x1x1"] = rec
+    first, moved = worlds["1x1"], worlds["1x1x1"]
+    want_l = [s["loss"] for s in first["steps"][n:]]
+    got_l = [s["loss"] for s in moved["steps"]]
+    differ = sorted(k for k in crc_want if crc_got.get(k) != crc_want[k])
+    check(moved["restore"]["data_step"] == n,
+          f"restored data_step {moved['restore']}")
+    check(moved["placed"], "a restored leaf is not at its placement")
+    check(all(math.isfinite(x) for x in want_l + got_l),
+          f"losses {want_l} {got_l}")
+    check(got_l == want_l, f"moved losses {got_l}, un-moved {want_l}")
+    check(set(crc_got) == set(crc_want) and not differ,
+          f"leaves differ after the move: {differ[:5]}")
+    for rec in worlds.values():
+        for s in rec["steps"]:
+            check({k: s["launches"][k] for k in per_step} == per_step,
+                  f"step {s['step']}: launches {s['launches']}, "
+                  f"predicted {per_step}")
+    save_s = first["save"]["seconds"]
+    restart_s = first["close_s"] + moved["start_s"] + moved["setup_s"]
+    restore_s = moved["restore"]["seconds"]
+    step_ms = [s["host_ms"] for s in first["steps"][1:] + moved["steps"][1:]]
+    step_s = sum(step_ms) / len(step_ms) / 1e3
+    overhead_s = save_s + restart_s + restore_s
+    launches = {}
+    for rec in worlds.values():
+        for s in rec["steps"]:
+            for k, v in s["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+    card, demo_s = box["card"], box["seconds"]
+    clock = demo.clock_record(steps, congestion_from)
+
+    def events(r):
+        return [[e.step, e.kind, e.detail] for e in r.events]
+
+    out = buf.getvalue().strip().splitlines()
+    check(out[-1] == "elastic_burst_demo OK", f"demo ended {out[-3:]}")
+    check(events(card) == events(clock)
+          and card.elapsed_s == clock.elapsed_s
+          and card.met_deadline is clock.met_deadline is True,
+          f"card demo events {events(card)}, clock {events(clock)}")
+    burst = [e for e in card.events if e.kind == "burst"]
+    return {"phase": "elastic_burst", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "reduced": f"36 -> {cfg.num_layers} layers",
+            "params": count_params(M.train_schema(cfg)),
+            "seq": shape.seq_len, "global_batch": shape.global_batch,
+            "microbatch": run.microbatch, "remat": run.remat,
+            "optimizer": "adamw", "lr": ELASTIC_LR,
+            "parent_cuda": parent, "worlds": worlds,
+            "losses_unmoved": want_l, "losses_moved": got_l,
+            "leaves": len(crc_want), "leaves_differing": len(differ),
+            "bitwise": got_l == want_l and not differ,
+            "launches_predicted_per_step": per_step, "launches": launches,
+            "checkpoint_bytes": first["save"]["bytes"],
+            "save_s": save_s, "restart_s": restart_s,
+            "restore_s": restore_s, "overhead_s": overhead_s,
+            "host_ms_per_step": step_s * 1e3,
+            "overhead_in_steps": overhead_s / step_s,
+            "modelled": {**ELASTIC_MODELLED,
+                         "overhead_s": sum(ELASTIC_MODELLED[k] for k in (
+                             "ckpt_s", "provision_s", "restart_s")),
+                         "overhead_in_steps": 9.0},
+            "demo": {"meshes": "1x1,1x1x1", "steps": steps,
+                     "congestion_from": congestion_from, "seconds": demo_s,
+                     "events_equal_clock": True,
+                     "burst": [[e.step, e.detail] for e in burst],
+                     "elapsed_s": card.elapsed_s,
+                     "deadline_s": card.deadline_s,
+                     "met_deadline": card.met_deadline,
+                     "lines": [ln for ln in out if ln.strip().startswith(
+                         ("[session]", "step ", "elapsed ", "final loss"))]},
+            "seconds": time.monotonic() - t_phase,
             "nvidia_smi": smi}
 
 

@@ -34,6 +34,7 @@ resumes bit-consistently from the snapshot.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue
@@ -42,11 +43,14 @@ import signal
 import threading
 import warnings
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 _SEP = "__"
 
@@ -133,6 +137,70 @@ def _from_host(arr: np.ndarray, dtype: str, key: str) -> torch.Tensor:
     return torch.from_numpy(signed).view(tdt)
 
 
+def _world_size() -> int:
+    """The ranks of the running process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+#: threads that write or verify a generation's leaves side by side
+_IO_THREADS = 8
+
+
+class _CrcWriter:
+    """A file that keeps the CRC-32 of the bytes written to it."""
+
+    def __init__(self, f):
+        self.f, self.crc = f, 0
+
+    def write(self, b):
+        self.crc = zlib.crc32(b, self.crc)
+        return self.f.write(b)
+
+
+def _save_leaf(path: Path, leaf) -> tuple[list, str, int]:
+    """``np.save`` of a leaf (a tensor, an array, or ``_to_host``'s
+    pair) at ``path``: its shape, true dtype name and the CRC-32 of the
+    file's bytes, taken as they are written."""
+    arr, dtype = leaf if isinstance(leaf, tuple) else _to_host(leaf)
+    with open(path, "wb") as f:
+        w = _CrcWriter(f)
+        np.save(w, arr, allow_pickle=False)
+    return list(arr.shape), dtype, w.crc
+
+
+def _read_file(path: Path) -> bytearray:
+    """A file's bytes, read into one writable buffer."""
+    buf = bytearray(path.stat().st_size)
+    view = memoryview(buf)
+    with open(path, "rb", buffering=0) as f:
+        n = 0
+        while n < len(buf):
+            got = f.readinto(view[n:])
+            if not got:
+                raise OSError(f"{path} ended after {n} of {len(buf)} bytes")
+            n += got
+    return buf
+
+
+#: bytes that hold an ``.npy`` header (numpy writes ~128)
+_NPY_HEAD = 1 << 16
+
+
+def _npy_array(buf: bytearray) -> np.ndarray:
+    """The array of an ``.npy`` file's bytes, a view of ``buf`` (no
+    copy); no object arrays."""
+    head = io.BytesIO(bytes(buf[:_NPY_HEAD]))
+    version = np.lib.format.read_magic(head)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(head)
+    if dtype.hasobject:
+        raise ValueError("a leaf holds Python objects")
+    count = int(np.prod(shape, dtype=np.int64))
+    arr = np.frombuffer(buf, dtype=dtype, count=count, offset=head.tell())
+    return arr.reshape(shape, order="F" if fortran else "C")
+
+
 class CheckpointManager:
     def __init__(self, directory: str | os.PathLike, *, async_save: bool = True,
                  keep: int = 3):
@@ -155,24 +223,35 @@ class CheckpointManager:
     def save(self, step: int, state, extra: dict | None = None,
              wait: bool = False):
         """Snapshot `state` (nested dict/list/tuple of tensors or
-        arrays) at `step`.
+        arrays, whole: a DTensor state is gathered by the caller, on
+        every rank) at `step`.
 
-        Device tensors are copied to the host here (cheap vs
-        serialization); file I/O happens on the worker thread in async
-        mode.
+        In async mode device tensors are copied to the host here (cheap
+        vs serialization) and the file I/O happens on the worker thread;
+        a synchronous save copies each leaf in the thread that writes
+        it, side by side with the others.  Under a process group of more than one rank only rank 0
+        writes, synchronously, and every rank leaves after a barrier, so
+        the generation is complete wherever a rank restores it next.
         """
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
-        job = (step, host, dict(extra or {}))
-        if self.async_save and not wait:
+        ranks = _world_size()
+        if ranks > 1 and dist.get_rank() != 0:
+            dist.barrier()
+            return
+        leaves = _flatten(state)
+        if self.async_save and not wait and ranks == 1:
+            host = {k: _to_host(v) for k, v in leaves.items()}
             with self._lock:
                 self._pending += 1
-            self._q.put(job)
+            self._q.put((step, host, dict(extra or {})))
         else:
             # a sync save may target the same step as a queued async one
             # (periodic + final save); drain the worker first so both
-            # never race on the same step_*.tmp staging dir
+            # never race on the same step_*.tmp staging dir.  Each leaf
+            # is copied to the host by the thread that writes it
             self.wait()
-            self._write(job)
+            self._write((step, leaves, dict(extra or {})))
+        if ranks > 1:
+            dist.barrier()
 
     def wait(self):
         if self.async_save:
@@ -192,24 +271,26 @@ class CheckpointManager:
                 self._q.task_done()
 
     def _write(self, job):
-        step, host, extra = job
+        step, leaves, extra = job
         tmp = self.dir / f"step_{step:08d}.tmp"
         final = self.dir / f"step_{step:08d}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "extra": extra, "leaves": {}}
-        for key, (arr, dtype) in host.items():
-            fname = f"{key}.npy"
-            np.save(tmp / fname, arr, allow_pickle=False)
-            manifest["leaves"][key] = {
-                "file": fname,
-                "shape": list(arr.shape),
-                "dtype": dtype,
-                # content checksum of the serialized bytes — what
-                # restore() verifies before trusting this generation
-                "crc32": zlib.crc32((tmp / fname).read_bytes()),
-            }
+        # one leaf a thread: copies, file writes and zlib let go of the GIL
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            saved = pool.map(lambda kv: _save_leaf(tmp / f"{kv[0]}.npy",
+                                                   kv[1]), leaves.items())
+            for key, (shape, dtype, crc) in zip(leaves, saved):
+                manifest["leaves"][key] = {
+                    "file": f"{key}.npy",
+                    "shape": shape,
+                    "dtype": dtype,
+                    # content checksum of the serialized bytes — what
+                    # restore() verifies before trusting this generation
+                    "crc32": crc,
+                }
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         # atomic swap: never rmtree the live generation before the new
         # one is in place — a crash between those two operations would
@@ -251,23 +332,47 @@ class CheckpointManager:
         verification: readable manifest and every leaf's bytes matching
         its stamped CRC-32 (DESIGN.md §19).  Legacy manifests without
         checksums are trusted (there is nothing to verify against)."""
+        return self._read_intact(step, keep=False) is not None
+
+    def _read_intact(self, step: int, keep: bool = True):
+        """``(manifest, {leaf key: file bytearray})`` of the generation at
+        ``step``, each file read once (side by side; without ``keep``
+        the bytes are dropped as they are checked), or ``None`` when the
+        manifest is unreadable or a leaf's bytes miss their CRC-32."""
         d = self.dir / f"step_{step:08d}"
+
+        def read(meta):
+            b = _read_file(d / meta["file"])
+            crc = meta.get("crc32")
+            if crc is not None and zlib.crc32(b) != crc:
+                return None
+            return b if keep else True
+
         try:
             manifest = json.loads((d / "manifest.json").read_text())
-            for meta in manifest["leaves"].values():
-                crc = meta.get("crc32")
-                if crc is None:
-                    continue
-                if zlib.crc32((d / meta["file"]).read_bytes()) != crc:
-                    return False
+            metas = manifest["leaves"]
+            with ThreadPoolExecutor(_IO_THREADS) as pool:
+                data = dict(zip(metas, pool.map(read, metas.values())))
         except (OSError, ValueError, KeyError):
-            return False
-        return True
+            return None
+        if any(b is None for b in data.values()):
+            return None
+        return manifest, data
 
-    def restore(self, target_state, step: int | None = None
-                ) -> tuple[Any, dict]:
+    def restore(self, target_state, step: int | None = None,
+                shardings=None) -> tuple[Any, dict]:
         """Load into the structure of `target_state` (nested dict/list/
-        tuple; only its keys matter).  Leaves come back as CPU tensors.
+        tuple; only its keys matter).  Without `shardings` the leaves
+        come back as CPU tensors.  `shardings` (a tree of
+        ``sharding/rules.py::Sharding`` of the same structure, as
+        ``runtime/train_step.py::state_shardings`` gives it) puts each
+        leaf onto the *current* mesh as a DTensor at its placements, on
+        the mesh's device — restoring under a different mesh than the
+        save is the supported path (that is the burst).  Every rank
+        reads the files and ``distribute_tensor``s each leaf in turn, so
+        the ranks agree whichever rank a torch version takes the data
+        from.  The files are read once: their bytes are verified and
+        loaded from memory.
 
         With ``step=None`` (the default), generations are verified
         newest-first and the newest *intact* one is restored — a
@@ -280,9 +385,10 @@ class CheckpointManager:
             steps = self.all_steps()
             if not steps:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
-            step = None
+            got = None
             for s in reversed(steps):
-                if self.verify(s):
+                got = self._read_intact(s)
+                if got is not None:
                     step = s
                     break
                 warnings.warn(
@@ -290,26 +396,31 @@ class CheckpointManager:
                     f" falling back to an older generation",
                     stacklevel=2,
                 )
-            if step is None:
+            if got is None:
                 raise NoIntactCheckpointError(
                     f"no intact checkpoint in {self.dir}: every "
                     f"generation failed integrity verification "
                     f"(steps tried: {steps})"
                 )
-        elif not self.verify(step):
-            raise NoIntactCheckpointError(
-                f"checkpoint step {step} in {self.dir} failed "
-                f"integrity verification"
-            )
-        d = self.dir / f"step_{step:08d}"
-        manifest = json.loads((d / "manifest.json").read_text())
+        else:
+            got = self._read_intact(step)
+            if got is None:
+                raise NoIntactCheckpointError(
+                    f"checkpoint step {step} in {self.dir} failed "
+                    f"integrity verification"
+                )
+        manifest, data = got
         flat_target = _flatten(target_state)
+        flat_shardings = _flatten(shardings) if shardings is not None \
+            else {}
         out = {}
-        for key, meta in manifest["leaves"].items():
-            if key not in flat_target:
-                continue
-            arr = np.load(d / meta["file"], allow_pickle=False)
-            out[key] = _from_host(arr, meta["dtype"], key)
+        for key in [k for k in manifest["leaves"] if k in flat_target]:
+            arr = _npy_array(data.pop(key))
+            out[key] = _from_host(arr, manifest["leaves"][key]["dtype"], key)
+            if shardings is not None:
+                sh = flat_shardings[key]
+                out[key] = distribute_tensor(
+                    out[key].to(sh.mesh.device_type), sh.mesh, sh.placements)
         missing = set(flat_target) - set(out)
         if missing:
             raise KeyError(f"checkpoint at step {step} missing leaves: "

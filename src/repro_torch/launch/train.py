@@ -18,8 +18,11 @@ As in the JAX driver, the step comes from ``build_session`` on
 step over DTensors.  On one card (or one CPU process) the host mesh is
 (1, 1) and every placement ``Replicate()``; a one-rank group is started
 for it and closed at the end of ``train``.  Under a launcher that
-started a bigger group, every rank runs ``train`` alike.  The elastic
-path (re-sizing mid-run across devices) is not ported yet.
+started a bigger group (``launch/world.py::World``), every rank runs
+``train`` alike: the checkpoints are gathered on every rank and written
+by rank 0 (``CheckpointManager.save``), and a resume restores each leaf
+onto the placements (``restore(..., shardings=)``).  Re-sizing mid-run
+goes through ``launch/elastic.py``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import KERNELS
 from repro_torch.models.params import tree_map
-from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.optim import Optimizer, make_optimizer, warmup_cosine
 from repro_torch.runtime import train_step as ts
 from repro_torch.sharding.rules import distribute_params, make_rules
 
@@ -59,21 +62,25 @@ def _launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def build_session(cfg: ModelConfig, run: RunConfig, mesh, steps_total: int):
+def build_session(cfg: ModelConfig, run: RunConfig, mesh, steps_total: int,
+                  opt: Optimizer | None = None):
     """``(opt, sch, shardings, step_fn, rules)``: the train rules on
-    ``mesh``, the optimizer on the warmup-cosine schedule, the state's
-    schema and placements, and the step over DTensors."""
+    ``mesh``, the optimizer (``opt``, or by default the run's on the
+    warmup-cosine schedule over ``steps_total``), the state's schema and
+    placements, and the step over DTensors."""
     rules = make_rules(mesh, "train")
-    opt = make_optimizer(run.optimizer or cfg.optimizer,
-                         warmup_cosine(total_steps=steps_total))
+    if opt is None:
+        opt = make_optimizer(run.optimizer or cfg.optimizer,
+                             warmup_cosine(total_steps=steps_total))
     sch = ts.state_schema(cfg, run, opt)
     shardings = ts.state_shardings(sch, rules, run)
     step_fn = ts.build_train_step(cfg, run, opt, rules)
     return opt, sch, shardings, step_fn, rules
 
 
-def _gathered(state):
-    """The state as full tensors (a checkpoint is written whole)."""
+def gathered(state):
+    """The state as full tensors (a checkpoint is written whole): a
+    collective, so every rank calls it."""
     return tree_map(ts.full_tensor, state)
 
 
@@ -105,15 +112,14 @@ def _train(cfg, run, shape, *, steps, dev, deadline, ckpt_dir, ckpt_every,
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if resume and mgr and mgr.latest_step() is not None:
-        state, extra = mgr.restore(sch)
-        state = tree_map(lambda t: t.to(dev), state)
+        state, extra = mgr.restore(sch, shardings=shardings)
         pipeline.restore(extra)
         start_step = int(extra.get("data_step", 0))
         print(f"[train] resumed from step {start_step}")
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        state = ts.new_state(ts.init_state(sch, gen, dev), opt)
-    state = distribute_params(state, shardings)
+        state = distribute_params(
+            ts.new_state(ts.init_state(sch, gen, dev), opt), shardings)
 
     monitor = StepTimeMonitor()
     predictor = DeadlinePredictor(deadline) if deadline else None
@@ -131,7 +137,7 @@ def _train(cfg, run, shape, *, steps, dev, deadline, ckpt_dir, ckpt_every,
         monitor.observe(dt)
         pipeline.state.step = step + 1
         if mgr and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, _gathered(state),
+            mgr.save(step + 1, gathered(state),
                      extra=pipeline.state.to_extra())
         if (step + 1) % log_every == 0 or step == start_step:
             msg = (f"[train] step {step + 1}/{steps} "
@@ -147,10 +153,10 @@ def _train(cfg, run, shape, *, steps, dev, deadline, ckpt_dir, ckpt_every,
             print(msg, flush=True)
     c1 = _launches()
     if mgr:
-        mgr.save(steps, _gathered(state), extra=pipeline.state.to_extra(),
+        mgr.save(steps, gathered(state), extra=pipeline.state.to_extra(),
                  wait=True)
     print(f"[train] done in {time.monotonic() - t_start:.1f}s")
-    return TrainResult(state=_gathered(state), start_step=start_step,
+    return TrainResult(state=gathered(state), start_step=start_step,
                        losses=losses,
                        step_s=times,
                        launches={k: c1[k] - c0[k] for k in c1})

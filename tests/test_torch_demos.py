@@ -12,7 +12,10 @@ DEMOS = {
     "torch_fwi_seismic_demo": ["--size", "96", "--cal-nz", "48"],
     "torch_fleet_autoscale_demo": ["--probe-size", "64"],
     "torch_quickstart": [],
+    "torch_elastic_burst_demo": [],
 }
+#: demos whose CPU run is in a test file of their own
+RUN_ELSEWHERE = {"torch_elastic_burst_demo"}   # tests/test_torch_elastic.py
 #: the line each demo ends with
 OK_LINE = {"torch_quickstart": "quickstart OK"}
 
@@ -25,7 +28,7 @@ def _load(name):
     return mod
 
 
-@pytest.mark.parametrize("name", sorted(DEMOS))
+@pytest.mark.parametrize("name", sorted(set(DEMOS) - RUN_ELSEWHERE))
 def test_demo_runs_on_the_cpu(name, capsys):
     _load(name).main(["--device", "cpu", *DEMOS[name]])
     out = capsys.readouterr().out
