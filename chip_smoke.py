@@ -272,6 +272,24 @@ Phases, each printing one JSON line:
     the card at the CPU test's cut (24 steps, congestion from step 14)
     alongside the first world's start, setup and seeded state; its
     events must equal its modelled clock's.
+22f. ``launch_cost``: the launch layer's cost tools on the card.
+    ``launch/hw.py::spec_for`` of the card's name beside its
+    ``total_memory``; Yi-6B whole (32 layers, bf16, B = 4, P = 512, as
+    in ``serve``): one prefill and one decode step under
+    ``launch/op_cost.py::OpCostMode``, the counted prefill FLOPs within
+    1 % of ``qwen2vl_prefill_flops`` (the dense GQA products),
+    the decode step's bytes read from the weights and the cache
+    (``input_read_bytes``) within 1 % of ``decode_read_bytes``, its
+    launch-boundary bytes (``hbm_bytes``) beside them,
+    ``roofline_terms`` with the card's spec within 1 % of the bounds
+    those formulas give, the logits bitwise equal with and without the
+    mode, the launches those of ``launches_per_pass`` (32 flash and 65
+    norm a prefill); each registered LM op bitwise equal to its bare
+    ctypes call, and the norm's host µs a call at the decode row
+    through the op and through the ctypes call; and, in a subprocess
+    on the host, ``python -m repro_torch.launch.dryrun`` of ``yi-6b ×
+    decode_32k × single`` on a fake 256-rank group: its roofline and
+    peak GiB a rank.
 23. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
@@ -304,9 +322,12 @@ Phases, each printing one JSON line:
     their launches in ``sharded_train``, ``deepseek_sharded_train``,
     ``sharded_serve``, ``compressed_train`` and ``pipeline_train``
     (``launches_pipeline_train``, both stage counts' steps) and
-    ``elastic_burst`` (``launches_elastic_burst``); the norm also the
-    card's launch floor (``launch_floor_ms``: a one-element
-    ``torch.add`` timed as the kernels are).
+    ``elastic_burst`` (``launches_elastic_burst``) and ``launch_cost``
+    (``launches_launch_cost``); the norm also the card's launch floor
+    (``launch_floor_ms``: a one-element ``torch.add`` timed as the
+    kernels are) and its host µs a decode-row call through the
+    registered op and through the bare ctypes call (``host_us_op``,
+    ``host_us_ctypes``).
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the card's ``nvidia-smi`` line, and last the contract line
@@ -333,15 +354,6 @@ SRC = ROOT / "src"
 SEED = 0
 TOL = 1e-5
 
-#: published peaks (NVIDIA data sheets): HBM bytes/s, f32 FLOP/s without
-#: tensor cores, dense bf16 tensor-core FLOP/s.  Matched against the name
-#: nvidia-smi reports.
-PEAKS = [
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100", 3.35e12, 67e12, 989e12),
-    ("H200", 4.8e12, 67e12, 989e12),
-]
 #: rmsnorm (atol, rtol) by dtype: f32 sums in another order round an ulp
 #: or two apart; a bf16 output may round to its neighbour (2^-8)
 RMS_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2e-2, 2.0 ** -8)}
@@ -441,10 +453,16 @@ def emit(obj: dict) -> None:
 
 
 def peaks_for(name: str) -> tuple[float, float, float]:
-    for key, bw, flops, bf16 in PEAKS:
-        if key in name:
-            return bw, flops, bf16
-    raise SmokeFailure(f"no peak rates known for card {name!r}")
+    """The card's published peaks (NVIDIA data sheets) from
+    ``repro_torch/launch/hw.py::spec_for``: HBM bytes/s, f32 FLOP/s
+    without tensor cores, dense bf16 tensor-core FLOP/s."""
+    from repro_torch.launch.hw import spec_for
+
+    try:
+        spec = spec_for(name)
+    except KeyError as e:
+        raise SmokeFailure(str(e)) from None
+    return spec.hbm_bw, spec.peak_flops_f32, spec.peak_flops_bf16
 
 
 def block_inputs(rng, dev, ns, nz, nx, k, *, per_shot=True, src=None,
@@ -786,6 +804,9 @@ def main() -> int:
     # 22e. the elastic burst: the train run moved between worlds
     eburst = run_elastic_burst(dev, smi)
     emit(eburst)
+    # 22f. the launch layer's cost tools
+    lcost = run_launch_cost(dev)
+    emit(lcost)
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -815,6 +836,9 @@ def main() -> int:
             entry["name"], 0)
         entry["launches_elastic_burst"] = eburst["launches"].get(
             entry["name"], 0)
+        entry["launches_launch_cost"] = lcost["launches"].get(
+            entry["name"], 0)
+    lm_entries[1].update(lcost["norm_host_us"])
 
     # 23. kernels
     windows = window_timings(dev, rng, bw, f32)
@@ -5778,6 +5802,239 @@ def run_elastic_burst(dev, smi):
                          ("[session]", "step ", "elapsed ", "final loss"))]},
             "seconds": time.monotonic() - t_phase,
             "nvidia_smi": smi}
+
+
+#: launch_cost: counted prefill FLOPs and decode bytes against the
+#: smoke's formulas, and the roofline terms against their bounds, as a
+#: share of the formula
+COST_TOL = 0.01
+
+
+def _host_us(fn, calls: int = 2000) -> float:
+    """Host µs a call of ``fn`` over ``calls`` calls, the card's queue
+    left to run behind them (drained before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _ops_vs_ctypes(dev) -> dict:
+    """Each registered LM op against its bare ctypes call on the same
+    card tensors: bitwise, at small bf16 shapes the kernels take."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.ssd import kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    x, res, scale = rand(64, 4096), rand(64, 4096), rand(4096,
+                                                         dtype=torch.float32)
+    q, k, v = rand(2, 8, 128, 128), rand(2, 2, 128, 128), rand(2, 2, 128, 128)
+    xdt, b, c = rand(4, 8, 64, 64), rand(4, 8, 64, 64), rand(4, 8, 64, 64)
+    csum = torch.cumsum(-rand(4, 8, 64, dtype=torch.float32).abs(), -1)
+    pairs = {
+        "rmsnorm_residual": (rk.rmsnorm_residual_op(x, res, scale, 1e-5),
+                             rk.rmsnorm_residual_cuda(x, res, scale, 1e-5)),
+        "flash_attention": ((fk.flash_attention_op(q, k, v, True),),
+                            (fk.flash_attention_cuda(q, k, v, causal=True),)),
+        "ssd_chunk": (sk.ssd_chunk_op(xdt, b, c, csum),
+                      sk.ssd_chunk_cuda(xdt, b, c, csum)),
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, (got, want) in pairs.items():
+        same = all(torch.equal(a, w) and a.stride() == w.stride()
+                   for a, w in zip(got, want))
+        check(same, f"registered op {name} is not bitwise its ctypes call")
+        out[name] = "bitwise"
+    return out
+
+
+def run_launch_cost(dev):
+    """The launch layer's cost tools on the card (module docstring,
+    22f): Yi-6B whole under ``OpCostMode`` against the smoke's formulas,
+    the registered ops against their ctypes calls, the norm's host cost
+    a call both ways, and the dry run of yi-6b × decode_32k on the host
+    in a subprocess started first."""
+    import os
+
+    t_start = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "yi-6b", "--shape", "decode_32k", "--mesh", "single", "--force",
+             "--out", tmp],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            card = _launch_cost_card(dev)
+            log, _ = dry.communicate(timeout=300)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+        check(dry.returncode == 0, f"dry run exited {dry.returncode}: "
+                                   f"{log[-2000:]}")
+        rec = json.loads((Path(tmp) / "single" / "yi-6b" /
+                          "decode_32k.json").read_text())
+    check(rec["status"] == "ok", f"dry run cell: {rec.get('error')}")
+    peak = rec["memory"]["peak_bytes_per_device"]
+    card["dryrun"] = {
+        "cell": "yi-6b × decode_32k × single", "chips": rec["chips"],
+        "trace_s": rec["trace_s"], "roofline": rec["roofline"],
+        "hlo_flops_per_dev": rec["hlo_flops_per_dev"],
+        "hlo_bytes_per_dev": rec["hlo_bytes_per_dev"],
+        "input_read_bytes_per_dev": rec["input_read_bytes_per_dev"],
+        "collectives": rec["collectives"],
+        "peak_gib_per_rank": peak / 2**30,
+        "hbm_budget_ok": rec["hbm_budget_ok"], "chip": rec["chip"],
+        "log_tail": log.strip().splitlines()[-1:]}
+    card["seconds"] = time.monotonic() - t_start
+    return card
+
+
+def _launch_cost_card(dev) -> dict:
+    """``launch_cost``'s work on the card (``run_launch_cost``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch import serve
+    from repro_torch.launch.hw import spec_for
+    from repro_torch.launch.op_cost import OpCostMode
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_step
+
+    name = torch.cuda.get_device_name(0)
+    spec = spec_for(name)
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    cfg = get_config("yi-6b")
+    B, P = 4, 512
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = serve.make_params(cfg, dev, seed=SEED)
+    prompts = serve.make_prompts(
+        cfg, B, P, torch.Generator(device=dev).manual_seed(SEED + 1))
+    prefill = serve_step.build_prefill(cfg, max_seq=P + 1)
+    decode = serve_step.build_decode(cfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t0) * 1e3
+
+    prefill(params, {"tokens": prompts})                      # warm-up
+    (want_pre, cache), pre_ms = timed(
+        lambda: prefill(params, {"tokens": prompts}))
+    tok = want_pre.argmax(-1)
+    step = {"token": tok, "pos": P}
+    # warm-up: writes position P, as every later call at this step does
+    decode(params, cache, step)
+    want_dec, dec_ms = timed(lambda: decode(params, cache, step)[0])
+    _counts_zero()
+    with OpCostMode() as pm:
+        (got_pre, cache2), pre_mode_ms = timed(
+            lambda: prefill(params, {"tokens": prompts}))
+    launches_pre = _counts()
+    _counts_zero()
+    with OpCostMode() as dm:
+        got_dec, dec_mode_ms = timed(lambda: decode(params, cache2, step)[0])
+    launches_dec = _counts()
+    check(torch.equal(got_pre, want_pre),
+          "prefill logits differ under OpCostMode")
+    check(torch.equal(got_dec, want_dec),
+          "decode logits differ under OpCostMode")
+    want_pre_l = M.launches_per_pass(cfg, "prefill")
+    want_dec_l = M.launches_per_pass(cfg, "decode")
+    check(launches_pre == {k: want_pre_l.get(k, 0) for k in launches_pre},
+          f"prefill launches {launches_pre}, predicted {want_pre_l}")
+    check(launches_dec == {k: want_dec_l.get(k, 0) for k in launches_dec},
+          f"decode launches {launches_dec}, predicted {want_dec_l}")
+
+    flops = qwen2vl_prefill_flops(cfg, B, P)
+    read_bytes = decode_read_bytes(cfg, params, cache2)
+    bw, bf16 = spec.hbm_bw, spec.peak_flops_bf16
+    flops_share = pm.flops / flops["total"] - 1
+    bytes_share = dm.input_read_bytes / read_bytes - 1
+    check(abs(flops_share) <= COST_TOL,
+          f"counted prefill FLOPs {pm.flops} vs {flops['total']}")
+    check(abs(bytes_share) <= COST_TOL,
+          f"counted decode bytes {dm.input_read_bytes} vs {read_bytes}")
+    rl_pre = roofline_terms(pm.flops, pm.hbm_bytes, pm.result(), chip=spec)
+    rl_dec = roofline_terms(dm.flops, dm.input_read_bytes, dm.result(),
+                            chip=spec)
+    rl_dec_launch = roofline_terms(dm.flops, dm.hbm_bytes, dm.result(),
+                                   chip=spec)
+    pre_bound_ms = flops["total"] / bf16 * 1e3
+    dec_bound_ms = read_bytes / bw * 1e3
+    check(abs(rl_pre["compute"] * 1e3 / pre_bound_ms - 1) <= COST_TOL,
+          f"prefill compute term {rl_pre['compute']} s vs {pre_bound_ms} ms")
+    check(abs(rl_dec["memory"] * 1e3 / dec_bound_ms - 1) <= COST_TOL,
+          f"decode memory term {rl_dec['memory']} s vs {dec_bound_ms} ms")
+    ops_check = _ops_vs_ctypes(dev)
+    del params, cache, cache2
+    torch.cuda.empty_cache()
+
+    # the norm at a decode row (B rows of d) through the registered op and
+    # through the bare ctypes call, alternated
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((B, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    r = torch.randn((B, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    sc = torch.ones(cfg.d_model, device=dev)
+    via_op, via_ctypes = [], []
+    for _ in range(3):
+        via_op.append(_host_us(lambda: rk.rmsnorm_residual_op(x, r, sc,
+                                                               1e-5)))
+        via_ctypes.append(_host_us(lambda: rk.rmsnorm_residual_cuda(
+            x, r, sc, 1e-5)))
+    op_us, ct_us = float(np.median(via_op)), float(np.median(via_ctypes))
+    return {
+        "phase": "launch_cost",
+        "spec": {"name": spec.name,
+                 "peak_flops_bf16": spec.peak_flops_bf16,
+                 "peak_flops_f32": spec.peak_flops_f32,
+                 "hbm_bw": spec.hbm_bw, "hbm_bytes": spec.hbm_bytes,
+                 "ici_link_bw": spec.ici_link_bw,
+                 "ici_links": spec.ici_links, "dci_bw": spec.dci_bw},
+        "card": name, "total_memory": total_memory,
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": B, "prompt": P,
+        "prefill": {"counted_flops": pm.flops,
+                    "formula_flops": flops["total"],
+                    "share_off": flops_share,
+                    "flops_by_op": pm.result()["flops_by_op"],
+                    "hbm_bytes": pm.hbm_bytes,
+                    "roofline": rl_pre, "bound_ms": pre_bound_ms,
+                    "host_ms": pre_ms, "host_ms_under_mode": pre_mode_ms},
+        "decode": {"input_read_bytes": dm.input_read_bytes,
+                   "decode_read_bytes": read_bytes,
+                   "share_off": bytes_share,
+                   "hbm_bytes": dm.hbm_bytes,
+                   "hbm_over_read": dm.hbm_bytes / read_bytes,
+                   "roofline": rl_dec,
+                   "roofline_launch_bytes": rl_dec_launch,
+                   "bound_ms": dec_bound_ms,
+                   "host_ms": dec_ms, "host_ms_under_mode": dec_mode_ms},
+        "tolerance": COST_TOL,
+        "logits_bitwise_under_mode": True,
+        "launches": {k: launches_pre.get(k, 0) + launches_dec.get(k, 0)
+                     for k in launches_pre},
+        "launches_prefill": launches_pre, "launches_decode": launches_dec,
+        "ops_vs_ctypes": ops_check,
+        "norm_host_us": {"host_us_op": op_us, "host_us_ctypes": ct_us,
+                         "host_us_op_rounds": via_op,
+                         "host_us_ctypes_rounds": via_ctypes,
+                         "host_us_shape": [B, cfg.d_model]},
+    }
 
 
 if __name__ == "__main__":

@@ -171,7 +171,9 @@ class RunConfig:
     (``runtime/train_step.py``); ``pp_microbatches`` by the pipeline
     step (``runtime/pipeline.py``), and ``pipeline_stages`` by its
     one-process form (with rules the mesh's "pod" axis sets the stage
-    count); ``seq_shard`` is not read yet."""
+    count); ``seq_shard`` by the dry run and the perf harness
+    (``launch/dryrun.py::cell_rules``: the residual stream's sequence
+    over "model")."""
 
     microbatch: int | None = None    # global microbatch size (None = no accum)
     remat: str | None = None         # override ModelConfig.remat

@@ -20,7 +20,10 @@ The wrapper checks what the kernel takes and raises on anything else
 (an input that requires grad included: ``kernels/autograd.py``),
 allocates the output, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
-its ``launches`` attribute.  Inputs may carry any strides with a
+its ``launches`` attribute (``flash_attention_op`` is the same launch
+as the registered op ``repro_torch::flash_attention``, its fake
+implementation allocating only the output, its FLOP formula
+``attention_flops``).  Inputs may carry any strides with a
 contiguous last axis, so the model's (B, S, H, D) projections go in as
 transposed views (the cross-attention's k and v too, from the (B, F,
 KH, D) cache), and v may be a strided slice of a wider product (MLA's
@@ -33,6 +36,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.autograd import check_no_grad
@@ -98,16 +102,12 @@ def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
     return itemsize * b * (s * h * (d + dv) + sk * kh * (d + dv))
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,   # (B, H, Sq, D) f32 or bf16, CUDA
-    k: torch.Tensor,   # (B, KH, Sk, D) same dtype
-    v: torch.Tensor,   # (B, KH, Sk, Dv)
-    *,
-    causal: bool = True,
-) -> torch.Tensor:
-    """Attention on the card, scores scaled by D^-½; returns (B, H, Sq,
-    Dv) in q's dtype.  ``causal`` needs Sk == Sq."""
-    check_no_grad("flash_attention_cuda", q, k, v)
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> None:
+    """Raise unless the kernel takes (q, k, v, causal): CUDA tensors of
+    the shapes, dtypes and head dims it runs, each contiguous along its
+    last axis.  The registered op's fake implementation checks the
+    same; the wrapper checks the alignment of the data beside."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
@@ -142,6 +142,22 @@ def flash_attention_cuda(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,   # (B, H, Sq, D) f32 or bf16, CUDA
+    k: torch.Tensor,   # (B, KH, Sk, D) same dtype
+    v: torch.Tensor,   # (B, KH, Sk, Dv)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention on the card, scores scaled by D^-½; returns (B, H, Sq,
+    Dv) in q's dtype.  ``causal`` needs Sk == Sq."""
+    check_no_grad("flash_attention_cuda", q, k, v)
+    check_args(q, k, v, causal)
+    B, H, S, D = q.shape
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
         # the f32 kernel moves floats; the bf16 kernel's TMA tensor maps
         # need a 16-byte-aligned base and byte strides in 16s
         align = 16 if t.dtype == torch.bfloat16 else 4
@@ -169,3 +185,33 @@ def flash_attention_cuda(
 
 
 flash_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel as a registered op
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    """``flash_attention_cuda`` through PyTorch's dispatcher, so that a
+    dispatch mode, the profiler and a fake tensor see it: the ctypes
+    launch alone is invisible to them.  The dispatch (``ops.py``) calls
+    this on CUDA tensors."""
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+@flash_attention_op.register_fake
+def _fake(q, k, v, causal):
+    check_args(q, k, v, causal)
+    B, H, S, _ = q.shape
+    return q.new_empty((B, S, H, v.shape[-1])).transpose(1, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    B, H, S, D = q_shape
+    return attention_flops(B, H, S, D, causal, dv=v_shape[-1],
+                           sk=k_shape[2])

@@ -1,12 +1,13 @@
 """Dispatch of attention by the device of the tensors.
 
-A DTensor (the sharded train step) takes ``kernels/local.py``: the
-same dispatch on its local shards through ``local_map``.  CPU tensors
-take the plain version (``ref.py``) under plain autograd;
-CUDA tensors take the Hopper kernel (``kernel.py::flash_attention_cuda``),
-or the call raises.  Nothing falls back from one to the other.  Where
-grad is enabled and an input requires it, the kernel runs inside
-``FlashAttention``, whose backward is the plain version's
+A DTensor (the sharded train step) takes ``kernels/local.py``: the same
+dispatch on its local shards through ``local_map``.  CPU tensors take
+the plain version (``ref.py``) under plain autograd; CUDA tensors take
+the Hopper kernel through its registered op
+(``kernel.py::flash_attention_op``, a fake CUDA tensor its fake
+implementation), or the call raises.  Nothing falls back from one to the
+other.  Where grad is enabled and an input requires it, the kernel runs
+inside ``FlashAttention``, whose backward is the plain version's
 (``kernels/autograd.py``).  The JAX package's TPU knobs (``bq``, ``bk``,
 ``use_pallas``, ``interpret``) have no meaning on Hopper and are not
 taken.
@@ -17,14 +18,14 @@ import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
 from repro_torch.kernels.local import attention_local, is_dtensor
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["FlashAttention", "attention"]
 
 
 def _kernel(q, k, v, causal):
-    return flash_attention_cuda(q, k, v, causal=causal)
+    return flash_attention_op(q, k, v, causal)
 
 
 class FlashAttention(torch.autograd.Function):

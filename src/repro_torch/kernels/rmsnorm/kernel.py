@@ -10,7 +10,10 @@ The wrapper checks what the kernel takes and raises on anything else
 (an input that requires grad included: ``kernels/autograd.py``),
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch is refused, and counts launches in
-its ``launches`` attribute.
+its ``launches`` attribute.  ``rmsnorm_residual_op`` is the same
+launch as the registered op ``repro_torch::rmsnorm_residual``, with a
+fake implementation that allocates only the outputs (``check_args``
+first) and ``rmsnorm_flops`` as its FLOP formula.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.autograd import check_no_grad
@@ -54,15 +58,11 @@ def rmsnorm_flops(n: int, d: int) -> int:
     return 5 * n * d
 
 
-def rmsnorm_residual_cuda(
-    x: torch.Tensor,        # (N, d) f32 or bf16, CUDA
-    res: torch.Tensor,      # (N, d) same dtype
-    scale: torch.Tensor,    # (d,) f32
-    eps: float = 1e-5,
-):
-    """(normed(x + res), x + res) on the card, both (N, d) in x's
-    dtype."""
-    check_no_grad("rmsnorm_residual_cuda", x, res, scale)
+def check_args(x: torch.Tensor, res: torch.Tensor,
+               scale: torch.Tensor) -> None:
+    """Raise unless the kernel takes (x, res, scale): CUDA tensors of the
+    shapes, dtypes and layout it reads.  The registered op's fake
+    implementation checks the same."""
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_residual_cuda needs CUDA tensors, "
                          f"got {x.device}")
@@ -87,6 +87,19 @@ def rmsnorm_residual_cuda(
     if 4 * d > MAX_SMEM_BYTES:
         raise ValueError(f"d={d} needs {4 * d} B of shared memory per CTA, "
                          f"more than {MAX_SMEM_BYTES}")
+
+
+def rmsnorm_residual_cuda(
+    x: torch.Tensor,        # (N, d) f32 or bf16, CUDA
+    res: torch.Tensor,      # (N, d) same dtype
+    scale: torch.Tensor,    # (d,) f32
+    eps: float = 1e-5,
+):
+    """(normed(x + res), x + res) on the card, both (N, d) in x's
+    dtype."""
+    check_no_grad("rmsnorm_residual_cuda", x, res, scale)
+    check_args(x, res, scale)
+    n, d = x.shape
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     if n == 0 or d == 0:
@@ -105,3 +118,31 @@ def rmsnorm_residual_cuda(
 
 
 rmsnorm_residual_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel as a registered op
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_residual", mutates_args=(),
+                         device_types="cuda")
+def rmsnorm_residual_op(x: torch.Tensor, res: torch.Tensor,
+                        scale: torch.Tensor,
+                        eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rmsnorm_residual_cuda`` through PyTorch's dispatcher, so that a
+    dispatch mode, the profiler and a fake tensor see it: the ctypes
+    launch alone is invisible to them.  The dispatch (``ops.py``) calls
+    this on CUDA tensors."""
+    return rmsnorm_residual_cuda(x, res, scale, eps)
+
+
+@rmsnorm_residual_op.register_fake
+def _fake(x, res, scale, eps):
+    check_args(x, res, scale)
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm_residual)
+def _flops(x_shape, res_shape, scale_shape, eps, *args, **kwargs) -> int:
+    return rmsnorm_flops(*x_shape)

@@ -1,13 +1,14 @@
 """Dispatch of the fused residual-add + RMSNorm by the device of the
 tensors.
 
-A DTensor (the sharded train step) takes ``kernels/local.py``: the
-same dispatch on its local shards through ``local_map``.  CPU tensors
-take the plain version (``ref.py``) under plain autograd;
-CUDA tensors take the Hopper kernel (``kernel.py::rmsnorm_residual_cuda``),
-or the call raises.  Nothing falls back from one to the other.  Where
-grad is enabled and an input requires it, the kernel runs inside
-``RMSNormResidual``, whose backward is the plain version's
+A DTensor (the sharded train step) takes ``kernels/local.py``: the same
+dispatch on its local shards through ``local_map``.  CPU tensors take
+the plain version (``ref.py``) under plain autograd; CUDA tensors take
+the Hopper kernel through its registered op
+(``kernel.py::rmsnorm_residual_op``, a fake CUDA tensor its fake
+implementation), or the call raises.  Nothing falls back from one to the
+other.  Where grad is enabled and an input requires it, the kernel runs
+inside ``RMSNormResidual``, whose backward is the plain version's
 (``kernels/autograd.py``).  The JAX package's TPU knobs (``bn``,
 ``use_pallas``, ``interpret``) have no meaning on Hopper and are not
 taken.
@@ -18,14 +19,14 @@ import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
 from repro_torch.kernels.local import is_dtensor, rmsnorm_local
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_residual_cuda
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_residual_op
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_residual_ref
 
 __all__ = ["RMSNormResidual", "rmsnorm_residual"]
 
 
 def _kernel(x, res, scale, eps):
-    return rmsnorm_residual_cuda(x, res, scale.to(torch.float32), eps)
+    return rmsnorm_residual_op(x, res, scale.to(torch.float32), eps)
 
 
 class RMSNormResidual(torch.autograd.Function):

@@ -10,16 +10,18 @@ block of heads (``launch_rule``).  bf16 runs on the tensor cores
 bound by memory; ``ssd_bytes`` and ``ssd_flops`` give its least traffic
 and work.
 
-The wrapper checks what the kernel takes and raises on anything else
-(an input that requires grad included: ``kernels/autograd.py``),
-allocates the outputs, launches on PyTorch's current stream without
-synchronising, raises if the launch is refused, and counts launches in
-its ``launches`` attribute.  Inputs may carry any strides with a
-contiguous last axis (in bf16 16-byte aligned, strides a multiple of
-8): the model's (B, nc, Q, H, ·) activations go in as (B·nc, H, Q, ·)
-views, and B and C of one group as a stride-0 head axis.  y is
-(BC, H, Q, P) laid out as (BC, Q, H, P) in memory, so the model's
-transpose back is free; the state is contiguous f32.
+The wrapper checks what the kernel takes and raises on anything else (an
+input that requires grad included: ``kernels/autograd.py``), allocates
+the outputs, launches on PyTorch's current stream without synchronising,
+raises if the launch is refused, and counts launches in its ``launches``
+attribute (``ssd_chunk_op`` is the same launch as the registered op
+``repro_torch::ssd_chunk``, its fake implementation allocating only the
+outputs, its FLOP formula ``ssd_flops``).  Inputs may carry any strides
+with a contiguous last axis (in bf16 16-byte aligned, strides a multiple
+of 8): the model's (B, nc, Q, H, ·) activations go in as (B·nc, H, Q, ·)
+views, and B and C of one group as a stride-0 head axis.  y is (BC, H, Q,
+P) laid out as (BC, Q, H, P) in memory, so the model's transpose back is
+free; the state is contiguous f32.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.autograd import check_no_grad
@@ -129,15 +132,12 @@ def ssd_flops(bc: int, h: int, q: int, n: int, p: int) -> int:
     return 2 * bc * h * (pairs * (n + p) + q * n * p)
 
 
-def ssd_chunk_cuda(
-    xdt: torch.Tensor,    # (BC, H, Q, P) f32 or bf16, CUDA
-    b: torch.Tensor,      # (BC, H, Q, N) same dtype
-    c: torch.Tensor,      # (BC, H, Q, N) same dtype
-    csum: torch.Tensor,   # (BC, H, Q) f32
-):
-    """(y_intra (BC, H, Q, P) in xdt's dtype, state (BC, H, N, P) f32)
-    on the card."""
-    check_no_grad("ssd_chunk_cuda", xdt, b, c, csum)
+def check_args(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               csum: torch.Tensor) -> None:
+    """Raise unless the kernel takes (xdt, b, c, csum): CUDA tensors of
+    the shapes, dtypes and sizes it runs, xdt, b and c contiguous along
+    their last axis.  The registered op's fake implementation checks
+    the same; the wrapper checks the alignment of the data beside."""
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_chunk_cuda needs CUDA tensors, got "
                          f"{xdt.device}")
@@ -175,6 +175,21 @@ def ssd_chunk_cuda(
     for name, t in (("xdt", xdt), ("b", b), ("c", c)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along its last axis")
+
+
+def ssd_chunk_cuda(
+    xdt: torch.Tensor,    # (BC, H, Q, P) f32 or bf16, CUDA
+    b: torch.Tensor,      # (BC, H, Q, N) same dtype
+    c: torch.Tensor,      # (BC, H, Q, N) same dtype
+    csum: torch.Tensor,   # (BC, H, Q) f32
+):
+    """(y_intra (BC, H, Q, P) in xdt's dtype, state (BC, H, N, P) f32)
+    on the card."""
+    check_no_grad("ssd_chunk_cuda", xdt, b, c, csum)
+    check_args(xdt, b, c, csum)
+    BC, H, Q, P = xdt.shape
+    N = b.shape[-1]
+    for name, t in (("xdt", xdt), ("b", b), ("c", c)):
         # the bf16 kernel's TMA maps need 16-byte aligned bases and
         # strides
         if xdt.dtype == torch.bfloat16 and (
@@ -204,3 +219,33 @@ def ssd_chunk_cuda(
 ssd_chunk_cuda.launches = 0
 #: the ``launch_rule`` dict of the last launch made
 ssd_chunk_cuda.last_launch = None
+
+
+# ---------------------------------------------------------------------------
+# The kernel as a registered op
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=(),
+                         device_types="cuda")
+def ssd_chunk_op(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 csum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_chunk_cuda`` through PyTorch's dispatcher, so that a
+    dispatch mode, the profiler and a fake tensor see it: the ctypes
+    launch alone is invisible to them.  The dispatch (``ops.py``) calls
+    this on CUDA tensors."""
+    return ssd_chunk_cuda(xdt, b, c, csum)
+
+
+@ssd_chunk_op.register_fake
+def _fake(xdt, b, c, csum):
+    check_args(xdt, b, c, csum)
+    BC, H, Q, P = xdt.shape
+    y = xdt.new_empty((BC, Q, H, P)).transpose(1, 2)
+    return y, xdt.new_empty((BC, H, b.shape[-1], P), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def _flops(xdt_shape, b_shape, c_shape, csum_shape, *args, **kwargs) -> int:
+    BC, H, Q, P = xdt_shape
+    return ssd_flops(BC, H, Q, b_shape[-1], P)

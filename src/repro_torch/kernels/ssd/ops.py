@@ -1,15 +1,15 @@
 """Dispatch of the SSD intra-chunk block by the device of the tensors.
 
-A DTensor (the sharded train step) takes ``kernels/local.py``: the
-same dispatch on its local shards through ``local_map``.  CPU tensors
-take the plain version (``ref.py``) under plain autograd;
-CUDA tensors take the Hopper kernel (``kernel.py::ssd_chunk_cuda``), or
-the call raises.  Nothing falls back from one to the other.  Where grad
-is enabled and an input requires it, the kernel runs inside
-``SSDChunk``, whose backward is the plain version's
-(``kernels/autograd.py``).  The JAX package's TPU knobs
-(``use_pallas``, ``interpret``) have no meaning on Hopper and are not
-taken.
+A DTensor (the sharded train step) takes ``kernels/local.py``: the same
+dispatch on its local shards through ``local_map``.  CPU tensors take
+the plain version (``ref.py``) under plain autograd; CUDA tensors take
+the Hopper kernel through its registered op
+(``kernel.py::ssd_chunk_op``, a fake CUDA tensor its fake
+implementation), or the call raises.  Nothing falls back from one to the
+other.  Where grad is enabled and an input requires it, the kernel runs
+inside ``SSDChunk``, whose backward is the plain version's
+(``kernels/autograd.py``).  The JAX package's TPU knobs (``use_pallas``,
+``interpret``) have no meaning on Hopper and are not taken.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels.autograd import needs_graph, plain_backward
 from repro_torch.kernels.local import is_dtensor, ssd_local
-from repro_torch.kernels.ssd.kernel import ssd_chunk_cuda
+from repro_torch.kernels.ssd.kernel import ssd_chunk_op
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
 __all__ = ["SSDChunk", "ssd_chunk"]
@@ -51,6 +51,6 @@ def ssd_chunk(xdt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return ssd_chunk_ref(xdt, b, c, csum)
     if xdt.device.type == "cuda":
         if needs_graph(xdt, b, c, csum):
-            return SSDChunk.apply(xdt, b, c, csum, ssd_chunk_cuda)
-        return ssd_chunk_cuda(xdt, b, c, csum)
+            return SSDChunk.apply(xdt, b, c, csum, ssd_chunk_op)
+        return ssd_chunk_op(xdt, b, c, csum)
     raise ValueError(f"ssd_chunk: no kernel for device {xdt.device}")

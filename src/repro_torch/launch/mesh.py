@@ -9,7 +9,9 @@ world has exactly that many ranks.  ``AbstractMesh``
 (``sharding/rules.py``) holds those shapes without ranks, for resolving
 rules.
 
-``make_host_mesh`` needs a process group.  Where none is initialised
+``make_mesh`` in a fake world (the dry run's fake process group of 256
+or 512 ranks) builds a ``cuda`` mesh without a card: its tensors are
+fake.  ``make_host_mesh`` needs a process group.  Where none is initialised
 it starts a one-rank group itself — NCCL on the card, gloo on the CPU —
 unless the environment names a bigger world (``WORLD_SIZE``), which the
 launcher must then initialise.  On the card's machine (one H100) the
@@ -52,12 +54,23 @@ def ensure_process_group(device="cuda") -> None:
                             world_size=1)
 
 
+def fake_world() -> bool:
+    """True where the default group is a fake one (backend ``"fake"``,
+    the dry run's, ``launch/dryrun.py``): its ranks hold fake tensors."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
               device="cuda") -> DeviceMesh:
     """A mesh of ``shape`` with axis names ``axes`` over the first
-    ``prod(shape)`` ranks (all of them: a device mesh spans the world)."""
-    dev = resolve_device(device)
-    ensure_process_group(dev)
+    ``prod(shape)`` ranks (all of them: a device mesh spans the world).
+    In a fake world the mesh is on ``device`` whether or not there is a
+    card: its tensors hold no data."""
+    if fake_world():
+        dev = torch.device(device)
+    else:
+        dev = resolve_device(device)
+        ensure_process_group(dev)
     if _n(shape) != dist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} needs {_n(shape)} ranks, the "
                          f"world has {dist.get_world_size()}")

@@ -57,9 +57,6 @@ from torch.distributed.tensor import (
     distribute_tensor,
 )
 from torch.distributed.tensor import zeros as dtensor_zeros
-from torch.distributed.tensor._utils import (
-    compute_local_shape_and_global_offset,
-)
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.params import map_specs, tree_zip
@@ -447,6 +444,27 @@ def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def local_shape_and_offset(shape: Sequence[int], mesh,
+                           placements: Sequence) -> tuple[list, list]:
+    """This rank's shard of a tensor of global ``shape`` at
+    ``placements`` on ``mesh``: (local shape, global offset), as
+    ``torch.distributed.tensor``'s ``compute_local_shape_and_global_offset``
+    gives them (``torch.chunk``'s split, mesh dims in order), computed in
+    Python: no tensor op, so a fake tensor mode sees nothing to run."""
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for j, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        d, m = p.dim % len(shape), mesh.size(j)
+        chunk = -(-size[d] // m)
+        lo = min(coord[j] * chunk, size[d])
+        off[d] += lo
+        size[d] = min(chunk, size[d] - lo)
+    # an empty shard's offset is the dim's global size, as torch's
+    return size, [o if s else g for o, s, g in zip(off, size, shape)]
+
+
 def write_along(dst: torch.Tensor, src: torch.Tensor, start: int,
                 dim: int) -> None:
     """``dst`` over ``[start, start + n)`` of tensor dim ``dim`` set to
@@ -463,7 +481,7 @@ def write_along(dst: torch.Tensor, src: torch.Tensor, start: int,
     want = tuple(Replicate() if isinstance(p, Shard) and p.dim % dst.ndim == d
                  else p for p in dst.placements)
     src = place(src.to(dst.dtype), want, dst.device_mesh)
-    shape, offset = compute_local_shape_and_global_offset(
+    shape, offset = local_shape_and_offset(
         dst.shape, dst.device_mesh, dst.placements)
     lo = offset[d]
     a, b = max(start, lo), min(start + n, lo + shape[d])

@@ -226,3 +226,25 @@ def test_sharded_serving_and_compression_modules_are_held_to_no_jax(name):
     assert path in PORT_FILES
     test_no_jax_or_repro_imports(path)
     assert "def shard_map" not in path.read_text()
+
+
+#: the launch layer's cost tools and the input specs they read
+LAUNCH = ["launch/hw.py", "launch/roofline.py", "launch/op_cost.py",
+          "launch/dryrun.py", "launch/perf.py", "configs/shapes.py"]
+
+
+@pytest.mark.parametrize("name", LAUNCH)
+def test_launch_cost_modules_are_held_to_no_jax(name):
+    """Each is among the files held to no JAX and no ``repro`` import
+    above; none sets ``XLA_FLAGS`` (the JAX package's dry run and perf
+    harness do, at import)."""
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    test_no_jax_or_repro_imports(path)
+    assert "XLA_FLAGS" not in path.read_text()
+
+
+def test_artifacts_are_not_committed():
+    """The dry run and the perf harness write under ``artifacts/``."""
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "artifacts/" in lines
