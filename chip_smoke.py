@@ -290,6 +290,28 @@ Phases, each printing one JSON line:
     on the host, ``python -m repro_torch.launch.dryrun`` of ``yi-6b ×
     decode_32k × single`` on a fake 256-rank group: its roofline and
     peak GiB a rank.
+22g. ``lint``: the port's lint suite (``repro_torch.analysis``) held to
+    the card, last of the phases.  It lints the default paths and
+    requires no finding; calls each library's shared-memory size query
+    (``wave_block_smem_bytes``, ``flash_smem_query``,
+    ``ssd_smem_query``, ``rmsnorm_smem_query``) through ``ctypes`` at
+    every configuration ``smem-budget`` checks, and requires query =
+    Python formula = the rule's static value; requires each kernel
+    instantiation's ptxas ``bytes smem`` (the ``<library>.log`` that
+    ``kernels/build.py`` keeps) to equal the rule's count of its static
+    ``__shared__`` bytes, and ``MAX_SMEM_BYTES`` to equal the card's
+    ``shared_memory_per_block_optin``; and runs four paths under
+    ``torch.cuda.set_sync_debug_mode("warn")`` — the FWI block runner
+    at 600², 4 shots, 8 blocks; Yi-6B at full width, 2 layers, one 4 ×
+    512 prefill and 4 decode steps; mamba2-370m at full width, 2
+    layers, one 4 × 2048 prefill and 2 decode steps; one
+    ``build_train_step`` step of Yi-6B and of mamba2-370m at full width,
+    2 layers, B = 2, S = 256 (the three autograd Functions) — each once
+    before, unwatched, so caches and libraries are built outside the
+    watched run.  Every sync PyTorch reports is recorded by its
+    innermost frame in ``src/repro_torch``; each must be a ``host-sync``
+    finding or a suppressed line, and none may come from outside the
+    port.  Held to 30 s.
 23. ``kernels``: ``{"kernels": [...]}``, one entry per hand-written
     kernel with its time, launches, error, bound and plain-version time
     (the block kernel's launches in the session, in calibration, in
@@ -807,6 +829,8 @@ def main() -> int:
     # 22f. the launch layer's cost tools
     lcost = run_launch_cost(dev)
     emit(lcost)
+    # 22g. the lint suite, held to the card
+    emit(run_lint(dev, smi))
 
     lm_entries = lm_kernel_entries(dev, bw, f32, bf16, rms, att, served)
     lm_entries[1]["launches_mamba"] = mserved["launches"]["rmsnorm_residual"]
@@ -5898,6 +5922,288 @@ def run_launch_cost(dev):
         "log_tail": log.strip().splitlines()[-1:]}
     card["seconds"] = time.monotonic() - t_start
     return card
+
+
+#: phase lint: its time limit, and the paths it watches for syncs
+LINT_LIMIT_S = 30.0
+LINT_SERVE = (4, 512, 4)          # Yi-6B: batch, prompt, decode steps
+LINT_MAMBA = (4, 2048, 2)         # mamba2-370m: batch, prompt, decode steps
+LINT_TRAIN = (2, 256)             # build_train_step: batch, sequence
+LINT_FWI_BLOCKS = 8
+
+
+def _ptxas_entries(log: str) -> list[tuple[str, int]]:
+    """(mangled kernel, static shared bytes) of every entry function in
+    an nvcc ``-Xptxas -v`` report."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry and "Used" in line and "registers" in line:
+            m = re.search(r"(\d+) bytes smem", line)
+            out.append((entry, int(m.group(1)) if m else 0))
+            entry = None
+    return out
+
+
+def _demangle_kernel(mangled: str) -> tuple[str, list]:
+    """(name, template arguments) of a mangled kernel in a namespace,
+    such as ``_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELi128EEEv...``:
+    ints from ``Li<n>E``, ``float`` from ``f``, a class by its name."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    names = []
+
+    def ident(i):
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        return mangled[j:j + n], j + n
+
+    while mangled[i].isdigit():
+        name, i = ident(i)
+        names.append(name)
+    targs = []
+    if mangled[i] == "I":
+        i += 1
+        while mangled[i] != "E":
+            if mangled[i] == "L":
+                j = mangled.index("E", i)
+                targs.append(int(mangled[i + 2:j]))
+                i = j + 1
+            elif mangled[i].isdigit():
+                name, i = ident(i)
+                targs.append(name)
+            elif mangled[i] == "f":
+                targs.append("float")
+                i += 1
+            else:
+                raise SmokeFailure(f"cannot read template arguments of "
+                                   f"{mangled}")
+    return names[-1], targs
+
+
+def lint_sizes(dev) -> dict:
+    """Phase lint, part 2: the libraries' size queries against the
+    Python formulas and ``smem-budget``'s static values, ptxas' static
+    shared memory against the rule's count."""
+    import ctypes
+
+    from repro_torch.analysis.csrc import CudaSource
+    from repro_torch.analysis.smem_budget import (
+        launch_table,
+        static_smem_bytes,
+    )
+    from repro_torch.kernels import build
+
+    kdir = SRC / "repro_torch" / "kernels"
+    libs = build.build_all()
+    rows = launch_table(kdir)
+    checked: dict[str, int] = {}
+    for row in rows:
+        stem = Path(row["source"]).stem
+        qname, keys = row["query"]
+        fn = getattr(ctypes.CDLL(str(libs[stem])), qname)
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [ctypes.c_int] * len(keys)
+        got = fn(*[int(row["config"][k]) for k in keys])
+        check(got == row["python"] == row["dynamic"],
+              f"{stem} {row['launch']} at {row['config']}: query {got}, "
+              f"Python {row['python']}, rule {row['dynamic']}")
+        checked[qname] = checked.get(qname, 0) + 1
+    ptxas = []
+    for stem, lib in sorted(libs.items()):
+        src = CudaSource(build.sources()[stem])
+        for mangled, smem in _ptxas_entries(
+                lib.with_suffix(".log").read_text()):
+            name, targs = _demangle_kernel(mangled)
+            want = static_smem_bytes(src, name, targs)
+            check(smem == want, f"{stem} {name}<{targs}>: ptxas {smem} B "
+                                f"static shared memory, the rule {want}")
+            ptxas.append({"kernel": f"{name}<{', '.join(map(str, targs))}>",
+                          "ptxas_smem": smem, "rule_smem": want})
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    check(optin == build.MAX_SMEM_BYTES,
+          f"the card's opt-in shared memory a block is {optin}, "
+          f"MAX_SMEM_BYTES {build.MAX_SMEM_BYTES}")
+    return {"queries": checked, "configurations": len(rows),
+            "ptxas": ptxas, "smem_per_block_optin": optin}
+
+
+def _sync_paths(dev):
+    """Phase lint, part 3: the four watched paths, each as (name, setup
+    -> run) with the setup unwatched."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, dense_blocks, get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.fwi.solver import FWIConfig, make_block_runner
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import serve_step
+    from repro_torch.runtime import train_step as ts
+
+    def fwi():
+        cfg = FWIConfig()
+        run = make_block_runner(cfg, device=dev)
+        p = torch.zeros((cfg.n_shots, cfg.nz, cfg.nx), device=dev)
+        steps = LINT_FWI_BLOCKS * run.k
+        return lambda: run(p, p.clone(), 0, steps)
+
+    def serve(arch, B, P, steps):
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(
+            cfg, num_layers=2, blocks=(dataclasses.replace(
+                cfg.blocks[0], repeat=2),) if arch != "yi-6b"
+            else dense_blocks(2))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(M.schema(cfg), gen, dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                                generator=gen)
+        prefill = serve_step.build_prefill(cfg, max_seq=P + steps)
+        decode = serve_step.build_decode(cfg)
+
+        def go():
+            lg, cache = prefill(params, {"tokens": prompts})
+            for i in range(steps):
+                tok = torch.argmax(lg, -1)
+                lg, cache = decode(params, cache, {"token": tok,
+                                                   "pos": P + i})
+            return lg
+        return go
+
+    def train(arch):
+        cfg = _train_cfg(arch, layers=2)
+        B, S = LINT_TRAIN
+        run = RunConfig(loss_chunk=256, remat="full")
+        opt = make_optimizer(cfg.optimizer)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(M.train_schema(cfg), gen, dev)
+        state = ts.new_state(params, opt)
+        batch = SyntheticLMPipeline(cfg, ShapeConfig("t", "train", S, B),
+                                    device=dev).batch_at(0)
+        step = ts.build_train_step(cfg, run, opt)
+        return lambda: step(state, batch)
+
+    return [("fwi_block_runner", fwi),
+            ("yi6b_serve", lambda: serve("yi-6b", *LINT_SERVE)),
+            ("mamba2_serve", lambda: serve("mamba2-370m", *LINT_MAMBA)),
+            ("train_step", lambda: (train("yi-6b"), train("mamba2-370m")))]
+
+
+def _watched(fn) -> dict[str, int]:
+    """{site: syncs} PyTorch's sync-debug mode reports while ``fn``
+    runs, each by its innermost frame in ``src/repro_torch`` (``outside:
+    file:line`` where the port has none on the stack)."""
+    import traceback
+    import warnings
+
+    port = str(SRC / "repro_torch") + "/"
+    sites: dict[str, int] = {}
+    active = [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not active[0] or "synchroniz" not in str(message):
+            return
+        where = None
+        if str(filename).startswith(port):
+            where = f"{Path(filename).relative_to(ROOT)}:{lineno}"
+        else:
+            for fr in reversed(traceback.extract_stack()):
+                if fr.filename.startswith(port):
+                    where = f"{Path(fr.filename).relative_to(ROOT)}:" \
+                            f"{fr.lineno}"
+                    break
+        if where is None:
+            where = "outside: " + " < ".join(
+                f"{Path(fr.filename).name}:{fr.lineno}"
+                for fr in reversed(traceback.extract_stack()[-8:-1]))
+        sites[where] = sites.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        active[0] = True
+        try:
+            fn()
+        finally:
+            active[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def lint_syncs(dev) -> dict:
+    """Phase lint, part 3: every sync PyTorch reports on the watched
+    paths is a ``host-sync`` finding or a suppressed line."""
+    from repro_torch.analysis import Analyzer, HostSyncRule
+    from repro_torch.analysis.__main__ import default_paths
+
+    analyzer = Analyzer([HostSyncRule()], ROOT)
+    ctxs = analyzer.load(default_paths(ROOT))
+    by_rel = {c.rel: c for c in ctxs}
+    flagged = {f"{f.file}:{f.line}" for rule in analyzer.rules
+               for f in rule.run(ctxs, ROOT)}
+    paths, missed = {}, {}
+    for name, make in _sync_paths(dev):
+        made = make()
+        runs = made if isinstance(made, tuple) else (made,)
+        for run in runs:                 # unwatched: caches, libraries
+            run()
+        sites: dict[str, int] = {}
+        for run in runs:
+            for k, v in _watched(run).items():
+                sites[k] = sites.get(k, 0) + v
+        del made, runs
+        torch.cuda.empty_cache()
+        paths[name] = sites
+        for site in sites:
+            rel, _, line = site.rpartition(":")
+            ctx = by_rel.get(rel)
+            covered = site in flagged or (
+                ctx is not None and ctx.suppressed("host-sync", int(line)))
+            if not covered:
+                missed.setdefault(name, []).append(site)
+        print(json.dumps({"lint_sync_sites": name, "sites": sites}),
+              flush=True)
+    check(not missed, f"syncs host-sync neither flags nor suppresses: "
+                      f"{missed}")
+    return {"paths": paths, "static_findings": sorted(flagged)}
+
+
+def run_lint(dev, smi) -> dict:
+    """Phase lint (module docstring, 22g)."""
+    from repro_torch.analysis import Analyzer, default_rules, render_human
+    from repro_torch.analysis.__main__ import default_paths
+
+    t0 = time.monotonic()
+    analyzer = Analyzer(default_rules(), ROOT)
+    ctxs = analyzer.load(default_paths(ROOT))
+    findings = analyzer.run(ctxs)
+    lint_s = time.monotonic() - t0
+    check(not findings, "lint findings:\n" + render_human(findings))
+    t1 = time.monotonic()
+    sizes = lint_sizes(dev)
+    sizes_s = time.monotonic() - t1
+    t2 = time.monotonic()
+    syncs = lint_syncs(dev)
+    syncs_s = time.monotonic() - t2
+    seconds = time.monotonic() - t0
+    check(seconds <= LINT_LIMIT_S,
+          f"phase lint took {seconds:.1f} s, more than {LINT_LIMIT_S}")
+    return {"phase": "lint", "files": len(ctxs),
+            "rules": [r.name for r in analyzer.rules], "findings": 0,
+            "lint_s": lint_s, "sizes": sizes, "sizes_s": sizes_s,
+            "syncs": syncs, "syncs_s": syncs_s, "seconds": seconds,
+            "nvidia_smi": smi}
 
 
 def _launch_cost_card(dev) -> dict:

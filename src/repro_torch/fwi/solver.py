@@ -162,6 +162,8 @@ def _block_amps(mf: ModelFields, t0: int, kk: int,
     if t0 + kk <= timesteps:
         return mf.amps[t0: t0 + kk]
     idx = np.clip(np.arange(t0, t0 + kk), 0, timesteps - 1)
+    # lint: disable=host-sync -- only a block that runs past the last
+    # timestep takes this branch: k indices, once a run
     return mf.amps[torch.from_numpy(idx).to(mf.amps.device)]
 
 

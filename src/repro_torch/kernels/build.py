@@ -12,7 +12,8 @@ library never loads.  Source stems are unique across the kernels, so a
 library is named by its stem alone.
 
 nvcc's output (the ptxas register and shared-memory report) is kept
-beside each library as ``<library>.log``.  A failed build raises
+beside each library as ``<library>.log``.  ``MAX_SMEM_BYTES`` is the
+shared memory one CTA may take on that architecture.  A failed build raises
 ``BuildError`` with that output.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -32,6 +33,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+#: shared memory one CTA may use on the architecture the sources are
+#: built for (sm_90: 227 KB, static and dynamic together, with the
+#: opt-in attribute the launches set); every wrapper's check and the
+#: stencil tuner's filter read this one value
+MAX_SMEM_BYTES = 232448
 
 
 class BuildError(RuntimeError):

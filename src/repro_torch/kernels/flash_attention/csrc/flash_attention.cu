@@ -897,6 +897,27 @@ int flash_attention_launch(
     }
 }
 
+// The dynamic shared memory flash_attention_launch requests at head dims
+// (dqk, dv): the bf16 kernel's (bf16 != 0) or the f32 kernel's; 0 for a
+// pair it does not take.
+size_t flash_smem_query(int dqk, int dv, int bf16)
+{
+    switch (dqk * 1000 + dv) {
+    case 32032:
+        return bf16 ? fa_smem_bytes<32, 32>() : simt_smem_bytes<32, 32>();
+    case 64064:
+        return bf16 ? fa_smem_bytes<64, 64>() : simt_smem_bytes<64, 64>();
+    case 128128:
+        return bf16 ? fa_smem_bytes<128, 128>()
+                    : simt_smem_bytes<128, 128>();
+    case 192128:
+        return bf16 ? fa_smem_bytes<192, 128>()
+                    : simt_smem_bytes<192, 128>();
+    default:
+        return 0;
+    }
+}
+
 const char* flash_attention_error_string(int err)
 {
     return cudaGetErrorString((cudaError_t)err);

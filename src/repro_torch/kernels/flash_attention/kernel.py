@@ -12,7 +12,9 @@ dims (D, Dv) are one of ``HEAD_DIM_PAIRS``: D = Dv ∈ {32, 64, 128}, or
 (192, 128), multi-head latent attention's prefill (``models/mla.py``).
 bf16 runs on
 Hopper's ``wgmma`` tensor-core products fed by a TMA ring of swizzled
-K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores.
+K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores
+(``flash_simt_smem_bytes``); the library's ``flash_smem_query`` returns
+either size as its launch requests it.
 ``attention_flops`` and ``attention_bytes`` give its least work and
 traffic.
 
@@ -80,6 +82,8 @@ def attention_flops(b: int, h: int, s: int, d: int, causal: bool,
 #: the bf16 kernel's K/V ring depth and tile rows (``csrc`` STAGES, BK)
 STAGES = 2
 TILE_ROWS = 64
+#: row stride in floats of the f32 kernel's transposed tiles (``LDT``)
+SIMT_LDT = TILE_ROWS + 4
 
 
 def flash_smem_bytes(d: int, dv: int | None = None) -> int:
@@ -89,6 +93,16 @@ def flash_smem_bytes(d: int, dv: int | None = None) -> int:
     in the source)."""
     dv = d if dv is None else dv
     return 1024 + ((1 + STAGES) * d + STAGES * dv) * TILE_ROWS * 2
+
+
+def flash_simt_smem_bytes(d: int, dv: int | None = None) -> int:
+    """Dynamic shared memory of one f32 CTA: Q transposed (d rows of
+    ``SIMT_LDT`` floats), one buffer that holds K transposed or V (64
+    rows of dv, default d), whichever is larger, and P transposed
+    (``simt_smem_bytes`` in the source)."""
+    dv = d if dv is None else dv
+    return 4 * (d * SIMT_LDT + max(d * SIMT_LDT, TILE_ROWS * dv)
+                + TILE_ROWS * SIMT_LDT)
 
 
 def attention_bytes(b: int, h: int, kh: int, s: int, d: int,

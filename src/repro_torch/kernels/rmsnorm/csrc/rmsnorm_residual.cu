@@ -93,12 +93,19 @@ rmsnorm_residual_kernel(
         out[base + c] = from_f32<T>(hs[c] * r * scale[c]);
 }
 
+// dynamic shared memory of one CTA: the row's f32 h
+// (kernel.py::rmsnorm_smem_bytes)
+size_t rmsnorm_smem_bytes(int d)
+{
+    return (size_t)d * sizeof(float);
+}
+
 template <typename T>
 int launch(const void* x, const void* res, const float* scale, void* out,
            void* h, int n, int d, float eps, cudaStream_t stream)
 {
     static size_t smem_allowed = 48 * 1024;
-    const size_t smem = (size_t)d * sizeof(float);
+    const size_t smem = rmsnorm_smem_bytes(d);
     if (smem > smem_allowed) {
         cudaError_t e = cudaFuncSetAttribute(
             rmsnorm_residual_kernel<T>,
@@ -128,6 +135,13 @@ int rmsnorm_residual_launch(
     if (dtype == 1)
         return launch<__nv_bfloat16>(x, res, scale, out, h, n, d, eps, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory rmsnorm_residual_launch requests at row
+// width d.
+size_t rmsnorm_smem_query(int d)
+{
+    return rmsnorm_smem_bytes(d);
 }
 
 const char* rmsnorm_residual_error_string(int err)

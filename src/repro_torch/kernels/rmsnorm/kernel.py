@@ -25,9 +25,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.autograd import check_no_grad
+from repro_torch.kernels.build import MAX_SMEM_BYTES
 
-#: shared memory one CTA may use on Hopper (the row's f32 copy)
-MAX_SMEM_BYTES = 232448
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VOIDP = ctypes.c_void_p
@@ -50,6 +49,13 @@ def rmsnorm_bytes(n: int, d: int, itemsize: int) -> int:
     """Least HBM traffic of one call: read x and res, write out and h,
     read the f32 scale."""
     return 4 * n * d * itemsize + 4 * d
+
+
+def rmsnorm_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one CTA: the row's f32 copy of h
+    (``rmsnorm_smem_bytes`` in the source, which the library's
+    ``rmsnorm_smem_query`` returns)."""
+    return 4 * d
 
 
 def rmsnorm_flops(n: int, d: int) -> int:
@@ -84,9 +90,9 @@ def check_args(x: torch.Tensor, res: torch.Tensor,
     for name, t in (("x", x), ("res", res), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if 4 * d > MAX_SMEM_BYTES:
-        raise ValueError(f"d={d} needs {4 * d} B of shared memory per CTA, "
-                         f"more than {MAX_SMEM_BYTES}")
+    if rmsnorm_smem_bytes(d) > MAX_SMEM_BYTES:
+        raise ValueError(f"d={d} needs {rmsnorm_smem_bytes(d)} B of shared "
+                         f"memory per CTA, more than {MAX_SMEM_BYTES}")
 
 
 def rmsnorm_residual_cuda(

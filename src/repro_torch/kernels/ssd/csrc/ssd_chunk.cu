@@ -1164,6 +1164,14 @@ int ssd_chunk_launch(
                                  heads_per_cta, 0, stream);
 }
 
+// The dynamic shared memory a CTA of ssd_chunk_launch requests at
+// d_state n: the bf16 kernel's (wgmma != 0) with xdt tiles of pt columns
+// and hb warpgroups, or the f32 kernel's at P = pt.
+size_t ssd_smem_query(int n, int pt, int hb, int wgmma)
+{
+    return wgmma ? wg_smem_bytes(n, pt, hb) : simt_smem_bytes(n, pt);
+}
+
 const char* ssd_chunk_error_string(int err)
 {
     return cudaGetErrorString((cudaError_t)err);

@@ -42,6 +42,18 @@ MAX_GRID_YZ = 65535
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of q, n and t a CTA's tiles take
 TILE = 64
+#: the bf16 kernel's xdt tiles are at least this many columns wide: P =
+#: 16 is padded to 32 by TMA's zero fill
+MIN_TILE_P = 32
+#: the bf16 kernel's TMA ring depth and the bf16 parts of the state's
+#: split (``csrc`` STAGES, SPLIT), its bytes of a 64-row, 128-byte
+#: column block (``BLK``) and threads of a warpgroup (``WG``)
+STAGES = 2
+SPLIT = 3
+BLOCK_BYTES = 64 * 128
+WARPGROUP = 128
+#: row stride in floats of the f32 kernel's tiles (``LDT``)
+SIMT_LDT = TILE + 4
 #: the bf16 kernel's design, as chip_smoke.py reports it
 DESIGN = ("wgmma + TMA ring: two heads of a group a y CTA, a warpgroup "
           "each, S = C·Bᵀ once for both (halves swapped through shared "
@@ -106,15 +118,49 @@ def launch_rule(BC: int, H: int, Q: int, N: int, P: int, dtype,
     split of to_end·xdt is done once for them: ``n_tiles`` state CTAs a
     head block.  grid = (y tiles then state tiles, head blocks,
     chunks): the CTAs of one chunk are launched together and share its
-    B, C and xdt in L2."""
+    B, C and xdt in L2.  ``smem_bytes`` is the dynamic shared memory a
+    CTA of that launch requests (``wg_smem_bytes`` at P padded to
+    ``MIN_TILE_P`` in bf16, ``simt_smem_bytes`` in f32; the library's
+    ``ssd_smem_query`` returns it)."""
     hb = 2 if dtype == torch.bfloat16 and hpg > 1 else 1
     q_tiles = -(-Q // TILE)
     n_tiles = hb * -(-N // (TILE * hb))
     head_blocks = -(-H // hb)
+    if dtype == torch.bfloat16:
+        smem = wg_smem_bytes(N, max(P, MIN_TILE_P), hb)
+    else:
+        smem = simt_smem_bytes(N, P)
     return {"heads_per_group": hpg, "heads_per_cta": hb,
             "q_tiles": q_tiles, "n_tiles": n_tiles,
             "head_blocks": head_blocks,
-            "grid": (q_tiles + n_tiles, head_blocks, BC)}
+            "grid": (q_tiles + n_tiles, head_blocks, BC),
+            "smem_bytes": smem}
+
+
+def wg_smem_bytes(n: int, pt: int, hb: int) -> int:
+    """Dynamic shared memory of one bf16 CTA at d_state ``n``, xdt tiles
+    of ``pt`` columns and ``hb`` warpgroups: 1024 bytes of alignment
+    slack and the larger of the y role's (C_q, a ring of B_t and the
+    heads' xdt_t, the S exchange between two warpgroups) and the state
+    role's (a ring of B_t's n blocks and the head's xdt_t, the split's
+    parts) (``wg_smem_bytes`` in the source)."""
+    ncb = -(-n // 64)
+    xt = 64 * pt * 2
+    xch = hb * 16 * WARPGROUP * 4 if hb > 1 else 0
+    y = ncb * BLOCK_BYTES + STAGES * (ncb * BLOCK_BYTES + hb * xt) + xch
+    st = STAGES * (hb * BLOCK_BYTES + xt) + SPLIT * xt
+    return 1024 + max(y, st)
+
+
+def simt_smem_bytes(n: int, p: int) -> int:
+    """Dynamic shared memory of one f32 CTA: the larger of the y role's
+    C and B transposed (n rows of ``SIMT_LDT`` floats each), P
+    transposed, the xdt tile and the cs of q and t, and the state
+    role's B·to_end, the xdt tile and to_end (``simt_smem_bytes`` in
+    the source)."""
+    y = 4 * (2 * n * SIMT_LDT + TILE * SIMT_LDT + TILE * p + 2 * TILE)
+    st = 4 * (TILE * SIMT_LDT + TILE * p + TILE)
+    return max(y, st)
 
 
 def ssd_bytes(bc: int, h: int, q: int, n: int, p: int, itemsize: int,

@@ -282,6 +282,15 @@ wave_block_shots_kernel(
     }
 }
 
+// dynamic shared memory of one CTA: two buffers of the window's rows in
+// whole strips of R + 2 HALO rows (kernel.py::smem_bytes)
+template <int R>
+size_t block_smem_bytes(int k, int tz, int tx)
+{
+    const int wz = tz + 2 * k * HALO, wx = tx + 2 * k * HALO;
+    return 2 * (size_t)(window_rows<R>(wz) + 2 * HALO) * wx * sizeof(float);
+}
+
 template <int R, int CTAS>
 int launch(const float* p, const float* pp, const float* v2dt2,
            const float* sponge, const float* src_vals, int sv_stride,
@@ -293,9 +302,7 @@ int launch(const float* p, const float* pp, const float* v2dt2,
     const int threads = wx / 2 * ((wz + R - 1) / R);
     if (tx % 2 || groups < 1 || threads > Bounds<R, CTAS>::threads)
         return (int)cudaErrorInvalidConfiguration;
-    // two buffers of the window's rows in whole strips + 2 HALO rows
-    const size_t smem =
-        2 * (size_t)(window_rows<R>(wz) + 2 * HALO) * wx * sizeof(float);
+    const size_t smem = block_smem_bytes<R>(k, tz, tx);
     static size_t smem_allowed = 48 * 1024;
     auto* fn = wave_block_shots_kernel<R, CTAS>;
     if (smem > smem_allowed) {
@@ -334,6 +341,16 @@ int wave_block_shots_launch(
     if (rows == 8 && ctas == 2) return launch<8, 2>(WB_ARGS);
 #undef WB_ARGS
     return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory wave_block_shots_launch requests for a
+// (tz, tx) tile at k steps and `rows` rows per thread (0 for a row
+// count it does not take).
+size_t wave_block_smem_bytes(int k, int tz, int tx, int rows)
+{
+    if (rows == 4) return block_smem_bytes<4>(k, tz, tx);
+    if (rows == 8) return block_smem_bytes<8>(k, tz, tx);
+    return 0;
 }
 
 const char* wave_block_error_string(int err)

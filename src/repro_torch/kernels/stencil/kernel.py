@@ -34,6 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import MAX_SMEM_BYTES
 
 HALO = 2
 #: the block kernel's launch shapes in the order the wrapper prefers
@@ -60,8 +61,6 @@ STEP_VECTORS = (4, 2, 1)
 STEP_THREADS_PER_SM = 384
 #: owned output tile of one block-kernel CTA (rows, columns)
 BLOCK_TILE = (32, 64)
-#: shared memory one CTA may use on Hopper
-MAX_SMEM_BYTES = 232448
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -104,7 +103,9 @@ def smem_bytes(k: int, tz: int = BLOCK_TILE[0], tx: int = BLOCK_TILE[1]
                ) -> int:
     """Dynamic shared memory of one block-kernel CTA: ``WINDOWS`` f32
     buffers, each the window's rows rounded up to whole strips of the
-    launch's rows per thread, with HALO zero rows above and below."""
+    launch's rows per thread, with HALO zero rows above and below
+    (``block_smem_bytes`` in the source, which the library's
+    ``wave_block_smem_bytes`` returns)."""
     wz, wx = window(k, tz, tx)
     rows = (launch_shape(k, tz, tx) or (8,))[0]
     return WINDOWS * (-(-wz // rows) * rows + 2 * HALO) * wx * 4
@@ -235,6 +236,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _check_tile(tile, smem: int) -> tuple[int, int]:
+    # lint: disable=host-sync -- the tile is the caller's host tuple of
+    # ints (a launch argument), never a tensor: int() copies nothing
     tz, tx = (int(v) for v in tile)
     if tz < 1 or tx < 1:
         raise ValueError(f"tile {tile} must be positive")

@@ -81,7 +81,10 @@ def wave_block_shots_ref(
     sv = src_vals.to(p.dtype)
     if sv.ndim == 1:
         sv = sv.expand(ns, k)
+    # lint: disable=host-sync -- the plain version, which the dispatch
+    # (ops.py) runs on CPU tensors only: no copy to a card
     zi = torch.as_tensor(src_z, dtype=torch.long, device=p.device)
+    # lint: disable=host-sync -- the plain version runs on CPU tensors
     xi = torch.as_tensor(src_x, dtype=torch.long, device=p.device)
     zi, xi = zi.expand(ns), xi.expand(ns)
     sidx = torch.arange(ns, device=p.device)

@@ -102,6 +102,8 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    # lint: disable=host-sync -- a real sync, kept: theta, a host float,
+    # is copied to the card at every RoPE table (ROADMAP, Host-bound paths)
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
                                         device=device), exps)
 
@@ -164,6 +166,8 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     inv = np.exp(-np.log(10000.0) * dim / max(d // 2 - 1, 1))
     ang = pos * inv
     table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    # lint: disable=host-sync -- once per (n, d, device): the table is
+    # cached (lru_cache), so a decode step copies nothing
     return torch.from_numpy(table.astype(np.float32)).to(device)
 
 

@@ -345,6 +345,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     h, _ = fused_norm(cfg, params["final_norm"], x, res)
     nll, cnt = chunked_xent(cfg, params, h, _shift_left(tokens),
                             _shift_left(mask), loss_chunk)
+    # lint: disable=host-sync -- a real sync, kept: without MoE layers aux
+    # is a host 0.0 copied to the card once a loss (ROADMAP, Host-bound
+    # paths); with them it is a tensor already and nothing is copied
     aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
     loss = nll / torch.clamp(cnt, min=1.0) + aux
     metrics = {"nll_sum": nll.detach(), "token_count": cnt.detach(),
@@ -425,6 +428,8 @@ def decode_step(cfg: ModelConfig, params, cache, inputs):
     """inputs: {"token": (B,) int, "pos": int}, with "positions" (B, 3)
     for M-RoPE.  Returns (logits (B,V) fp32, cache); the cache is
     updated in place and returned."""
+    # lint: disable=host-sync -- "pos" is a Python int by contract
+    # (launch/serve.py passes P + i): int() of it copies nothing
     token, pos = inputs["token"], int(inputs["pos"])
     x = embed_tokens(cfg, params, token)
     if cfg.pos_embed == "sinusoidal":

@@ -18,6 +18,8 @@ def warmup_cosine(
     min_ratio: float = 0.1,
 ):
     def lr(step):
+        # lint: disable=host-sync -- the train steps pass the state's step,
+        # a tensor on the card already: as_tensor copies nothing
         step = torch.as_tensor(step, dtype=torch.float32,
                                device=_device(step))
         warm = step / max(warmup_steps, 1)

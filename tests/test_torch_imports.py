@@ -248,3 +248,33 @@ def test_artifacts_are_not_committed():
     """The dry run and the perf harness write under ``artifacts/``."""
     lines = (ROOT / ".gitignore").read_text().split()
     assert "artifacts/" in lines
+
+
+#: the lint suite's modules copied from ``repro.analysis`` with only
+#: their imports changed, and the port's own (``csrc``, the port's three
+#: rules, the evaluator it grew, the CLI)
+ANALYSIS_COPIES = ["core", "design_citations", "sim_determinism"]
+ANALYSIS = ANALYSIS_COPIES + ["__init__", "__main__", "async_pairing", "csrc",
+                              "host_sync", "smem_budget", "symeval"]
+
+
+@pytest.mark.parametrize("name", ANALYSIS_COPIES)
+def test_analysis_copies_differ_only_in_their_imports(name):
+    orig = (ROOT / "src/repro/analysis" / f"{name}.py").read_text()
+    port = (ROOT / "src/repro_torch/analysis" / f"{name}.py").read_text()
+    assert port == _ported(orig)
+
+
+@pytest.mark.parametrize("name", ANALYSIS)
+def test_analysis_imports_neither_torch_nor_jax(name):
+    """Each is among the files held to no JAX and no ``repro`` import
+    above, and imports no torch: the rules read sources as text."""
+    path = ROOT / "src" / "repro_torch" / "analysis" / f"{name}.py"
+    assert path in PORT_FILES
+    test_no_jax_or_repro_imports(path)
+    tree = ast.parse(path.read_text())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names]
+    mods += [n.module or "" for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in mods if m.split(".")[0] in ("torch", "numpy")]
