@@ -238,13 +238,38 @@ Phases, each printing one JSON line:
     Functions' ``*_plain_backward`` ranges).  Then 4 steps through
     ``train`` into a checkpoint, its restore by the port's manager and 4
     more steps, against the 8 straight: ``bitwise`` or the largest
-    difference of the state.
+    difference of the state.  Then ``build_train_step(..., donate=True)``
+    against ``donate=False``, 2 steps each from the seeded state: fails
+    unless every leaf is bitwise equal; prints both ways the update's
+    own bytes above the state and the gradients and the whole step's
+    peak.
 22. ``mamba_train``: mamba2-370m whole (48 layers), f32 parameters and
     bf16 compute, B=4, S=2048 in microbatches of 1, remat "full", AdamW,
     4 steps: the same prints and checks.
+22a. ``moe_train``: the train CLI's donated step (``build_session`` on
+    the one-rank NCCL mesh) at full width in bf16, remat "full", each
+    config's optimizer, 2 steps a cell: DeepSeek-V2 cut to 2 layers
+    (5.36 B parameters, 8-bit AdamW, B x S = ``MOE_TRAIN_V2``) and
+    Jamba-v0.1 cut to 3 (3.95 B, AdamW with its f32 master,
+    ``MOE_TRAIN_JAMBA``), at a constant rate of 1e-2.  The first step
+    runs as the step runs it, split to measure: the gradient pass, then
+    the in-place update, before which every leaf's first and last rows
+    (at most 4 Mi elements each) and, where the update cuts the leaf
+    into chunks, the rows about the first chunk boundary are cloned with
+    their gradients, moments and master and run through the plain
+    ``update``; fails unless those rows of the in-place result are
+    bitwise equal, every range with a nonzero gradient has its
+    parameters, master and first moment moved (so an unwritten leaf
+    would show), the update adds at most 2 GiB above the state and the
+    gradients, the losses are finite and each step launches what
+    ``launches_per_pass`` predicts.  Prints the parameters, ``reduced``,
+    the state's bytes (parameters, master, moments, scales), the
+    gradients' bytes, the pass's and the step's peaks, the update's own
+    bytes and the host ms of the pass, the update and the second step.
 22d. ``pipeline_train``: the ``train`` cell (AdamW at a constant 1e-4,
     no loss mask) through ``runtime/pipeline.py``'s GPipe step with its
-    stages in one process, 4 microbatches of 2 rows, 2 steps at 2
+    stages in one process and its state donated (as ``launch/perf.py``
+    builds it), 4 microbatches of 2 rows, 2 steps at 2
     stages and 2 at 4, each from the seeded state, against
     ``build_train_step`` in microbatches of 2: losses within
     ``PIPELINE_LOSS_RTOL``, each leaf's update within
@@ -342,7 +367,8 @@ Phases, each printing one JSON line:
     and ``qwen2vl_serve`` (``launches_whisper``, ``..._per_prefill``,
     ``..._per_step``, ``launches_qwen2vl``, ...); the LM kernels also
     their launches in ``sharded_train``, ``deepseek_sharded_train``,
-    ``sharded_serve``, ``compressed_train`` and ``pipeline_train``
+    ``moe_train``, ``sharded_serve``, ``compressed_train`` and
+    ``pipeline_train``
     (``launches_pipeline_train``, both stage counts' steps) and
     ``elastic_burst`` (``launches_elastic_burst``) and ``launch_cost``
     (``launches_launch_cost``); the norm also the card's launch floor
@@ -814,6 +840,9 @@ def main() -> int:
     emit(strained)
     dstrained = run_deepseek_sharded_train(dev, smi)
     emit(dstrained)
+    # 22a. the donated step: DeepSeek-V2's and Jamba's full-width updates
+    moetrained = run_moe_train(dev, smi)
+    emit(moetrained)
 
     # 22b.-22c. sharded serving and the compressed cross-pod step
     sserved = run_sharded_serve(dev, smi)
@@ -852,6 +881,8 @@ def main() -> int:
             entry["name"], 0)
         entry["launches_deepseek_sharded_train"] = \
             dstrained["launches"].get(entry["name"], 0)
+        entry["launches_moe_train"] = moetrained["launches"].get(
+            entry["name"], 0)
         entry["launches_sharded_serve"] = sserved["launches"].get(
             entry["name"], 0)
         entry["launches_compressed_train"] = ctrained["launches"].get(
@@ -4635,7 +4666,99 @@ def run_train(dev, smi):
     torch.cuda.empty_cache()
     check(math.isfinite(rec["resume"]["state_max_abs_diff"]),
           f"resume diverged: {rec['resume']}")
+    rec["donated"] = _donate_check(dev, cfg, run, shape)
+    check(rec["donated"]["bitwise"],
+          f"donated step vs plain: {rec['donated']['state_max_abs_diff']}")
     return {"phase": "train", **rec}
+
+
+#: steps of the donated step against the plain one (``_donate_check``),
+#: at a constant rate: the train cell's warm-up would run the first at 0
+DONATE_STEPS = 2
+DONATE_LR = 1e-4
+#: elements of each parameter leaf held to the seeded state's
+DONATE_SEEN = 4096
+
+
+def _donate_check(dev, cfg, run, shape) -> dict:
+    """``build_train_step(..., donate=True)`` against ``donate=False``,
+    ``DONATE_STEPS`` steps each from the seeded state: every leaf
+    bitwise; both ways the update's own bytes above the state and the
+    gradients (the first step split into ``compute_grads`` and the
+    update, as the step runs them) and the whole step's peak (the second
+    step) above what the side found allocated, and their host ms.  The
+    plain side's last state stays on the card for the comparison; every
+    parameter leaf of it must have moved from the seeded state (its
+    first ``DONATE_SEEN`` elements), so that a leaf the donated step
+    left unwritten would part from it."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import train_step as ts
+
+    opt = make_optimizer(run.optimizer or cfg.optimizer,
+                         constant(DONATE_LR))
+    sch = ts.state_schema(cfg, run, opt)
+    pipe = SyntheticLMPipeline(cfg, shape, device=dev)
+    batches = [pipe.batch_at(i) for i in range(DONATE_STEPS)]
+
+    def side(donate):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = ts.new_state(ts.init_state(sch, gen, dev), opt)
+        seeded = [t.reshape(-1)[:DONATE_SEEN].clone()
+                  for t in tree_leaves(state["params"])]
+        grads, _ = ts.compute_grads(cfg, run, state["params"], batches[0])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        if donate:
+            ts.donated_update_(opt, grads, state)
+        else:
+            new_p, new_o = opt.update(grads, state["opt"], state["params"],
+                                      state["step"])
+            state = {"params": new_p, "opt": new_o,
+                     "step": state["step"] + 1}
+            del new_p, new_o
+        torch.cuda.synchronize()
+        rec = {"update_added_bytes":
+               torch.cuda.max_memory_allocated(dev) - base,
+               "host_ms_update": (time.monotonic() - t0) * 1e3}
+        del grads
+        step = ts.build_train_step(cfg, run, opt, donate=donate)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        state, m = step(state, batches[1])
+        rec["loss"] = float(m["loss"])
+        rec["host_ms_step"] = (time.monotonic() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        # above what the side found on the card (the plain side's last
+        # state, kept for the comparison, when the donated side runs)
+        rec.update(held_bytes=held, step_peak_bytes=peak - held)
+        rec["leaves_moved"] = sum(
+            not torch.equal(t.reshape(-1)[:DONATE_SEEN], r)
+            for t, r in zip(tree_leaves(state["params"]), seeded))
+        rec["leaves"] = len(seeded)
+        del seeded
+        return state, rec
+
+    plain, prec = side(False)
+    donated, drec = side(True)
+    worst = 0.0
+    for a, b in zip(tree_leaves(donated), tree_leaves(plain)):
+        if not torch.equal(a, b):
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+    del plain, donated
+    torch.cuda.empty_cache()
+    check(prec["leaves_moved"] == prec["leaves"],
+          f"the plain step moved {prec['leaves_moved']} of "
+          f"{prec['leaves']} parameter leaves")
+    return {"steps": DONATE_STEPS, "lr": DONATE_LR,
+            "bitwise": worst == 0.0, "state_max_abs_diff": worst,
+            "plain": prec, "donated": drec}
 
 
 def _resume_check(dev, cfg, run, shape, straight, losses) -> dict:
@@ -4881,9 +5004,10 @@ def run_deepseek_sharded_train(dev, smi):
     each kernel launched as often a pass both ways (the sharded side's
     through its ``local_map`` branch), host ms a pass, peak memory and a
     profile of one pass with the device ms of the three MoE ranges.  The
-    step's update (the config's 8-bit AdamW) is left out: the old and the
-    new state of 5.36 B parameters (43 GB each) and the f32 temporaries
-    of a 1.26 B-element expert leaf do not fit the card's 80 GB."""
+    step's update (the config's 8-bit AdamW) runs in ``moe_train``, the
+    donated step, which writes the one state in place: the old and the
+    new state of 5.36 B parameters (43 GB each) do not fit the card's 80
+    GB together."""
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -5027,7 +5151,7 @@ def run_deepseek_sharded_train(dev, smi):
            "compute_dtype": cfg.compute_dtype, "batch": B, "seq": S,
            "capacity": moe.expert_capacity(B * S, cfg),
            "remat": run.remat, "optimizer": run.optimizer or cfg.optimizer,
-           "update": "not run: the old and new state do not fit",
+           "update": "run in phase moe_train (the donated step)",
            "mesh": list(mesh.shape), "passes": SHARDED_STEPS,
            "tolerance": {"loss_rel": DS_SHARDED_LOSS_RTOL,
                          "grad_share_of_max": DS_SHARDED_GRAD_SHARE},
@@ -5038,6 +5162,340 @@ def run_deepseek_sharded_train(dev, smi):
            "local_map_calls": local, "launches_predicted_per_pass":
            per_pass, "launches": launches, "nvidia_smi": smi}
     return out
+
+
+#: moe_train: the donated step (``launch.train.build_session``) on the
+#: one-rank NCCL mesh, 2 steps a cell, remat "full", each config's own
+#: optimizer: DeepSeek-V2 cut to 2 layers (8-bit AdamW) and Jamba-v0.1
+#: cut to 3 (AdamW with its f32 master), bf16.  (B, S) a cell: V2's
+#: 43.4 GB of state and 10.7 GB of gradients leave room for one row of
+#: 2048 (at 2 rows the pass adds ~32 GB: ~86 GB in all); no microbatch
+#: (an f32 gradient sum of V2 would be 21.4 GB more)
+MOE_TRAIN_STEPS = 2
+MOE_TRAIN_V2 = (1, 2048)
+MOE_TRAIN_JAMBA = (2, 2048)
+#: the update's own memory above the state and the gradients
+MOE_UPDATE_LIMIT = 2 << 30
+#: the cells' optimizer rate, constant: one step moves every bf16
+#: parameter whose gradient is nonzero (a norm scale at 1.0 by more than
+#: 2^-9, a mamba dt bias near -3 by more than 2^-7), so that the sample
+#: (below) tells a written parameter from one left as it was
+MOE_TRAIN_LR = 1e-2
+#: elements a row range of a leaf's sample holds at most: the first
+#: rows along the leading dims, the last rows and, for a leaf that
+#: ``update_`` cuts into chunks, the rows about the first chunk
+#: boundary, cloned before the update and run through the plain
+#: ``update``
+SAMPLE_ELEMENTS = 4 << 20
+
+
+def _placed_state(sch, opt, shardings, dev):
+    """The seeded step-0 state at its placements (``distribute_params``
+    on the one-rank mesh: each DTensor's local tensor is the leaf
+    itself, so a 43 GB state is never held twice)."""
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding.rules import distribute_params
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return distribute_params(
+        ts.new_state(ts.init_state(sch, gen, dev), opt), shardings)
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.inplace import local
+
+    return sum(local(t).nbytes for t in tree_leaves(tree)
+               if t is not None)
+
+
+def _state_bytes(state) -> dict:
+    """The state's bytes: parameters, f32 master, moments (the int8 or
+    f32 codes, or Adafactor's statistics) and int8 scales."""
+    from repro_torch.optim.inplace import leaf_paths, at
+
+    opt = state["opt"]
+    out = {"params": _local_bytes(state["params"]),
+           "master": _local_bytes(opt.get("master", {})),
+           "moments": 0, "scales": 0}
+    for key in ("m", "v", "stats"):
+        for path in leaf_paths(opt.get(key, {})):
+            # an int8 moment is a dict: its codes "q" and their scales
+            codes = at(opt[key], path[:-1])
+            kind = "scales" if "q" in codes and path[-1] != "q" \
+                else "moments"
+            out[kind] += _local_bytes(at(opt[key], path))
+    out["total"] = sum(out.values())
+    return out
+
+
+def _sample_ranges(shape) -> tuple[int, int, list]:
+    """``(lead, rows, ranges)``: a leaf of ``shape`` seen as ``rows``
+    rows of its ``lead`` leading dims, and the row ranges of its sample:
+    the first rows and the last (at most ``SAMPLE_ELEMENTS`` elements
+    each) and, where ``update_`` cuts the leaf into chunks of
+    ``adamw.CHUNK_BYTES`` (as f32), as many rows about the first chunk
+    boundary."""
+    from repro_torch.optim import adamw
+
+    lead = max(len(shape) - 1, 0)
+    last = shape[-1] if len(shape) else 1
+    rows = math.prod(shape) // last
+    take = min(rows, max(1, SAMPLE_ELEMENTS // last))
+    ranges = [(0, take)]
+    if rows > take:
+        ranges.append((rows - take, rows))
+    per = max(1, adamw.CHUNK_BYTES // (4 * last))
+    if rows * last * 4 > adamw.CHUNK_BYTES and rows > per:
+        lo = max(per - max(take // 2, 1), 0)
+        ranges.append((lo, min(lo + max(take, 2), rows)))
+    return lead, rows, ranges
+
+
+def _rows(x, lead: int, rows: int, lo: int, hi: int):
+    """Rows ``lo:hi`` of ``x`` (a leaf of the state or the gradients, a
+    DTensor's local tensor) seen as ``rows`` rows of its ``lead``
+    leading dims, cloned."""
+    from repro_torch.optim.inplace import local
+
+    x = local(x)
+    return x.reshape((rows,) + tuple(x.shape[lead:]))[lo:hi].clone()
+
+
+def _update_sample(state, grads) -> dict:
+    """Of every leaf: the row ranges of ``_sample_ranges``, with their
+    gradients, moments (codes and scales) and master, and the step and
+    count, cloned as they stand before the update: the plain
+    ``update``'s inputs, one entry a range."""
+    from repro_torch.optim.inplace import at, leaf_paths, local
+
+    opt = state["opt"]
+    keys = [k for k in ("m", "v", "master") if k in opt]
+    out = {"params": {}, "grads": {}, "opt": {k: {} for k in keys},
+           "cut": {}}
+    for path in leaf_paths(state["params"]):
+        p = at(state["params"], path)
+        lead, rows, ranges = _sample_ranges(tuple(p.shape))
+        for lo, hi in ranges:
+            name = f"{'/'.join(path)}@{lo}:{hi}"
+            out["cut"][name] = (path, lead, rows, lo, hi)
+            out["params"][name] = _rows(p, lead, rows, lo, hi)
+            out["grads"][name] = _rows(at(grads, path), lead, rows, lo, hi)
+            for k in keys:
+                st = at(opt[k], path)
+                out["opt"][k][name] = (
+                    {j: _rows(v, lead, rows, lo, hi) for j, v in st.items()}
+                    if isinstance(st, dict)
+                    else _rows(st, lead, rows, lo, hi))
+    out["opt"]["count"] = local(opt["count"]).clone()
+    out["step"] = local(state["step"]).clone()
+    return out
+
+
+def _check_update_sample(opt, sample, state) -> dict:
+    """The plain ``update`` of the sample against the same rows of the
+    state the in-place update wrote: every range bitwise.  And every
+    range whose gradient is nonzero somewhere has its parameters, its
+    master and its first moment moved from their clones, so that a leaf
+    the in-place update left unwritten parts from the plain one."""
+    from repro_torch.optim.inplace import at, local
+
+    want_p, want_o = opt.update(sample["grads"], sample["opt"],
+                                sample["params"], sample["step"])
+    worst, n = 0.0, 0
+    kinds = [k for k in ("params", "master", "m")
+             if k == "params" or k in want_o]
+    moved = {k: 0 for k in kinds}
+    live, still = 0, []
+    for name, (path, lead, rows, lo, hi) in sample["cut"].items():
+        pairs = [(at(state["params"], path), want_p[name])]
+        for k in ("m", "v", "master"):
+            if k in want_o:
+                got, w = at(state["opt"][k], path), want_o[k][name]
+                pairs += ([(got[j], w[j]) for j in got]
+                          if isinstance(got, dict) else [(got, w)])
+        for got, w in pairs:
+            got = _rows(got, lead, rows, lo, hi)
+            n += 1
+            if not torch.equal(got, w):
+                worst = max(worst, float((got.double() - w.double())
+                                         .abs().max()))
+        if not bool(sample["grads"][name].any()):
+            continue
+        live += 1
+        for k in kinds:
+            old, new = ((sample["params"][name], want_p[name])
+                        if k == "params" else
+                        (sample["opt"][k][name], want_o[k][name]))
+            if isinstance(old, dict):
+                old, new = old["q"], new["q"]
+            if torch.equal(old, new):
+                still.append(f"{name} {k}")
+            else:
+                moved[k] += 1
+    check(torch.equal(local(state["opt"]["count"]), want_o["count"]),
+          "count after the in-place update")
+    return {"tensors": n, "ranges": len(sample["cut"]),
+            "bitwise": worst == 0.0, "max_abs_diff": worst,
+            "ranges_with_gradient": live, "moved": moved, "still": still}
+
+
+def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
+    """2 steps of ``build_session``'s donated step on ``cfg``, the
+    config's optimizer at ``MOE_TRAIN_LR``: the first as the step runs
+    it, split to measure (``compute_grads``, then ``donated_update_``,
+    with a sample of every leaf held to the plain ``update``), the
+    second through the step itself."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding.rules import axis_rules
+
+    mesh = make_host_mesh(device=dev)
+    check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+    opt, sch, shardings, step_fn, rules = train_mod.build_session(
+        cfg, run, mesh, MOE_TRAIN_STEPS,
+        make_optimizer(run.optimizer or cfg.optimizer,
+                       constant(MOE_TRAIN_LR)))
+    ush = ts.update_shardings(cfg, run, rules) if run.zero1 else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    state = _placed_state(sch, opt, shardings, dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    sizes = _state_bytes(state)
+    pipe = SyntheticLMPipeline(cfg, ShapeConfig("moe_train", "train", S, B),
+                               device=dev)
+    batches = [ts.distribute_batch(pipe.batch_at(i), rules)
+               for i in range(MOE_TRAIN_STEPS)]
+    per_pass = M.launches_per_pass(cfg, "train", remat=run.remat)
+    losses, launches, host_ms = [], [], []
+
+    # step 1, as the donated step runs it, measured part by part
+    _counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    with axis_rules(rules), implicit_replication():
+        grads, metrics = ts.compute_grads(cfg, run, state["params"],
+                                          batches[0], shardings["params"])
+    torch.cuda.synchronize()
+    pass_ms = (time.monotonic() - t0) * 1e3
+    pass_peak = torch.cuda.max_memory_allocated(dev)
+    grad_bytes = _local_bytes(grads)
+    sample = _update_sample(state, grads)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    with axis_rules(rules), implicit_replication():
+        ts.donated_update_(opt, grads, state, ush)
+    torch.cuda.synchronize()
+    update_ms = (time.monotonic() - t0) * 1e3
+    update_add = torch.cuda.max_memory_allocated(dev) - base
+    del grads
+    losses.append(float(ts.full_tensor(metrics["loss"])))
+    launches.append(_counts())
+    host_ms.append(pass_ms + update_ms)
+    held = _check_update_sample(opt, sample, state)
+    del sample
+    check(held["bitwise"], f"{cfg.name}: the in-place update parts from "
+          f"update by {held['max_abs_diff']}")
+    check(held["ranges_with_gradient"] > 0 and not held["still"],
+          f"{cfg.name}: the update left sampled rows as they were: "
+          f"{held['still'][:8]} ({held['ranges_with_gradient']} ranges "
+          f"with a gradient)")
+    check(update_add <= MOE_UPDATE_LIMIT,
+          f"{cfg.name}: the update adds {update_add} bytes")
+
+    # step 2, the donated step itself
+    torch.cuda.empty_cache()
+    _counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    out, m = step_fn(state, batches[1])
+    losses.append(float(m["loss"]))
+    host_ms.append((time.monotonic() - t0) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    launches.append(_counts())
+    check(out is state, "the donated step returned another state")
+    check(int(ts.full_tensor(state["step"])) == MOE_TRAIN_STEPS,
+          f"step counter {state['step']}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for n in launches:
+        check({k: n[k] for k in per_pass} == per_pass,
+              f"{cfg.name}: launches a step {n}, predicted {per_pass}")
+    del out, state, batches
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "reduced": reduced, "layers": cfg.num_layers,
+            "d_model": cfg.d_model,
+            "params": count_params(M.train_schema(cfg)),
+            "param_dtype": cfg.param_dtype, "remat": run.remat,
+            "optimizer": run.optimizer or cfg.optimizer,
+            "lr": MOE_TRAIN_LR, "batch": B,
+            "seq": S, "microbatch": run.microbatch,
+            "mesh": list(mesh.shape), "steps": MOE_TRAIN_STEPS,
+            "state_bytes": sizes, "grad_bytes": grad_bytes,
+            "state_init_s": init_s,
+            "pass_peak_bytes": pass_peak, "step_peak_bytes": step_peak,
+            "update_added_bytes": update_add,
+            "update_limit_bytes": MOE_UPDATE_LIMIT,
+            "host_ms_pass": pass_ms, "host_ms_update": update_ms,
+            "host_ms_per_step": host_ms, "losses": losses,
+            "launches_per_step": launches,
+            "launches_predicted_per_step": per_pass,
+            "update_vs_plain": held, "nvidia_smi": smi}
+
+
+def run_moe_train(dev, smi):
+    """DeepSeek-V2 (2 layers, 8-bit AdamW) and Jamba-v0.1 (3 layers, one
+    of each kind, AdamW with its f32 master) at full width in bf16, each
+    2 updates of the train CLI's donated step (``build_session`` on the
+    one-rank NCCL mesh), remat "full": state, gradient and peak bytes,
+    the update's own bytes (at most ``MOE_UPDATE_LIMIT``), the host ms
+    of the pass, the update and the step, finite losses, launches a step
+    as ``launches_per_pass`` predicts, and every leaf's sampled rows
+    (``_sample_ranges``) after the in-place update bitwise those of the
+    plain ``update`` on the same rows (the update is elementwise, its
+    int8 blocks along the last dim), each range with a gradient moved."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig, get_config
+
+    check(not dist.is_initialized(), "a process group is already running")
+    cells = (
+        (_deepseek_cut(V2, 1, 1, "bfloat16"), MOE_TRAIN_V2,
+         _reduced(get_config(V2), (1, 1)) + "; B x S 2 x 2048 -> "
+         f"{MOE_TRAIN_V2[0]} x {MOE_TRAIN_V2[1]} (at 2 x 2048 the "
+         "gradient pass runs out of memory: tools/donate_probe.py)"),
+        (_jamba_cut(3, "bfloat16"), MOE_TRAIN_JAMBA,
+         "32 -> 3 layers ((mamba, dense), (mamba, moe), (attn, dense) of "
+         "the period)"),
+    )
+    out, launches = [], {}
+    try:
+        for cfg, (B, S), reduced in cells:
+            rec = _moe_train_cell(dev, smi, cfg,
+                                  RunConfig(loss_chunk=512, remat="full"),
+                                  B, S, reduced)
+            for n in rec["launches_per_step"]:
+                for k, v in n.items():
+                    launches[k] = launches.get(k, 0) + v
+            out.append(rec)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"phase": "moe_train", "cells": out, "launches": launches,
+            "nvidia_smi": smi}
 
 
 #: sharded_serve: DeepSeek-V2 served under the serve rules (its MoE
@@ -5246,8 +5704,9 @@ def run_compressed_train(dev, smi):
     """The train cell (Yi-6B at full width, 4 layers, S=4096, B=8 in
     microbatches of 2, AdamW at a constant 1e-4, remat "full"):
     ``COMPRESSED_STEPS`` steps
-    of ``build_compressed_train_step`` with int8 compression on a (1, 1,
-    1) ("pod", "data", "model") NCCL mesh against ``build_train_step``
+    of ``build_compressed_train_step`` with int8 compression, its state
+    donated (as ``launch/dryrun.py`` builds it), on a (1, 1, 1) ("pod",
+    "data", "model") NCCL mesh against ``build_train_step``
     on plain tensors, each from the seeded state: losses within
     ``COMPRESSED_LOSS_RTOL``, every parameter leaf within
     ``COMPRESSED_PARAM_SHARE``·max|w|, no byte through the exchange, the
@@ -5312,7 +5771,8 @@ def run_compressed_train(dev, smi):
         mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), dev)
         rules = make_rules(mesh, "train")
         sh = ts.state_shardings(sch, rules, run)
-        step = ts.build_compressed_train_step(cfg, run, opt, rules)
+        step = ts.build_compressed_train_step(cfg, run, opt, rules,
+                                              donate=True)
         dbatches = [ts.distribute_batch(b, rules) for b in batches]
         sent0, calls0 = dict(comp.SENT), dict(LOCAL_MAP_CALLS)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5431,7 +5891,8 @@ def run_pipeline_train(dev, smi):
     """The train cell (Yi-6B at full width, 4 layers, S=4096, B=8, remat
     "full", AdamW at a constant 1e-4) through
     ``runtime/pipeline.py::build_pipeline_train_step`` with its stages in
-    one process (``rules=None``), ``PIPELINE_MICRO`` microbatches of 2
+    one process (``rules=None``) and its state donated (as
+    ``launch/perf.py`` builds it), ``PIPELINE_MICRO`` microbatches of 2
     rows: ``PIPELINE_STEPS`` steps at each stage count of
     ``PIPELINE_STAGES`` (2 layers a stage, then one: the middle stages
     receive and send), each from the seeded state, against
@@ -5527,7 +5988,7 @@ def run_pipeline_train(dev, smi):
     runs, launches = [], {}
     for stages in PIPELINE_STAGES:
         prun = dataclasses.replace(run, pipeline_stages=stages)
-        step, sh = pp.build_pipeline_train_step(cfg, prun, opt)
+        step, sh = pp.build_pipeline_train_step(cfg, prun, opt, donate=True)
         check(sh is None, "the one-process form returned placements")
         got = steps(step, update_rl2)
         rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],

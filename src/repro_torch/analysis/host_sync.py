@@ -14,8 +14,9 @@ hot code:
   their ``register_fake`` implementations; targets of ``torch.compile``,
   ``torch.func.*``, ``torch.vmap`` and ``torch.utils.checkpoint``'s
   ``checkpoint``; and ``HOT_STEPS``, the step builders' inner functions
-  (the serving steps, the train steps and the optimizers' updates and
-  schedules they call, the FWI block runner, the striped steps);
+  (the serving steps, the train steps, plain and donated, and the
+  optimizers' updates, plain and in place, and the schedules they call,
+  the FWI block runner, the striped steps);
 * reachability: calls by name within a module and through its imports
   of the linted modules (``from m import f``, ``import m as M`` then
   ``M.f``), ``self.f`` and ``obj.f`` to a method of that name of a class
@@ -70,8 +71,8 @@ HOT_STEPS = {
     "runtime/train_step.py": {"build_train_step": ["step", "sharded_step"],
                               "build_compressed_train_step": ["step"]},
     "runtime/pipeline.py": {"build_pipeline_train_step": ["step"]},
-    "optim/adamw.py": {"make_adamw": ["update"]},
-    "optim/adafactor.py": {"make_adafactor": ["update"]},
+    "optim/adamw.py": {"make_adamw": ["update", "update_"]},
+    "optim/adafactor.py": {"make_adafactor": ["update", "update_"]},
     "optim/schedule.py": {"warmup_cosine": ["lr"]},
     "fwi/solver.py": {"make_block_runner": ["run"]},
     "fwi/domain.py": {"make_sharded_multistep": ["block_step"],

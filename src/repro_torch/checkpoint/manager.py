@@ -108,10 +108,14 @@ _RAW_NAMES = {dt: name for name, dt in _RAW_DTYPES.items()}
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16}
 
 
-def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(array to store, true dtype name for the manifest)."""
+def _to_host(leaf, copy: bool = False) -> tuple[np.ndarray, str]:
+    """(array to store, true dtype name for the manifest); with ``copy``
+    a leaf already on the host is copied too, so that a later in-place
+    step (a donated train step) cannot reach what is stored."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
+        if copy and t.data_ptr() == leaf.data_ptr():
+            t = t.clone()
         name = _RAW_NAMES.get(t.dtype)
         if name is None:
             arr = t.numpy()
@@ -119,7 +123,7 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
         size = t.element_size()
         raw = t.view(_INT_OF_SIZE[size]).numpy()
         return raw.view(np.dtype(f"u{size}")), name
-    arr = np.asarray(leaf)
+    arr = np.array(leaf) if copy else np.asarray(leaf)
     return arr, str(arr.dtype)
 
 
@@ -226,8 +230,10 @@ class CheckpointManager:
         arrays, whole: a DTensor state is gathered by the caller, on
         every rank) at `step`.
 
-        In async mode device tensors are copied to the host here (cheap
-        vs serialization) and the file I/O happens on the worker thread;
+        In async mode every leaf is copied to the host here (cheap vs
+        serialization; a leaf on the host is copied too, since a donated
+        train step writes the state in place after ``save`` returns) and
+        the file I/O happens on the worker thread;
         a synchronous save copies each leaf in the thread that writes
         it, side by side with the others.  Under a process group of more than one rank only rank 0
         writes, synchronously, and every rank leaves after a barrier, so
@@ -239,7 +245,9 @@ class CheckpointManager:
             return
         leaves = _flatten(state)
         if self.async_save and not wait and ranks == 1:
-            host = {k: _to_host(v) for k, v in leaves.items()}
+            # copies, the host's leaves too: the caller may step (in
+            # place) before the worker writes them
+            host = {k: _to_host(v, copy=True) for k, v in leaves.items()}
             with self._lock:
                 self._pending += 1
             self._q.put((step, host, dict(extra or {})))

@@ -21,8 +21,8 @@ data:
 * ``launch/op_cost.py::OpCostMode`` tallies the rank's FLOPs, bytes and
   collectives, and ``torch.distributed._tools.mem_tracker.MemTracker``
   the peak of its live bytes (the state, the inputs and everything the
-  step makes; the train step keeps the old state beside the new one,
-  which the JAX package donates).
+  step makes; the train step donates its state, as the JAX package's
+  does, so the new state is written into the old one).
 
 Per cell a JSON record with the JAX package's keys: ``memory``
 (``peak_bytes_per_device`` against ``H100_SXM.hbm_bytes``), the
@@ -349,11 +349,13 @@ def build_cell(arch: str, shape_name: str, mesh, cfg=None, run=None):
         sch = ts.state_schema(cfg, run, opt)
         state = placed_fakes(sch, ts.state_shardings(sch, rules, run))
         batch = placed_fakes(in_specs, ts.batch_shardings(in_specs, rules))
+        # the state donated, as the JAX package jits the step
         if run.gradient_compression != "none" \
                 and "pod" in mesh.mesh_dim_names:
-            fn = ts.build_compressed_train_step(cfg, run, opt, rules)
+            fn = ts.build_compressed_train_step(cfg, run, opt, rules,
+                                                donate=True)
         else:
-            fn = ts.build_train_step(cfg, run, opt, rules)
+            fn = ts.build_train_step(cfg, run, opt, rules, donate=True)
         return fn, (state, batch)
 
     # serving weights are bf16 (inference-cast), matching real deployments

@@ -224,7 +224,8 @@ def build_variant(exp: Experiment, mesh):
         rules = dr.cell_rules(cfg, shape, run, mesh)
         in_specs = input_specs(cfg, shape)
         opt = make_optimizer(cfg.optimizer, warmup_cosine())
-        fn, state_sh = build_pipeline_train_step(cfg, run, opt, rules)
+        fn, state_sh = build_pipeline_train_step(cfg, run, opt, rules,
+                                                 donate=True)
         state = dr.placed_fakes(ts.state_schema(cfg, run, opt), state_sh)
         batch = dr.placed_fakes(in_specs,
                                 ts.batch_shardings(in_specs, rules))

@@ -15,7 +15,10 @@ rank.
 
 As in the JAX driver, the step comes from ``build_session`` on
 ``make_host_mesh()``: the train rules, the state's placements and the
-step over DTensors.  On one card (or one CPU process) the host mesh is
+step over DTensors, donating its state as JAX's ``jax.jit(...,
+donate_argnums=(0,))`` does (``runtime/train_step.py``): each step
+writes the new state into the one it was given, so the card holds one
+state and the gradients.  On one card (or one CPU process) the host mesh is
 (1, 1) and every placement ``Replicate()``; a one-rank group is started
 for it and closed at the end of ``train``.  Under a launcher that
 started a bigger group (``launch/world.py::World``), every rank runs
@@ -67,14 +70,16 @@ def build_session(cfg: ModelConfig, run: RunConfig, mesh, steps_total: int,
     """``(opt, sch, shardings, step_fn, rules)``: the train rules on
     ``mesh``, the optimizer (``opt``, or by default the run's on the
     warmup-cosine schedule over ``steps_total``), the state's schema and
-    placements, and the step over DTensors."""
+    placements, and the step over DTensors.  The step donates its state:
+    after ``step_fn(state, batch)`` the caller's ``state`` holds the new
+    values (clone it first to keep the old ones)."""
     rules = make_rules(mesh, "train")
     if opt is None:
         opt = make_optimizer(run.optimizer or cfg.optimizer,
                              warmup_cosine(total_steps=steps_total))
     sch = ts.state_schema(cfg, run, opt)
     shardings = ts.state_shardings(sch, rules, run)
-    step_fn = ts.build_train_step(cfg, run, opt, rules)
+    step_fn = ts.build_train_step(cfg, run, opt, rules, donate=True)
     return opt, sch, shardings, step_fn, rules
 
 

@@ -3,7 +3,8 @@ package's ``optim/adafactor.py`` on torch tensors.
 
 Follows Shazeer & Stern 2018 / the t5x implementation: rank-1 factored
 second-moment statistics for >=2D params, decay 1 - t^-0.8, RMS-scaled
-update clipping, relative step sizes.  Updates are functional.
+update clipping, relative step sizes.  ``update`` is functional;
+``update_`` is the donated form (``optim/inplace.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.models.params import (
     tree_zip,
     zeros_param,
 )
+from repro_torch.optim import inplace
 from repro_torch.optim.adamw import Optimizer
 from repro_torch.optim.schedule import constant
 
@@ -38,6 +40,9 @@ def make_adafactor(
     def _factored(shape) -> bool:
         return len(shape) >= 2
 
+    def _stacked(p) -> bool:
+        return p.ndim >= 3 and p.shape[0] > 1 and p.numel() * 4 > CHUNK_BYTES
+
     def init(params):
         def st(p):
             z = dict(dtype=torch.float32, device=p.device)
@@ -50,53 +55,95 @@ def make_adafactor(
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=tree_leaves(params)[0].device)}
 
-    def update(grads, state, params, step):
+    def scalars(state, step):
+        """(count + 1, beta2, lr), read once an update."""
         count = state["count"] + 1
         t = count.to(torch.float32)
-        beta2 = 1.0 - t ** -0.8
-        lr = lr_fn(step)
+        return count, 1.0 - t ** -0.8, lr_fn(step)
 
-        def clip(u):
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
-            return u / torch.clamp(rms_u / clip_threshold, min=1.0)
+    def clip(u):
+        rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
+        return u / torch.clamp(rms_u / clip_threshold, min=1.0)
 
-        def apply(p, u):
-            base = p.to(torch.float32)
-            scale = torch.clamp(torch.sqrt(torch.mean(torch.square(base))),
-                                min=eps2)
-            newp = base - lr * scale * u - lr * weight_decay * base
-            return newp.to(p.dtype)
+    def apply(p, u, lr):
+        base = p.to(torch.float32)
+        scale = torch.clamp(torch.sqrt(torch.mean(torch.square(base))),
+                            min=eps2)
+        newp = base - lr * scale * u - lr * weight_decay * base
+        return newp.to(p.dtype)
 
-        def upd_factored(p, g, vr_old, vc_old):
-            g = g.to(torch.float32)
-            g2 = torch.square(g) + eps1
-            vr = beta2 * vr_old + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * vc_old + (1 - beta2) * torch.mean(g2, dim=-2)
-            rfac = torch.rsqrt(
-                vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                 min=eps1))[..., None]
-            u = g * rfac * torch.rsqrt(vc)[..., None, :]
-            return apply(p, clip(u)), vr, vc
+    def upd_factored(p, g, vr_old, vc_old, beta2, lr):
+        g = g.to(torch.float32)
+        g2 = torch.square(g) + eps1
+        vr = beta2 * vr_old + (1 - beta2) * torch.mean(g2, dim=-1)
+        vc = beta2 * vc_old + (1 - beta2) * torch.mean(g2, dim=-2)
+        rfac = torch.rsqrt(
+            vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                             min=eps1))[..., None]
+        u = g * rfac * torch.rsqrt(vc)[..., None, :]
+        return apply(p, clip(u), lr), vr, vc
 
-        def leaf(p, g, st):
-            if "vr" in st:
-                if (p.ndim >= 3 and p.shape[0] > 1
-                        and p.numel() * 4 > CHUNK_BYTES):
-                    parts = [upd_factored(p[i], g[i], st["vr"][i],
-                                          st["vc"][i])
-                             for i in range(p.shape[0])]
-                    newp, vr, vc = (torch.stack(a) for a in zip(*parts))
-                else:
-                    newp, vr, vc = upd_factored(p, g, st["vr"], st["vc"])
-                return newp, {"vr": vr, "vc": vc}
-            g = g.to(torch.float32)
-            g2 = torch.square(g) + eps1
-            v = beta2 * st["v"] + (1 - beta2) * g2
-            return apply(p, clip(g * torch.rsqrt(v))), {"v": v}
+    def upd_plain(p, g, v_old, beta2, lr):
+        g = g.to(torch.float32)
+        g2 = torch.square(g) + eps1
+        v = beta2 * v_old + (1 - beta2) * g2
+        return apply(p, clip(g * torch.rsqrt(v)), lr), v
 
-        out = tree_zip(leaf, params, grads, state["stats"])
+    def leaf_math(p, g, st, beta2, lr):
+        if "vr" in st:
+            if _stacked(p):
+                parts = [upd_factored(p[i], g[i], st["vr"][i], st["vc"][i],
+                                      beta2, lr)
+                         for i in range(p.shape[0])]
+                newp, vr, vc = (torch.stack(a) for a in zip(*parts))
+            else:
+                newp, vr, vc = upd_factored(p, g, st["vr"], st["vc"], beta2,
+                                            lr)
+            return newp, {"vr": vr, "vc": vc}
+        newp, v = upd_plain(p, g, st["v"], beta2, lr)
+        return newp, {"v": v}
+
+    def update(grads, state, params, step):
+        count, beta2, lr = scalars(state, step)
+        out = tree_zip(lambda p, g, st: leaf_math(p, g, st, beta2, lr),
+                       params, grads, state["stats"])
         return (tree_map(lambda r: r[0], out),
                 {"stats": tree_map(lambda r: r[1], out), "count": count})
+
+    def update_(grads, state, params, step, shardings=None):
+        """``update`` in place: a stacked leaf above ``CHUNK_BYTES`` layer
+        by layer (the layers ``update`` computes one at a time), any
+        other leaf whole (its RMS clip and its row and column means span
+        it)."""
+        with torch.no_grad():
+            count, beta2, lr = scalars(state, step)
+            local_scal = tuple(inplace.local(x) for x in (beta2, lr))
+
+            def leaf_(path, p, g):
+                st = inplace.at(state["stats"], path)
+                if not inplace.whole_on_rank(p, g, st):
+                    newp, new_st = leaf_math(p, g, st, beta2, lr)
+                    inplace.write_(st, new_st)
+                    inplace.write_(p, newp)
+                    return
+                p, g, st = (inplace.local(x) for x in (p, g, st))
+                if "vr" in st and _stacked(p):
+                    for i in range(p.shape[0]):
+                        newp, vr, vc = upd_factored(
+                            p[i], g[i], st["vr"][i], st["vc"][i],
+                            *local_scal)
+                        st["vr"][i].copy_(vr)
+                        st["vc"][i].copy_(vc)
+                        p[i].copy_(newp)
+                        del newp, vr, vc
+                    return
+                newp, new_st = leaf_math(p, g, st, *local_scal)
+                inplace.write_(st, new_st)
+                inplace.write_(p, newp)
+
+            inplace.each_leaf_(params, grads, shardings, leaf_)
+            inplace.write_(state["count"], count)
+        return params, state
 
     def state_schema(param_schema):
         def st(_, ps):
@@ -113,4 +160,5 @@ def make_adafactor(
         return {"stats": map_specs(st, param_schema),
                 "count": zeros_param((), (), torch.int32)}
 
-    return Optimizer(init=init, update=update, state_schema=state_schema)
+    return Optimizer(init=init, update=update, state_schema=state_schema,
+                     update_=update_)

@@ -3,8 +3,13 @@ package's ``optim/adamw.py`` on torch tensors.
 
 The state is a nested dict laid out as the JAX package's (``m``, ``v``,
 ``count`` and, for bf16 leaves, the f32 ``master``), so a checkpoint of
-either package restores in the other.  Updates are functional: new
-tensors, the old state untouched.  The ZeRO-1 placements are
+either package restores in the other.  ``update`` is functional: new
+tensors, the old state untouched.  ``update_`` is the donated form
+(``optim/inplace.py``): the same values written into the old tensors,
+one leaf at a time, a leaf larger than ``CHUNK_BYTES`` (as f32) in row
+chunks along its leading dims.  Every op of the update is elementwise
+or, for the int8 codes, per block along the last dim, so a chunk of
+whole rows gives the whole leaf's bits.  The ZeRO-1 placements are
 ``runtime/train_step.py``'s.
 
 int8 moments use blockwise (last-dim blocks of ``QBLOCK``) quantization:
@@ -40,11 +45,16 @@ from repro_torch.models.params import (
     tree_zip,
     zeros_param,
 )
+from repro_torch.optim import inplace
 from repro_torch.optim.schedule import constant
 from repro_torch.sharding.rules import replicate_dims
 
 QBLOCK = 128
 _VLOG_FLOOR = 1e-24
+#: ``update_`` cuts a leaf larger than this (as f32) into chunks of whole
+#: rows of about this size: a chunk's temporaries (some ten f32 arrays
+#: of its size) stay near 1.3 GB on the card whatever the leaf
+CHUNK_BYTES = 1 << 27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +62,12 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], tuple[Any, Any]]
     state_schema: Callable[[Any], Any]   # ParamSpec tree for checkpoints
+    #: ``update_(grads, state, params, step, shardings=None) -> (params,
+    #: state)``: ``update``'s values written into ``params`` and
+    #: ``state`` themselves, each leaf of ``grads`` dropped once used;
+    #: ``shardings``, the update's placements where they are not the
+    #: parameters' (ZeRO-1)
+    update_: Callable[..., tuple[Any, Any]]
 
 
 def _one_placement(*xs) -> bool:
@@ -120,12 +136,18 @@ def _q8log(x: torch.Tensor):
 
 
 def _dq8log(q, lo, span, shape):
+    """The 2nd moment back from its log code, at least 0.  The JAX
+    package's ``exp(xl) - floor`` gives ``-7.9e-31`` for a code at the
+    floor (a zero moment: exp(log(1e-24)) rounds below 1e-24), and an
+    exactly zero gradient there then takes ``sqrt`` of a negative: NaN
+    parameters, in every embedding row of a token the batch lacks.  The
+    clamp changes nothing where the JAX package's value is at least 0."""
     if lo is None:
         return q
     xl = (_whole_blocks(q).reshape(_blocks(shape)).to(torch.float32)
           + 128.0) / 255.0 \
         * span + lo
-    return (torch.exp(xl) - _VLOG_FLOOR).reshape(shape)
+    return torch.clamp(torch.exp(xl) - _VLOG_FLOOR, min=0.0).reshape(shape)
 
 
 def make_adamw(
@@ -181,23 +203,29 @@ def make_adamw(
             return {"q": q, "scale": s} if s is not None else {"q": q}
         return val
 
-    def update(grads, state, params, step):
+    def step_math(p, g, m_st, v_st, master, c1, c2, lr):
+        g = g.to(torch.float32)
+        m = b1 * _get_moment(m_st, g.shape) + (1 - b1) * g
+        v = b2 * _get_moment(v_st, g.shape) + (1 - b2) * torch.square(g)
+        mh, vh = m / c1, v / c2
+        base = master.to(torch.float32)
+        new = base - lr * (mh / (torch.sqrt(vh) + eps)
+                           + weight_decay * base)
+        return (new.to(p.dtype), _set_moment(m_st, m),
+                _set_moment(v_st, v), new)
+
+    def scalars(state, step):
+        """(count + 1, c1, c2, lr), read once an update, before any
+        leaf is written."""
         count = state["count"] + 1
         lr = lr_fn(step)
         c1 = 1.0 - b1 ** count.to(torch.float32)
         c2 = 1.0 - b2 ** count.to(torch.float32)
-        masters = state.get("master", params)
+        return count, c1, c2, lr
 
-        def step_math(p, g, m_st, v_st, master, c1, c2, lr):
-            g = g.to(torch.float32)
-            m = b1 * _get_moment(m_st, g.shape) + (1 - b1) * g
-            v = b2 * _get_moment(v_st, g.shape) + (1 - b2) * torch.square(g)
-            mh, vh = m / c1, v / c2
-            base = master.to(torch.float32)
-            new = base - lr * (mh / (torch.sqrt(vh) + eps)
-                               + weight_decay * base)
-            return (new.to(p.dtype), _set_moment(m_st, m),
-                    _set_moment(v_st, v), new)
+    def update(grads, state, params, step):
+        count, c1, c2, lr = scalars(state, step)
+        masters = state.get("master", params)
 
         def leaf(p, g, m_st, v_st, master):
             if int8 or not _one_placement(p, g, m_st, v_st, master):
@@ -220,6 +248,59 @@ def make_adamw(
         if "master" in state:
             new_state["master"] = tree_map(lambda r: r[3], out)
         return tree_map(lambda r: r[0], out), new_state
+
+    def store_(p, m_st, v_st, master, out, has_master):
+        new_p, m, v, new = out
+        inplace.write_(m_st, m)
+        inplace.write_(v_st, v)
+        if has_master:
+            inplace.write_(master, new)
+        inplace.write_(p, new_p)
+
+    def chunked_(p, g, m_st, v_st, master, scal, has_master):
+        """``step_math`` on plain tensors, written in place: the whole
+        leaf, or chunks of ``CHUNK_BYTES`` of whole rows."""
+        last = p.shape[-1] if p.ndim else 1
+        ops = (p, g, m_st, v_st, master)
+        if p.numel() * 4 <= CHUNK_BYTES or not inplace.contiguous(*ops):
+            store_(p, m_st, v_st, master, step_math(*ops, *scal),
+                   has_master)
+            return
+        lead = tuple(p.shape[:-1])
+        rows = p.numel() // last
+        per = max(1, CHUNK_BYTES // (4 * last))
+        views = tuple(inplace.rows_view(x, lead, rows) for x in ops)
+        for lo in range(0, rows, per):
+            part = tuple(inplace.row_slice(x, lo, lo + per) for x in views)
+            store_(part[0], part[2], part[3], part[4],
+                   step_math(*part, *scal), has_master)
+            del part
+
+    def update_(grads, state, params, step, shardings=None):
+        has_master = "master" in state
+        with torch.no_grad():
+            count, c1, c2, lr = scalars(state, step)
+            local_scal = tuple(_replicated_local(x) for x in (c1, c2, lr))
+
+            def leaf_(path, p, g):
+                m_st = inplace.at(state["m"], path)
+                v_st = inplace.at(state["v"], path)
+                master = inplace.at(state["master"], path) \
+                    if has_master else p
+                ops = (p, g, m_st, v_st, master)
+                if inplace.whole_on_rank(*ops) or (
+                        not int8 and _one_placement(*ops)):
+                    chunked_(*(inplace.local(x) for x in ops), local_scal,
+                             has_master)
+                else:
+                    # a block may straddle shards: the leaf as ``update``
+                    # computes it, copied into the old one
+                    store_(p, m_st, v_st, master,
+                           step_math(*ops, c1, c2, lr), has_master)
+
+            inplace.each_leaf_(params, grads, shardings, leaf_)
+            inplace.write_(state["count"], count)
+        return params, state
 
     def state_schema(param_schema):
         """The layout ``init`` gives.  (The JAX package's
@@ -255,5 +336,6 @@ def make_adamw(
                 param_schema)
         return sch
 
-    return Optimizer(init=init, update=update, state_schema=state_schema)
+    return Optimizer(init=init, update=update, state_schema=state_schema,
+                     update_=update_)
 

@@ -97,8 +97,8 @@ from repro_torch.models.params import (
 from repro_torch.models.transformer import apply_block_full, fused_norm
 from repro_torch.optim import Optimizer
 from repro_torch.optim.compression import cross_pod_reduce
-from repro_torch.runtime.train_step import full_tensor, pod_rules, \
-    state_schema
+from repro_torch.runtime.train_step import donated_update_, full_tensor, \
+    pod_rules, state_schema
 from repro_torch.sharding.rules import (
     AxisRules,
     Sharding,
@@ -446,18 +446,22 @@ def pipeline_grads(cfg: ModelConfig, run: RunConfig, params, batch):
 
 def build_pipeline_train_step(cfg: ModelConfig, run: RunConfig,
                               optimizer: Optimizer,
-                              rules: AxisRules | None = None):
+                              rules: AxisRules | None = None,
+                              donate: bool = False):
     """``(step, state_shardings)``: ``step(state, batch) -> (state,
     metrics)`` with ``state = {"params", "opt", "step"}`` (the old state
-    left as it was), and the ``Sharding`` of every state leaf on
-    ``rules.mesh`` (``None`` without rules).  Module docstring: where
-    the stages live, the schedule, the placements."""
+    left as it was, or with ``donate`` updated in place and returned, as
+    ``train_step.build_train_step``'s), and the ``Sharding`` of every
+    state leaf on ``rules.mesh`` (``None`` without rules).  Module
+    docstring: where the stages live, the schedule, the placements."""
     stages = _check(cfg, run, rules)
     repeat = cfg.blocks[0].repeat
     if rules is None:
         def step(state, batch):
             grads, metrics = pipeline_grads(cfg, run, state["params"],
                                             batch)
+            if donate:
+                return donated_update_(optimizer, grads, state), metrics
             new_params, new_opt = optimizer.update(
                 grads, state["opt"], state["params"], state["step"])
             return ({"params": new_params, "opt": new_opt,
@@ -504,6 +508,11 @@ def build_pipeline_train_step(cfg: ModelConfig, run: RunConfig,
                 nll = torch.zeros((), dtype=torch.float32,
                                   device=cnt.device)
             metrics = _metrics(cross_pod_reduce(nll, group, "none"), cnt)
+            if donate:
+                # the region's leaves are views of the state's local
+                # tensors: the update writes the state itself
+                donated_update_(optimizer, grads, st)
+                return state, metrics
             new_params, new_opt = optimizer.update(
                 grads, st["opt"], st["params"], st["step"])
             new = {"params": tree_zip(lambda x, s: place(x, s.placements),

@@ -23,6 +23,15 @@ state's placements (the parameter's plus a "data" split): gradients and
 parameters are cut to them (a local slice) and the new parameters are
 gathered back.
 
+``donate=True`` is the JAX package's ``jax.jit(step,
+donate_argnums=(0,))``: the step writes the new parameters, optimizer
+state and step counter into the state it was given and returns that
+state (``optimizer.update_``, ``optim/inplace.py``), one leaf at a time,
+freeing each gradient once it is used, so that the card holds one state
+and the gradients, not two states.  The values are bitwise the plain
+step's.  A caller that still needs the old state clones it first, as a
+JAX caller cannot reuse a donated buffer.
+
 ``build_compressed_train_step`` is the JAX package's two-level step, its
 rendering of the paper's cluster <-> cloud synchronisation (Fig. 1 step
 8): each pod runs in a region manual over "pod" (``sharding/rules.py``:
@@ -54,6 +63,7 @@ from repro_torch.models.params import (
 )
 from repro_torch.optim import Optimizer
 from repro_torch.optim.compression import cross_pod_reduce
+from repro_torch.optim.inplace import bump_
 from repro_torch.sharding.rules import (
     AxisRules,
     Sharding,
@@ -182,21 +192,45 @@ def compute_grads(cfg: ModelConfig, run: RunConfig, params, batch,
         nll = nll + metrics["nll_sum"]
         cnt = cnt + metrics["token_count"]
         del g
-    # gradients stay in the accumulation dtype; the optimizer upcasts
-    grads = tree_map(lambda g: g / n_acc, gsum)
-    return grads, {"loss": lsum / n_acc, "nll_sum": nll, "token_count": cnt}
+    # gradients stay in the accumulation dtype; the optimizer upcasts.
+    # The mean is taken in place: no second gradient tree
+    for g in tree_leaves(gsum):
+        g.div_(n_acc)
+    return gsum, {"loss": lsum / n_acc, "nll_sum": nll, "token_count": cnt}
+
+
+def update_shardings(cfg: ModelConfig, run: RunConfig, rules: AxisRules):
+    """The update's placements: the optimizer state's under ZeRO-1
+    (``run.zero1``), the parameters' otherwise."""
+    if run.zero1:
+        return zero1_shardings(M.train_schema(cfg), rules)
+    return param_shardings(M.train_schema(cfg), rules)
+
+
+def donated_update_(optimizer: Optimizer, grads, state, shardings=None):
+    """The donated step's update: ``optimizer.update_`` of ``state`` in
+    place (each leaf of ``grads`` dropped once used; ``shardings`` the
+    update's placements where they are not the parameters'), then the
+    step counter; returns ``state``."""
+    optimizer.update_(grads, state["opt"], state["params"], state["step"],
+                      shardings)
+    bump_(state["step"])
+    return state
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
-                     rules: AxisRules | None = None):
+                     rules: AxisRules | None = None, donate: bool = False):
     """``step(state, batch) -> (state, metrics)`` with ``state =
-    {"params", "opt", "step"}``; the old state is left as it was.  With
-    ``rules`` the state and the batch are DTensors (``state_shardings``,
+    {"params", "opt", "step"}``; the old state is left as it was, or,
+    with ``donate``, updated in place and returned.  With ``rules`` the
+    state and the batch are DTensors (``state_shardings``,
     ``batch_shardings``); the new state keeps its placements, and the
     metrics come back as plain (replicated) tensors."""
     if rules is None:
         def step(state, batch):
             grads, metrics = compute_grads(cfg, run, state["params"], batch)
+            if donate:
+                return donated_update_(optimizer, grads, state), metrics
             new_params, new_opt = optimizer.update(
                 grads, state["opt"], state["params"], state["step"])
             return ({"params": new_params, "opt": new_opt,
@@ -206,22 +240,24 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer,
 
     sh = state_shardings(state_schema(cfg, run, optimizer), rules, run)
     psh = sh["params"]
-    # the update's placements: the optimizer state's under ZeRO-1
-    ush = zero1_shardings(M.train_schema(cfg), rules) if run.zero1 else psh
+    ush = update_shardings(cfg, run, rules)
 
     def sharded_step(state, batch):
         with axis_rules(rules), implicit_replication():
             grads, metrics = compute_grads(cfg, run, state["params"], batch,
                                            psh)
-            new_params, new_opt = optimizer.update(
-                tree_zip(_place, grads, ush), state["opt"],
-                tree_zip(_place, state["params"], ush), state["step"])
-            new_params = tree_zip(_place, new_params, psh)
-            new_opt = tree_zip(_place, new_opt, sh["opt"])
-            new_step = _place(state["step"] + 1, sh["step"])
+            if donate:
+                new = donated_update_(optimizer, grads, state,
+                                      ush if run.zero1 else None)
+            else:
+                new_params, new_opt = optimizer.update(
+                    tree_zip(_place, grads, ush), state["opt"],
+                    tree_zip(_place, state["params"], ush), state["step"])
+                new = {"params": tree_zip(_place, new_params, psh),
+                       "opt": tree_zip(_place, new_opt, sh["opt"]),
+                       "step": _place(state["step"] + 1, sh["step"])}
             metrics = {k: full_tensor(v) for k, v in metrics.items()}
-        return ({"params": new_params, "opt": new_opt, "step": new_step},
-                metrics)
+        return new, metrics
 
     return sharded_step
 
@@ -296,18 +332,22 @@ def compressed_grads(cfg: ModelConfig, run: RunConfig, params, batch,
 
 
 def build_compressed_train_step(cfg: ModelConfig, run: RunConfig,
-                                optimizer: Optimizer, rules: AxisRules):
+                                optimizer: Optimizer, rules: AxisRules,
+                                donate: bool = False):
     """``step(state, batch) -> (state, metrics)`` on a mesh with a "pod"
     axis: the state and the batch DTensors placed by ``rules``
     (``state_shardings``, ``batch_shardings``), the gradients across
     the pods in int8 or exactly (``run.gradient_compression``), the
     update in each pod's region at the optimizer state's placements
     there.  The new state is ``Replicate()`` over "pod"; the metrics
-    are plain tensors, averaged over the pods."""
+    are plain tensors, averaged over the pods.  With ``donate`` the
+    state (``Replicate()`` over "pod", as the step returns it) is
+    updated in place, through the region's views of its local tensors,
+    and returned."""
     inner = pod_rules(rules)
     sh = state_shardings(state_schema(cfg, run, optimizer), inner, run)
     psh = sh["params"]
-    ush = zero1_shardings(M.train_schema(cfg), inner) if run.zero1 else psh
+    ush = update_shardings(cfg, run, inner)
 
     def step(state, batch):
         st = tree_map(lambda t: into_region(t, inner), state)
@@ -315,6 +355,10 @@ def build_compressed_train_step(cfg: ModelConfig, run: RunConfig,
             grads, metrics = _region_grads(
                 cfg, run, st["params"], _pod_batch(batch, rules, inner),
                 inner, psh)
+            if donate:
+                donated_update_(optimizer, grads, st,
+                                ush if run.zero1 else None)
+                return state, metrics
             new_params, new_opt = optimizer.update(
                 tree_zip(_place, grads, ush), st["opt"],
                 tree_zip(_place, st["params"], ush), st["step"])

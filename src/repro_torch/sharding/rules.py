@@ -545,6 +545,15 @@ def zeros_placed(schema, rules: AxisRules | None, device):
 def distribute_params(tree, shardings):
     """A tree of full tensors, built the same way on every rank, as
     DTensors placed by ``shardings`` (a tree of ``Sharding``s of the same
-    structure)."""
-    return tree_zip(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
-                    tree, shardings)
+    structure).  On a mesh of one rank each DTensor's local tensor is
+    the leaf itself, as ``distribute_tensor`` gives it for a
+    ``Replicate()`` placement (a ``Shard`` would copy even over a mesh
+    dim of one rank): placing a state never holds it twice."""
+    def one(t, s):
+        if s.mesh.size() == 1:
+            return DTensor.from_local(t.detach(), s.mesh, s.placements,
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        return distribute_tensor(t, s.mesh, s.placements)
+
+    return tree_zip(one, tree, shardings)

@@ -406,13 +406,14 @@ def test_card_one_rank_mesh_step_equals_unsharded(arch):
         want_g, _ = TS.compute_grads(tc, run, state["params"], batch)
         dstate = distribute_params(state, sh)
         dbatch = TS.distribute_batch(batch, rules)
+        # the session's step donates dstate: its gradients first
+        with axis_rules(rules), implicit_replication():
+            got_g, _ = TS.compute_grads(tc, run, dstate["params"], dbatch,
+                                        sh["params"])
         c2, p2 = counts(), dict(moe.MOE_CALLS)
         s1, m1 = step(dstate, dbatch)
         c3, p3 = counts(), dict(moe.MOE_CALLS)
         _, m2 = step(s1, dbatch)
-        with axis_rules(rules), implicit_replication():
-            got_g, _ = TS.compute_grads(tc, run, dstate["params"], dbatch,
-                                        sh["params"])
         torch.cuda.synchronize()
         assert {k: c3[k] - c2[k] for k in c3} == \
             {k: c1[k] - c0[k] for k in c1}
