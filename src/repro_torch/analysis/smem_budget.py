@@ -25,7 +25,9 @@ the wrapper launches; every (DQK, DV) pair the flash entry
 instantiates, f32 and bf16; for every SSD config (d_state, head_dim)
 and every ``d_model`` written in ``configs/*.py``, the SSD kernel's
 (N, PT, HB) that ``ssd/kernel.py::launch_rule`` picks with and without
-shared B and C, and the norm's row width.
+shared B and C, and the norm's shape that ``rmsnorm/kernel.py::launch_shape``
+picks at that row width, in both dtypes, aligned and not, at
+``NORM_ROWS`` rows.
 
 A side that cannot be evaluated, and a dynamic-smem launch with no
 mapping, are findings.  ``// lint: disable=smem-budget -- why`` in the
@@ -61,6 +63,10 @@ SM90_SMEM_PER_BLOCK = 232448
 
 #: ptxas reserves a kernel's static shared memory in 16-byte granules
 STATIC_GRANULE = 16
+
+#: the norm's row counts its launches are checked at: a prefill block
+#: (rows a CTA by width) and a decode batch (one row a CTA)
+NORM_ROWS = (8192, 4)
 
 #: stand-ins for the dtypes ``launch_rule`` compares against
 BF16, F32 = "torch.bfloat16", "torch.float32"
@@ -110,9 +116,10 @@ LAUNCH_FORMULAS = {
         query=("ssd_smem_query", ("n", "pt", "hb", "wgmma"))),
     ("rmsnorm_residual", "launch"): LaunchMap(
         "rmsnorm_smem_bytes", "norm",
-        cxx=lambda c: {"d": c["d"], "T": c["T"]},
-        py=lambda c: (c["d"],),
-        query=("rmsnorm_smem_query", ("d",))),
+        cxx=lambda c: {"T": c["T"], "VEC": c["vec"], "NV": c["nv"],
+                       "a.rows": c["rows"], "a.tpr": c["tpr"]},
+        py=lambda c: (c["rows"], c["warps"]),
+        query=("rmsnorm_smem_query", ("rows", "warps"))),
 }
 
 
@@ -346,8 +353,20 @@ class _Kernels:
                         out.append(cfg)
             return out
         if name == "norm":
-            return [{"d": d, "T": t} for d in self.configs()["d_model"]
-                    for t in ("float", "__nv_bfloat16")]
+            ev = self.ev(kernel_py, env=DTYPES)
+            out = []
+            for d in self.configs()["d_model"]:
+                for dtype, t in ((F32, "float"), (BF16, "__nv_bfloat16")):
+                    for n in NORM_ROWS:
+                        for aligned in (True, False):
+                            shape = ev.call("launch_shape",
+                                            [n, d, dtype, aligned])
+                            cfg = {"d": d, "T": t, **{
+                                k: shape[k] for k in ("vec", "nv", "tpr",
+                                                      "warps", "rows")}}
+                            if cfg not in out:
+                                out.append(cfg)
+            return out
         raise SymEvalError(f"unknown configuration space {name!r}")
 
 

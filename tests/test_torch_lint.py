@@ -650,9 +650,11 @@ INJECTIONS = [
      "    out = _attend(q, kk, vv, causal) * x.sum().item()",
      "host-sync", "`.item()` in hot `apply_attn_full`"),
     ("kernels/rmsnorm/csrc/rmsnorm_residual.cu",
-     "    rmsnorm_residual_kernel<T><<<n, THREADS, smem, stream>>>(",
+     "    rmsnorm_residual_kernel<T, VEC, NV><<<grid, block, smem, "
+     "a.stream>>>(",
      "    cudaDeviceSynchronize();\n"
-     "    rmsnorm_residual_kernel<T><<<n, THREADS, smem, stream>>>(",
+     "    rmsnorm_residual_kernel<T, VEC, NV><<<grid, block, smem, "
+     "a.stream>>>(",
      "host-sync", "`cudaDeviceSynchronize` in the host function `launch`"),
     ("kernels/stencil/tune.py", "if smem_bytes(k, *t) <= MAX_SMEM_BYTES",
      "if smem_bytes(k, *t) <= 2 * MAX_SMEM_BYTES",
@@ -760,8 +762,13 @@ def test_launch_table_configurations():
         == {1, 2}
     d_models = {c.d_model for c in REGISTRY.values()} | {
         smoke_config(c).d_model for c in REGISTRY.values()}
-    assert {r["config"]["d"] for r in by[("rmsnorm_residual", "launch")]} \
-        == d_models
+    norm = by[("rmsnorm_residual", "launch")]
+    assert {r["config"]["d"] for r in norm} == d_models
+    # both dtypes on both paths, prefill and decode shapes
+    assert {(r["config"]["T"], r["config"]["vec"]) for r in norm} == {
+        ("float", 4), ("float", 1), ("__nv_bfloat16", 8),
+        ("__nv_bfloat16", 1)}
+    assert {r["config"]["rows"] for r in norm} > {1}
     # the stencil tuner's kept candidates are all checked
     from repro_torch.kernels.stencil import tune
 
@@ -774,8 +781,8 @@ def test_launch_table_configurations():
 def test_static_smem_matches_the_cards_ptxas_report():
     """The layout ptxas reported for these kernels on the H100 (the
     build phase's report): flash's 5 barriers in 48 bytes, the SSD
-    kernel's barriers and decay rows in 544 / 1056, the norm's partial
-    sums in 32."""
+    kernel's barriers and decay rows in 544 / 1056, the norm none (its
+    sums are dynamic, ``rmsnorm_smem_bytes``)."""
     rows = {(pathlib.Path(r["source"]).stem, r["kernel"], tuple(r["targs"])):
             r["static"] for r in smem_budget.launch_table(KERNELS)}
     assert rows[("flash_attention", "flash_fwd_bf16_kernel", (128, 128))] \
@@ -783,7 +790,7 @@ def test_static_smem_matches_the_cards_ptxas_report():
     assert rows[("ssd_chunk", "ssd_wgmma_kernel", (64, 1))] == 544
     assert rows[("ssd_chunk", "ssd_wgmma_kernel", (64, 2))] == 1056
     assert rows[("rmsnorm_residual", "rmsnorm_residual_kernel",
-                 ("float",))] == 32
+                 ("float", 4, 4))] == 0
     assert rows[("wave_block", "wave_block_shots_kernel", (8, 2))] == 0
 
 
