@@ -317,10 +317,17 @@ Phases, each printing one JSON line:
     mode, the launches those of ``launches_per_pass`` (32 flash and 65
     norm a prefill); each registered LM op bitwise equal to its bare
     ctypes call, and the norm's host µs a call at the decode row
-    through the op and through the ctypes call; and, in a subprocess
+    through the op and through the ctypes call; and, in subprocesses
     on the host, ``python -m repro_torch.launch.dryrun`` of ``yi-6b ×
-    decode_32k × single`` on a fake 256-rank group: its roofline and
-    peak GiB a rank.
+    decode_32k × single`` on a fake 256-rank group (its roofline and
+    peak GiB a rank), and the donated train steps of
+    ``LAUNCH_COST_TRAIN`` through ``dryrun_cell`` on the card's torch:
+    yi-6b, mamba2-370m, Jamba-v0.1, DeepSeek-V2 and whisper-large-v3
+    on (16, 16) and DeepSeek-V2 on (2, 16, 16), each cut to one layer
+    of each kind (Jamba and V2 on (16, 16) in two microbatches), the
+    cut its ``reduced``; fails unless every cell is ``ok`` (no view of a
+    DTensor refused), and prints each one's trace seconds, peak GiB a
+    rank and dominant roofline term.
 22g. ``lint``: the port's lint suite (``repro_torch.analysis``) held to
     the card, last of the phases.  It lints the default paths and
     requires no finding; calls each library's shared-memory size query
@@ -6527,33 +6534,78 @@ def _ops_vs_ctypes(dev) -> dict:
     return out
 
 
+#: launch_cost's train cells, on the dry run's fake ranks: (arch, two
+#: pods, microbatch or None for the arch's own), each at full width cut
+#: to one layer of each kind (``dryrun.cut_depth``); one cell a site
+#: family on (16, 16) — the attention projections, mamba's chunk views,
+#: the sequence-sharded norm with MoE and mamba, MLA with the
+#: expert-parallel MoE, whisper's embedding — and DeepSeek-V2 on
+#: (2, 16, 16) at its own 16 rows a microbatch, fewer than the 32
+#: ("pod", "data") ranks
+LAUNCH_COST_TRAIN = (("yi-6b", False, None), ("mamba2-370m", False, None),
+                     ("jamba-v0.1-52b", False, 128),
+                     ("deepseek-v2-236b", False, 128),
+                     ("whisper-large-v3", False, None),
+                     ("deepseek-v2-236b", True, None))
+
+_TRAIN_CELL = r"""
+import dataclasses, json, sys
+from pathlib import Path
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import dryrun as dr
+
+arch, multi, mb, out = (sys.argv[1], sys.argv[2] == "multi",
+                        json.loads(sys.argv[3]), sys.argv[4])
+cfg = get_config(arch)
+cut = dr.cut_depth(cfg)
+run = dr.run_config(cut, SHAPES["train_4k"])
+cut_run = run if mb is None else dataclasses.replace(run, microbatch=mb)
+dr.dryrun_cell(arch, "train_4k", multi, Path(out), cfg=cut, run=cut_run,
+               reduced=dr.reduced_note(cfg, cut, run, cut_run))
+"""
+
+
 def run_launch_cost(dev):
     """The launch layer's cost tools on the card (module docstring,
     22f): Yi-6B whole under ``OpCostMode`` against the smoke's formulas,
     the registered ops against their ctypes calls, the norm's host cost
-    a call both ways, and the dry run of yi-6b × decode_32k on the host
-    in a subprocess started first."""
+    a call both ways, and on the host in subprocesses started first the
+    dry run of yi-6b × decode_32k and of the ``LAUNCH_COST_TRAIN``
+    cells."""
     import os
 
     t_start = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
-        dry = subprocess.Popen(
+        procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              "yi-6b", "--shape", "decode_32k", "--mesh", "single", "--force",
              "--out", tmp],
-            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)]
+        procs += [subprocess.Popen(
+            [sys.executable, "-c", _TRAIN_CELL, arch,
+             "multi" if multi else "single", json.dumps(mb), tmp],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for arch, multi, mb in LAUNCH_COST_TRAIN]
         try:
             card = _launch_cost_card(dev)
-            log, _ = dry.communicate(timeout=300)
+            logs = [p.communicate(timeout=300)[0] for p in procs]
         finally:
-            if dry.poll() is None:
-                dry.kill()
-                dry.wait()
-        check(dry.returncode == 0, f"dry run exited {dry.returncode}: "
-                                   f"{log[-2000:]}")
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            check(p.returncode == 0, f"dry run exited {p.returncode}: "
+                                     f"{log[-2000:]}")
         rec = json.loads((Path(tmp) / "single" / "yi-6b" /
                           "decode_32k.json").read_text())
+        trains = [json.loads((Path(tmp) / ("multi" if multi else "single")
+                              / arch / "train_4k.json").read_text())
+                  for arch, multi, _ in LAUNCH_COST_TRAIN]
     check(rec["status"] == "ok", f"dry run cell: {rec.get('error')}")
     peak = rec["memory"]["peak_bytes_per_device"]
     card["dryrun"] = {
@@ -6565,7 +6617,19 @@ def run_launch_cost(dev):
         "collectives": rec["collectives"],
         "peak_gib_per_rank": peak / 2**30,
         "hbm_budget_ok": rec["hbm_budget_ok"], "chip": rec["chip"],
-        "log_tail": log.strip().splitlines()[-1:]}
+        "log_tail": logs[0].strip().splitlines()[-1:]}
+    card["train_cells"] = []
+    for t in trains:
+        cell = f"{t['arch']} × train_4k × {t['mesh']}"
+        check(t["status"] == "ok",
+              f"dry run {cell}: {t.get('error')} {t.get('traceback')}")
+        card["train_cells"].append({
+            "cell": cell, "reduced": t["reduced"], "chips": t["chips"],
+            "trace_s": t["trace_s"],
+            "peak_gib_per_rank": t["memory"]["peak_bytes_per_device"] / 2**30,
+            "dominant": t["roofline"]["dominant"],
+            "hbm_budget_ok": t["hbm_budget_ok"],
+            "useful_compute_ratio": t["useful_compute_ratio"]})
     card["seconds"] = time.monotonic() - t_start
     return card
 

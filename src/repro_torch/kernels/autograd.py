@@ -45,6 +45,11 @@ def plain_backward(name: str, ref, inputs, needs, grad_outputs, **kw):
         outs = ref(*leaves, **kw)
         outs = outs if isinstance(outs, tuple) else (outs,)
         wrt = [t for t, n in zip(leaves, needs) if n]
-        grads = iter(torch.autograd.grad(outs, wrt, grad_outputs,
-                                         allow_unused=True))
+        # an output no needed input reaches (the residual sum of two
+        # inputs that need no grad) takes no part
+        used = [(o, g) for o, g in zip(outs, grad_outputs)
+                if o.requires_grad and g is not None]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in used], wrt, [g for _, g in used],
+            allow_unused=True))
     return tuple(next(grads) if n else None for n in needs)

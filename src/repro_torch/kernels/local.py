@@ -20,8 +20,9 @@ The placements each kernel is parallel over:
   its own kv heads (``KH`` divisible by the heads' mesh size), else
   they are replicated there and each rank slices the kv heads its q
   heads use (``_kv_for_heads``);
-* ``rmsnorm_residual``, x and res (N, d): rows; ``d`` replicated, the
-  scale replicated;
+* ``rmsnorm_residual``, x and res (..., d): every dim but ``d`` (the
+  batch and sequence of the model's (B, S, d), each rank's rows
+  flattened on its own shard); ``d`` replicated, the scale replicated;
 * ``ssd_chunk``, (BC, H, Q, ·): batch·chunks and heads.
 
 An input replicated over a mesh axis that splits the work (the norm's
@@ -150,16 +151,21 @@ def attention_local(attn: Callable, q: DTensor, k, v, causal: bool):
 
 
 def rmsnorm_local(norm: Callable, x: DTensor, res, scale, eps: float):
-    """``norm`` on row shards: x and res (N, d) over rows, d and the
-    scale replicated."""
+    """``norm`` on row shards: x and res (..., d) over every dim but d,
+    d and the scale replicated.  Each rank flattens its own rows: a
+    flatten of the DTensor would merge two sharded dims (a batch and a
+    sequence both sharded), which torch refuses."""
     mesh = x.device_mesh
-    xp = keep_shards(x, (0,))
+    xp = keep_shards(x, range(x.ndim - 1))
     rep = (Replicate(),) * mesh.ndim
     x, res, scale = (place(x, xp), place(res, xp, mesh),
                      place(scale, rep, mesh))
 
     def fn(xl, rl, sl):
-        return norm(xl, rl, sl, eps)
+        shape, d = xl.shape, xl.shape[-1]
+        h, s = norm(xl.reshape(-1, d).contiguous(),
+                    rl.reshape(-1, d).contiguous(), sl, eps)
+        return h.reshape(shape), s.reshape(shape)
 
     return run_local("rmsnorm_residual", fn, mesh, (x, res, scale),
                      (xp, xp, rep), (xp, xp),

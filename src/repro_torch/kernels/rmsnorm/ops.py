@@ -50,7 +50,7 @@ class RMSNormResidual(torch.autograd.Function):
 def rmsnorm_residual(x: torch.Tensor, res: torch.Tensor,
                      scale: torch.Tensor, eps: float = 1e-5):
     """(normed(x + res), x + res) over the last axis; x and res (N, d),
-    scale (d,).  Both outputs in x's dtype."""
+    on a DTensor (..., d), scale (d,).  Both outputs in x's dtype."""
     if is_dtensor(x):
         return rmsnorm_local(rmsnorm_residual, x, res, scale, eps)
     if x.device.type == "cpu":

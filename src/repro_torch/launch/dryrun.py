@@ -41,14 +41,19 @@ a cell runs.
 
 A train cell runs autograd on fake CUDA tensors: a build without CUDA
 aborts there for want of a device guard, so ``check_trainable`` refuses
-it; torch 2.11's DTensor (the card's build) refuses the views that
-split or merge a sharded dim at (16, 16), and the record keeps its
-error.
+it.  The same cell runs on fake CPU tensors over a mesh on ``cpu``
+(``dryrun_cell(..., device="cpu")``), as the CPU tests run it.  The
+model places every tensor it views (``sharding/rules.py::contract``,
+the kernels' ``local_map`` regions, the MoE's token flatten), so that
+no view of a DTensor splits or merges a sharded dim: torch 2.11 (the
+card's build) refuses such views, and 2.13 forms strided shards for
+them.  ``cut_depth`` keeps one layer of each kind of an arch, for cells
+checked at cut depth; their records say so under ``reduced``.
 
-Usage (serving cells on any machine, no card needed):
+Usage (serving cells on any machine, train cells on the card's):
 
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k --mesh single
-    python -m repro_torch.launch.dryrun --all
+    python -m repro_torch.launch.dryrun --all --jobs 7
     python -m repro_torch.launch.dryrun --summarize
 """
 from __future__ import annotations
@@ -66,6 +71,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ALL_ARCHS, RunConfig, get_config
+from repro_torch.configs.base import BlockDef
 from repro_torch.configs.shapes import SHAPES, cell_is_runnable, input_specs
 from repro_torch.launch.hw import H100_SXM
 from repro_torch.launch.mesh import make_production_mesh
@@ -139,14 +145,15 @@ def cast_schema(schema, dtype: torch.dtype):
 
 def placed_fake(shape, dtype, sharding) -> DTensor:
     """A DTensor of global ``shape`` at ``sharding``'s placements over an
-    empty CUDA tensor of this rank's shard shape (a fake tensor under
-    ``FakeTensorMode``)."""
+    empty tensor of this rank's shard shape on the mesh's device type (a
+    fake tensor under ``FakeTensorMode``)."""
     shape = tuple(shape)
     local, _ = local_shape_and_offset(shape, sharding.mesh,
                                       sharding.placements)
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(
-        torch.empty(local, dtype=dtype, device="cuda"), sharding.mesh,
+        torch.empty(local, dtype=dtype, device=sharding.mesh.device_type),
+        sharding.mesh,
         sharding.placements, run_check=False, shape=shape, stride=stride)
 
 
@@ -277,53 +284,22 @@ def fake_world(world_size: int):
 
 
 @contextlib.contextmanager
-def _real_strided_offsets():
-    """DTensor's ``_StridedShard`` (a sharded dim merged with another by
-    a reshape) finds a rank's offsets by indexing an ``arange``, which a
-    fake tensor mode would make fake and then fail to read; while
-    entered that small host computation runs on real tensors."""
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-    from torch.distributed.tensor.placement_types import _StridedShard
-
-    # the method's name moved between torch releases
-    names = [n for n in ("local_shard_size_and_offset",
-                         "_local_shard_size_and_offset")
-             if callable(_StridedShard.__dict__.get(n))
-             and not isinstance(_StridedShard.__dict__[n], staticmethod)]
-    saved = {n: _StridedShard.__dict__[n] for n in names}
-
-    def real(orig):
-        def run(*args, **kwargs):
-            with unset_fake_temporarily():
-                return orig(*args, **kwargs)
-        return run
-
-    for n in names:
-        setattr(_StridedShard, n, real(saved[n]))
-    try:
-        yield
-    finally:
-        for n in names:
-            setattr(_StridedShard, n, saved[n])
-
-
-@contextlib.contextmanager
 def fake_cuda():
     """Fake tensors (``FakeTensorMode``) with CUDA indexing that needs no
-    card (``cuda_methods_without_card``) and DTensor's strided shards'
-    offsets computed on real host tensors (``_real_strided_offsets``)."""
+    card (``cuda_methods_without_card``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode(allow_non_fake_inputs=True) as mode, \
-            cuda_methods_without_card(), _real_strided_offsets():
+            cuda_methods_without_card():
         yield mode
 
 
-def check_trainable() -> None:
+def check_trainable(device="cuda") -> None:
     """Raise where a train cell cannot run: on a build without CUDA the
     autograd engine needs a CUDA device guard for a fake CUDA tensor's
-    gradient and aborts the process without one."""
-    if not torch.cuda.is_available():
+    gradient and aborts the process without one.  Fake CPU tensors
+    train anywhere."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "a train cell runs autograd on fake CUDA tensors, which needs "
             "a build with CUDA (the card's machine); serving cells run "
@@ -333,6 +309,33 @@ def check_trainable() -> None:
 # ---------------------------------------------------------------------------
 # Cells
 # ---------------------------------------------------------------------------
+
+
+def cut_depth(cfg):
+    """``cfg`` at full width with one layer of each kind: each block's
+    pattern cut to its distinct (mixer, mlp) kinds, repeated once, and
+    an encoder of as many layers (Jamba's period of 8 becomes (mamba,
+    dense), (mamba, moe), (attn, dense); DeepSeek keeps its dense layer
+    and one MoE layer)."""
+    blocks = tuple(BlockDef(pattern=tuple(dict.fromkeys(b.pattern)),
+                            repeat=1) for b in cfg.blocks)
+    n = sum(b.layers for b in blocks)
+    return dataclasses.replace(
+        cfg, num_layers=n, blocks=blocks,
+        encoder_layers=min(cfg.encoder_layers, n))
+
+
+def reduced_note(cfg, cut, run=None, cut_run=None) -> str:
+    """What a cut keeps of a cell: its layers and, where the microbatch
+    changed, the accumulation steps."""
+    note = f"{cfg.num_layers} -> {cut.num_layers} layers"
+    if cfg.encoder_layers:
+        note += (f", encoder {cfg.encoder_layers} -> "
+                 f"{cut.encoder_layers}")
+    if run is not None and cut_run is not None \
+            and cut_run.microbatch != run.microbatch:
+        note += f", microbatch {run.microbatch} -> {cut_run.microbatch}"
+    return note
 
 
 def build_cell(arch: str, shape_name: str, mesh, cfg=None, run=None):
@@ -375,6 +378,22 @@ def build_cell(arch: str, shape_name: str, mesh, cfg=None, run=None):
     return serve_step.build_decode(cfg, rules), (params, cache, inputs)
 
 
+def warm_args(cfg, shape_name: str, run, mesh, args):
+    """The arguments that warm a cell up (``run_cell``): a train cell's
+    state with a batch of two microbatches, where the cell accumulates
+    more (every op and placement of the step, its microbatch loop too,
+    at the cell's shapes: DTensor's propagation cache then holds them
+    all); any other cell's own arguments."""
+    shape = SHAPES[shape_name]
+    mb = run.microbatch
+    if shape.kind != "train" or not mb or 2 * mb >= shape.global_batch:
+        return args
+    small = dataclasses.replace(shape, global_batch=2 * mb)
+    specs = input_specs(cfg, small)
+    rules = cell_rules(cfg, shape, run, mesh)
+    return (args[0], placed_fakes(specs, ts.batch_shardings(specs, rules)))
+
+
 def _leaves(args) -> list:
     return [t for a in args for t in tree_leaves(a)]
 
@@ -384,15 +403,15 @@ def _nbytes(args) -> int:
                for t in _leaves(args) if isinstance(t, DTensor))
 
 
-def run_cell(fn, args, mesh) -> tuple[dict, dict, float]:
-    """Run ``fn(*args)`` once to fill DTensor's sharding-propagation
-    cache (its first sight of an op runs it on fake tensors of the
-    global shapes, which no rank allocates), then once under
-    ``OpCostMode`` and ``MemTracker``: (cost, memory, seconds of the
-    second run)."""
+def run_cell(fn, args, mesh, warm=None) -> tuple[dict, dict, float]:
+    """Run ``fn(*warm)`` (``warm_args``; ``args`` by default) once to
+    fill DTensor's sharding-propagation cache (its first sight of an op
+    runs it on fake tensors of the global shapes, which no rank
+    allocates), then ``fn(*args)`` once under ``OpCostMode`` and
+    ``MemTracker``: (cost, memory, seconds of the second run)."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
-    fn(*args)
+    fn(*(args if warm is None else warm))
     mt = MemTracker()
     mt.track_external(*[t.to_local() for t in _leaves(args)
                         if isinstance(t, DTensor)])
@@ -407,14 +426,22 @@ def run_cell(fn, args, mesh) -> tuple[dict, dict, float]:
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
-                out_dir: Path = ARTIFACTS, verbose: bool = True) -> dict:
-    cfg = get_config(arch)
+                out_dir: Path = ARTIFACTS, verbose: bool = True, *,
+                cfg=None, run=None, device="cuda",
+                reduced: str | None = None) -> dict:
+    """One cell's record, written under ``out_dir``.  ``cfg`` and
+    ``run`` replace the arch's own (a cut, noted as ``reduced``);
+    ``device`` is the mesh's and the fake tensors' (``cpu`` trains
+    on any build)."""
+    cfg = get_config(arch) if cfg is None else cfg
     shape = SHAPES[shape_name]
     mesh_name = "multi" if multi_pod else "single"
     rec: dict = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "kind": shape.kind,
     }
+    if reduced:
+        rec["reduced"] = reduced
     ok, why = cell_is_runnable(cfg, shape)
     if not ok:
         rec["status"] = "skipped"
@@ -425,13 +452,17 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     chips = 512 if multi_pod else 256
     try:
         if shape.kind == "train":
-            check_trainable()
+            check_trainable(device)
         with fake_world(chips):
             # the mesh's rank table is real: built before the fake mode
-            mesh = make_production_mesh(multi_pod=multi_pod)
+            mesh = make_production_mesh(multi_pod=multi_pod, device=device)
             with fake_cuda():
-                fn, args = build_cell(arch, shape_name, mesh)
-                hc, mem, trace_s = run_cell(fn, args, mesh)
+                run = run_config(cfg, shape) if run is None else run
+                fn, args = build_cell(arch, shape_name, mesh, cfg=cfg,
+                                      run=run)
+                hc, mem, trace_s = run_cell(
+                    fn, args, mesh,
+                    warm_args(cfg, shape_name, run, mesh, args))
     except Exception as e:
         rec["status"] = "error"
         rec["error"] = repr(e)
@@ -531,6 +562,26 @@ def summarize(out_dir: Path = ARTIFACTS) -> str:
     return "\n".join(lines)
 
 
+def run_jobs(fn, tasks, jobs: int = 1) -> list:
+    """``fn(*task)`` for each task: in this process one after another,
+    or with ``jobs`` > 1 in spawned processes, one a task (a fake world
+    is global to its process), ``jobs`` at a time."""
+    if jobs <= 1:
+        return [fn(*t) for t in tasks]
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max_workers=jobs,
+                             mp_context=mp.get_context("spawn"),
+                             max_tasks_per_child=1) as ex:
+        futs = [ex.submit(fn, *t) for t in tasks]
+        return [f.result() for f in futs]
+
+
+def _cell_job(arch: str, shape: str, multi: bool, out: str) -> dict:
+    return dryrun_cell(arch, shape, multi, Path(out))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -541,6 +592,8 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true",
                     help="recompute cells that already have artifacts")
     ap.add_argument("--summarize", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, one process each")
     ap.add_argument("--out", default=str(ARTIFACTS))
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
@@ -557,6 +610,7 @@ def main(argv=None):
     if not (args.all or args.arch or args.shape):
         ap.error("pass --all or --arch/--shape")
 
+    tasks = []
     for multi in meshes:
         for arch in archs:
             for shape in shapes:
@@ -570,7 +624,8 @@ def main(argv=None):
                     if prev.get("status") in ("ok", "skipped"):
                         print(f"[dryrun] cached: {p}", flush=True)
                         continue
-                dryrun_cell(arch, shape, multi, out_dir)
+                tasks.append((arch, shape, multi, str(out_dir)))
+    run_jobs(_cell_job, tasks, args.jobs)
 
 
 if __name__ == "__main__":

@@ -14,16 +14,19 @@ name.  Their hypotheses state each mechanism and no figure: the JAX
 package's figures are predictions for its TPU target, and the port's
 own come from its dry run's records.  All 15 are train cells, which
 need a build with CUDA (``dryrun.check_trainable``, the card's
-machine); ``--list`` runs anywhere.
+machine); ``--list`` runs anywhere.  Each record has a ``status``: "ok", or
+"error" with the error and its traceback.
 
     python -m repro_torch.launch.perf --list
     python -m repro_torch.launch.perf --run dsv3-ep
+    python -m repro_torch.launch.perf --run --jobs 7     # all 15
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import traceback
 from pathlib import Path
 
 from repro_torch.configs import get_config
@@ -207,9 +210,10 @@ EXPERIMENTS = {
 
 
 def build_variant(exp: Experiment, mesh):
-    """``(cfg, shape, mesh, fn, args)`` of an experiment: the step and
-    its placed fake inputs on ``mesh``, the production mesh of
-    ``exp.mesh`` (built before the fake mode).  Call it under
+    """``(cfg, shape, mesh, fn, args, warm)`` of an experiment: the step,
+    its placed fake inputs on ``mesh`` (the production mesh of
+    ``exp.mesh``, built before the fake mode) and the arguments that
+    warm it up (``dr.warm_args``; None: ``args``).  Call it under
     ``dr.fake_cuda()`` in a fake world (``dr.fake_world``)."""
     cfg = get_config(exp.arch)
     if exp.cfg_fn:
@@ -229,30 +233,46 @@ def build_variant(exp: Experiment, mesh):
         state = dr.placed_fakes(ts.state_schema(cfg, run, opt), state_sh)
         batch = dr.placed_fakes(in_specs,
                                 ts.batch_shardings(in_specs, rules))
-        return cfg, shape, mesh, fn, (state, batch)
+        return cfg, shape, mesh, fn, (state, batch), None
     fn, args = dr.build_cell(exp.arch, exp.shape, mesh, cfg=cfg, run=run)
-    return cfg, shape, mesh, fn, args
+    return (cfg, shape, mesh, fn, args,
+            dr.warm_args(cfg, exp.shape, run, mesh, args))
 
 
 def run_experiment(exp: Experiment, out_root: Path = ARTIFACTS) -> dict:
+    """The experiment's record, written under ``out_root``: ``status``
+    "ok" with the dry run's cost, memory and roofline, or "error" with
+    the error and its traceback."""
     chips = 512 if exp.mesh == "multi" else 256
-    if SHAPES[exp.shape].kind == "train":
-        dr.check_trainable()
-    with dr.fake_world(chips):
-        mesh = make_production_mesh(multi_pod=exp.mesh == "multi")
-        with dr.fake_cuda():
-            cfg, shape, mesh, fn, args = build_variant(exp, mesh)
-            hc, mem, trace_s = dr.run_cell(fn, args, mesh)
+    rec = {
+        "experiment": exp.name,
+        "hypothesis": exp.hypothesis,
+        "arch": exp.arch, "shape": exp.shape, "mesh": exp.mesh,
+    }
+    out = out_root / f"{exp.arch}.{exp.shape}.{exp.mesh}"
+    out.mkdir(parents=True, exist_ok=True)
+    try:
+        if SHAPES[exp.shape].kind == "train":
+            dr.check_trainable()
+        with dr.fake_world(chips):
+            mesh = make_production_mesh(multi_pod=exp.mesh == "multi")
+            with dr.fake_cuda():
+                cfg, shape, mesh, fn, args, warm = build_variant(exp, mesh)
+                hc, mem, trace_s = dr.run_cell(fn, args, mesh, warm)
+    except Exception as e:
+        rec.update(status="error", error=repr(e),
+                   traceback=traceback.format_exc()[-4000:])
+        (out / f"{exp.name}.json").write_text(json.dumps(rec, indent=1))
+        print(f"[perf] {exp.name}: ERROR {e!r}", flush=True)
+        return rec
     rl = roofline_terms(hc["flops"], hc["hbm_bytes"], hc, chip=H100_SXM)
     total, active = M.param_counts(cfg)
     tokens = shape.global_batch * (
         shape.seq_len if shape.kind in ("train", "prefill") else 1
     )
     mf = model_flops(active, tokens, train=shape.kind == "train") / chips
-    rec = {
-        "experiment": exp.name,
-        "hypothesis": exp.hypothesis,
-        "arch": exp.arch, "shape": exp.shape, "mesh": exp.mesh,
+    rec.update({
+        "status": "ok",
         "trace_s": round(trace_s, 1),
         "hlo_flops_per_dev": hc["flops"],
         "hlo_bytes_per_dev": hc["hbm_bytes"],
@@ -265,9 +285,7 @@ def run_experiment(exp: Experiment, out_root: Path = ARTIFACTS) -> dict:
         "roofline": rl,
         "chip": H100_SXM.name,
         "useful_compute_ratio": mf / hc["flops"] if hc["flops"] else 0,
-    }
-    out = out_root / f"{exp.arch}.{exp.shape}.{exp.mesh}"
-    out.mkdir(parents=True, exist_ok=True)
+    })
     (out / f"{exp.name}.json").write_text(json.dumps(rec, indent=1))
     print(
         f"[perf] {exp.name}: dom={rl['dominant']} "
@@ -279,19 +297,29 @@ def run_experiment(exp: Experiment, out_root: Path = ARTIFACTS) -> dict:
     return rec
 
 
+def _run_named(name: str, out: str) -> dict:
+    return run_experiment(EXPERIMENTS[name], Path(out))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--run", nargs="+", default=None)
+    ap.add_argument("--run", nargs="*", default=None,
+                    help="experiments to run (none named: all 15)")
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="experiments run at once, one process each")
     ap.add_argument("--out", default=str(ARTIFACTS))
     args = ap.parse_args(argv)
-    if args.list or not args.run:
+    if args.list or args.run is None:
         for name, e in EXPERIMENTS.items():
             print(f"{name}: [{e.arch} × {e.shape} × {e.mesh}] "
                   f"{e.hypothesis[:90]}")
         return
-    for name in args.run:
-        run_experiment(EXPERIMENTS[name], Path(args.out))
+    names = args.run or list(EXPERIMENTS)
+    for name in names:
+        if name not in EXPERIMENTS:
+            ap.error(f"no experiment {name!r}")
+    dr.run_jobs(_run_named, [(n, args.out) for n in names], args.jobs)
 
 
 if __name__ == "__main__":

@@ -31,13 +31,18 @@ A logit soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import param, zeros_param
-from repro_torch.sharding.rules import replicate_dims, shard, write_along
+from repro_torch.sharding.rules import (
+    contract,
+    replicate_dims,
+    shard,
+    shard_count,
+    write_along,
+)
 
 NEG_INF = -1e30
 
@@ -77,15 +82,26 @@ def _no_softcap(cfg: ModelConfig) -> None:
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) @ w (d, heads, Dh) -> (..., heads, Dh)."""
-    d, nh, dh = w.shape
-    return (x @ w.reshape(d, nh * dh)).unflatten(-1, (nh, dh))
+    """x (..., d) @ w (d, heads, Dh) -> (..., heads, Dh).  On DTensors
+    on local shards, the weight kept 3-D as the JAX package contracts
+    it: a view of the product would split its last dim into heads where
+    DTensor's matmul shards it across a head (kv heads that the rules
+    replicate), which torch refuses."""
+    def fn(xl, wl):
+        d, nh, dh = wl.shape
+        return (xl @ wl.reshape(d, nh * dh)).unflatten(-1, (nh, dh))
+
+    return contract(fn, x, w)
 
 
 def _out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """ctx (..., H, Dh) @ wo (H, Dh, d) -> (..., d)."""
-    nh, dh, d = w.shape
-    return ctx.flatten(-2) @ w.reshape(nh * dh, d)
+    """ctx (..., H, Dh) @ wo (H, Dh, d) -> (..., d); on DTensors on
+    local shards (each rank merges its own heads with Dh)."""
+    def fn(cl, wl):
+        nh, dh, d = wl.shape
+        return cl.flatten(-2) @ wl.reshape(nh * dh, d)
+
+    return contract(fn, ctx, w, 2)
 
 
 def apply_attn_full(
@@ -141,13 +157,8 @@ def _kv_groups(q: torch.Tensor, KH: int) -> torch.Tensor:
     heads on a 4-way "model" axis) is gathered over its heads first;
     GSPMD reshards the JAX package's reshape the same way."""
     B, H, Dh = q.shape
-    if isinstance(q, DTensor):
-        n = 1
-        for i, p in enumerate(q.placements):
-            if isinstance(p, Shard) and p.dim % q.ndim == 1:
-                n *= q.device_mesh.size(i)
-        if KH % n:
-            q = replicate_dims(q, 1)
+    if KH % shard_count(q, 1):
+        q = replicate_dims(q, 1)
     return q.reshape(B, KH, H // KH, Dh)
 
 

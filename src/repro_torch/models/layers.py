@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import (
@@ -30,7 +32,12 @@ from repro_torch.models.params import (
     scale_param,
     zeros_param,
 )
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import (
+    local_shape_and_offset,
+    mm,
+    place,
+    shard,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -86,13 +93,13 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.cdtype
     x = x.to(dt)
     if cfg.mlp_act == "swiglu":
-        h = F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
+        h = F.silu(mm(x, p["gate"].to(dt))) * mm(x, p["up"].to(dt))
     elif cfg.mlp_act == "relu2":
-        h = torch.square(F.relu(x @ p["up"].to(dt)))
+        h = torch.square(F.relu(mm(x, p["up"].to(dt))))
     else:  # gelu
-        h = F.gelu(x @ p["up"].to(dt), approximate="tanh")
+        h = F.gelu(mm(x, p["up"].to(dt)), approximate="tanh")
     h = shard(h, "batch", *(None,) * (h.ndim - 2), "mlp")
-    return h @ p["down"].to(dt)
+    return mm(h, p["down"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +194,48 @@ def embed_schema(cfg: ModelConfig):
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens].to(cfg.cdtype)
+    w = p["embed"]
+    if isinstance(w, DTensor):
+        return _embed_shards(w, tokens).to(cfg.cdtype)
+    return w[tokens].to(cfg.cdtype)
+
+
+def _embed_shards(w: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``w[tokens]`` on local shards (``local_map``), as Megatron's
+    vocab-parallel embedding: each rank of a mesh dim that shards the
+    vocabulary looks up the tokens its rows hold, zeros for the rest,
+    and the rows are a sum there (exact: one term is not zero); the
+    tokens keep their batch shards elsewhere.  A DTensor index refuses
+    tokens sharded over two mesh dims and its backward's ``index_put``
+    a sharded table, in torch 2.11."""
+    mesh = w.device_mesh
+    vocab = {j for j, q in enumerate(w.placements)
+             if isinstance(q, Shard) and q.dim % w.ndim == 0}
+    wp = tuple(Shard(0) if j in vocab else Replicate()
+               for j in range(mesh.ndim))
+    tp = tuple(Replicate() if j in vocab or not isinstance(q, Shard) else q
+               for j, q in enumerate(tokens.placements)) \
+        if isinstance(tokens, DTensor) else (Replicate(),) * mesh.ndim
+    out = [Partial() if j in vocab else tp[j] for j in range(mesh.ndim)]
+    wg = tuple(wp[j] if j in vocab else
+               Partial() if isinstance(tp[j], Shard) else Replicate()
+               for j in range(mesh.ndim))
+    v0 = local_shape_and_offset(w.shape, mesh, wp)[1][0] if vocab else 0
+
+    def fn(wl, tl):
+        if not vocab:
+            return wl[tl]
+        ids = tl - v0
+        inside = (ids >= 0) & (ids < wl.shape[0])
+        rows = wl[torch.where(inside, ids, torch.zeros_like(ids))]
+        return rows * inside[..., None].to(rows.dtype)
+
+    return local_map(fn, out_placements=out, in_placements=(wp, tp),
+                     in_grad_placements=(wg, tp), device_mesh=mesh)(
+        place(w, wp), place(tokens, tp, mesh))
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) -> logits (..., V), fp32."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    return (x.to(cfg.cdtype) @ w.to(cfg.cdtype)).to(torch.float32)
+    return mm(x.to(cfg.cdtype), w.to(cfg.cdtype)).to(torch.float32)

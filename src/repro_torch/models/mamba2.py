@@ -24,8 +24,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.local import keep_shards, run_local, split_grads
 from repro_torch.kernels.ssd.ops import ssd_chunk
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import (
@@ -36,7 +38,7 @@ from repro_torch.models.params import (
     scale_param,
     zeros_param,
 )
-from repro_torch.sharding.rules import local_along, shard
+from repro_torch.sharding.rules import einsum, local_along, mm, place, shard
 
 
 def _dims(cfg: ModelConfig):
@@ -138,8 +140,10 @@ def _conv_step(x_new: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
 
 def _tail(a: torch.Tensor, cw: int) -> torch.Tensor:
     """The last ``cw`` rows of a (B,S,C), zero-padded in front when
-    S < cw (the conv's zeros before the prompt)."""
-    return F.pad(a, (0, 0, cw, 0))[:, -cw:]
+    S < cw (the conv's zeros before the prompt).  Along S alone, on
+    local shards: torch 2.11 fails to redistribute the pad's input on a
+    DTensor."""
+    return local_along(lambda t: F.pad(t, (0, 0, cw, 0))[:, -cw:], a, 1)
 
 
 def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
@@ -150,11 +154,11 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     B_, S, _ = x.shape
     x = x.to(dt_c)
     w = _weights(p, dt_c)
-    z = x @ w["wz"]
-    xs_raw = x @ w["wx"]
-    b_raw = x @ w["wb"]
-    c_raw = x @ w["wc"]
-    dt_in = x @ w["wdt"]
+    z = mm(x, w["wz"])
+    xs_raw = mm(x, w["wx"])
+    b_raw = mm(x, w["wb"])
+    c_raw = mm(x, w["wc"])
+    dt_in = mm(x, w["wdt"])
     xs = F.silu(_causal_conv(xs_raw, w["conv_x"], w["conv_x_bias"]))
     bs = F.silu(_causal_conv(b_raw, w["conv_b"], w["conv_b_bias"]))
     cs = F.silu(_causal_conv(c_raw, w["conv_c"], w["conv_c_bias"]))
@@ -170,7 +174,7 @@ def apply_mamba_full(cfg: ModelConfig, p, x: torch.Tensor, *, cache=None):
     y = y + xs * w["D"][None, None, :, None]
     y = y.reshape(B_, S, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = shard(y @ w["out"], "batch", None, "d_model")
+    out = shard(mm(y, w["out"]), "batch", None, "d_model")
     if cache is not None:
         cw = s.d_conv - 1
         cache["conv_x"].copy_(_tail(xs_raw, cw))
@@ -194,7 +198,50 @@ def ssd_chunked(xs, bs, cs, dt, dA, *, chunk: int, n_heads: int):
     """Chunked SSD.  xs (B,S,H,P), bs/cs (B,S,G,N), dt/dA (B,S,H).
 
     Returns y (B,S,H,P) in xs's dtype and the final state (B,H,N,P)
-    f32."""
+    f32.  On DTensors the whole of it runs on local shards
+    (``_ssd_on_shards``)."""
+    if isinstance(xs, DTensor):
+        return _ssd_on_shards(xs, bs, cs, dt, dA, chunk=chunk)
+    return _ssd_chunked(xs, bs, cs, dt, dA, chunk=chunk, n_heads=n_heads)
+
+
+def _ssd_on_shards(xs, bs, cs, dt, dA, *, chunk: int):
+    """``ssd_chunked`` on (batch, head) shards through ``local_map``,
+    the sequence gathered: the chunk views split the sequence and merge
+    the batch with the chunks and heads, which torch refuses on sharded
+    dims.  B and C follow the heads' shards where their groups split
+    with them, else they are replicated there (one group: every head
+    reads it); heads whose groups cannot split are gathered.  Counted
+    as the SSD kernel's ``local_map`` branch."""
+    mesh = xs.device_mesh
+    G = bs.shape[2]
+    p = keep_shards(xs, (0, 2))                # (B, S, H, P): batch, heads
+    batch = tuple(q if q == Shard(0) else Replicate() for q in p)
+    heads_m = 1
+    for j, q in enumerate(p):
+        if q == Shard(2):
+            heads_m *= mesh.size(j)
+    if G % heads_m == 0:
+        pb = p
+    elif G == 1:
+        pb = batch
+    else:
+        p = pb = batch
+    ph = tuple(Shard(1) if q == Shard(2) else q for q in p)   # (B,H,N,P)
+    bg = split_grads(pb, p)
+
+    def fn(xl, bl, cl, dtl, dAl):
+        return _ssd_chunked(xl, bl, cl, dtl, dAl, chunk=chunk,
+                            n_heads=xl.shape[2])
+
+    args = (place(xs, p), place(bs, pb, mesh), place(cs, pb, mesh),
+            place(dt, p, mesh), place(dA, p, mesh))
+    return run_local("ssd_chunk", fn, mesh, args, (p, pb, pb, p, p),
+                     (p, ph), (p, bg, bg, p, p))
+
+
+def _ssd_chunked(xs, bs, cs, dt, dA, *, chunk: int, n_heads: int):
+    """``ssd_chunked`` on plain tensors."""
     B_, S, H, P = xs.shape
     G, N = bs.shape[2], bs.shape[3]
     if H != n_heads or H % G:
@@ -274,7 +321,8 @@ def apply_mamba_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     h = cache["state"]                                      # (B,H,N,P) f32
     upd = torch.einsum("bhn,bhp->bhnp", bs.float(), xs.float() * dt[..., None])
     h = h * dA[..., None, None] + upd
-    y = torch.einsum("bhn,bhnp->bhp", cs.float(), h).to(dt_c)
+    # on (batch, head) shards: the einsum's bmm would merge the two
+    y = einsum("bhn,bhnp->bhp", cs.float(), h).to(dt_c)
     y = y + xs * w["D"][None, :, None]
     y = y.reshape(B_, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

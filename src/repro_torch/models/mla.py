@@ -36,7 +36,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import NEG_INF, _out, _project
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import param, scale_param, zeros_param
-from repro_torch.sharding.rules import shard, write_along
+from repro_torch.sharding.rules import mm, shard, write_along
 
 
 def mla_schema(cfg: ModelConfig):
@@ -78,7 +78,7 @@ def _project_q(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) -> q (..., H, nope + rope)."""
     dt = cfg.cdtype
     if cfg.mla.q_lora_rank:
-        qa = rms_norm(x @ p["wq_a"].to(dt), p["q_norm"], cfg.norm_eps)
+        qa = rms_norm(mm(x, p["wq_a"].to(dt)), p["q_norm"], cfg.norm_eps)
         return _project(qa, p["wq_b"].to(dt))
     return _project(x, p["wq"].to(dt))
 
@@ -87,7 +87,7 @@ def _latent(cfg: ModelConfig, p, x: torch.Tensor):
     """x (..., d) -> (ckv (..., R) after ``kv_norm``, k_pe (..., rope)
     before RoPE)."""
     R = cfg.mla.kv_lora_rank
-    kv_a = x @ p["wkv_a"].to(cfg.cdtype)
+    kv_a = mm(x, p["wkv_a"].to(cfg.cdtype))
     return rms_norm(kv_a[..., :R], p["kv_norm"], cfg.norm_eps), kv_a[..., R:]
 
 

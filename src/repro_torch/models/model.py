@@ -68,6 +68,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.sharding.rules import (
     current_rules,
+    mm,
     replicate_dims,
     shard,
     zeros_placed,
@@ -370,7 +371,7 @@ def _mtp_loss(cfg: ModelConfig, params, h, tokens, mask, rope_cs,
     e_next = embed_tokens(cfg, params, _shift_left(tokens))
     hn, _ = fused_norm(cfg, mp["norm_h"], h, zeros)
     en, _ = fused_norm(cfg, mp["norm_e"], e_next, zeros)
-    x = torch.cat([hn, en], dim=-1) @ mp["proj"].to(cfg.cdtype)
+    x = mm(torch.cat([hn, en], dim=-1), mp["proj"].to(cfg.cdtype))
     x, y, _ = apply_layer_full(cfg, mp["layer"], x, torch.zeros_like(x),
                                _mtp_mixer(cfg), "dense", rope_cs=rope_cs)
     h_mtp, _ = fused_norm(cfg, mp["final_norm"], x, y)

@@ -74,10 +74,14 @@ from repro_torch.models.params import normal_param, param
 from repro_torch.sharding.rules import (
     P,
     current_rules,
+    einsum,
     mesh_shape,
+    mm,
     place,
+    replicate_dims,
     shard,
     spec_placements,
+    view_rows,
 )
 
 #: the profiler ranges of a group's dispatch, expert products and combine
@@ -269,43 +273,9 @@ def _einsum_routing(cfg: ModelConfig, C: int, x_g, router):
     return dispatch, combine, lb, z
 
 
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(eq, a, b)`` of two operands.  On DTensors one
-    ``local_map`` region: each mesh dim that shards an index of either
-    operand (a's first) shards that index in both operands and in the
-    output; an operand without the index is replicated there and its
-    gradient partial, an output without it (a contracted index) is a
-    partial sum.  Mesh dims that shard neither are replicated."""
-    if not isinstance(a, DTensor):
-        return torch.einsum(eq, a, b)
-    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
-    mesh = a.device_mesh
-    index = []
-    for j in range(mesh.ndim):
-        found = None
-        for t, sub in ((a, sa), (b, sb)):
-            pl = t.placements[j] if isinstance(t, DTensor) else None
-            if found is None and isinstance(pl, Shard):
-                found = sub[pl.dim % t.ndim]
-        index.append(found)
-
-    def placements(sub, missing):
-        return tuple(Replicate() if i is None else Shard(sub.index(i))
-                     if i in sub else missing for i in index)
-
-    pa, pb = placements(sa, Replicate()), placements(sb, Replicate())
-    return local_map(
-        functools.partial(torch.einsum, eq),
-        out_placements=list(placements(so, Partial())),
-        in_placements=(pa, pb),
-        in_grad_placements=(placements(sa, Partial()),
-                            placements(sb, Partial())),
-        device_mesh=mesh)(place(a, pa), place(b, pb, mesh))
-
-
 def _moe_group_einsum(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
     """x_g (G, T, d) -> (y (G, T, d) in the compute dtype, lb, z).  On
-    DTensors each product runs on local shards (``_einsum``): G over
+    DTensors each product runs on local shards (``einsum``): G over
     the batch axes and E where the rules place the experts, the expert
     weights gathered along the rest (the JAX package's FSDP gather)."""
     dt = cfg.cdtype
@@ -314,16 +284,16 @@ def _moe_group_einsum(cfg: ModelConfig, p, x_g: torch.Tensor, C: int):
             functools.partial(_einsum_routing, cfg, C), 2, x_g, p["router"])
         dispatch = shard(dispatch, "batch", None, "experts", None)
         combine = shard(combine, "batch", None, "experts", None)
-        xe = _einsum("gtd,gtec->gecd", x_g.to(dt), dispatch)
+        xe = einsum("gtd,gtec->gecd", x_g.to(dt), dispatch)
         xe = shard(xe, "batch", "experts", None, None)
     with record_function(MOE_RANGES[1]):
         wg, wu, wd = _experts(p, dt)
-        h = F.silu(_einsum("gecd,edf->gecf", xe, wg)) \
-            * _einsum("gecd,edf->gecf", xe, wu)
-        ye = _einsum("gecf,efd->gecd", h, wd)
+        h = F.silu(einsum("gecd,edf->gecf", xe, wg)) \
+            * einsum("gecd,edf->gecf", xe, wu)
+        ye = einsum("gecf,efd->gecd", h, wd)
         ye = shard(ye, "batch", "experts", None, None)
     with record_function(MOE_RANGES[2]):
-        y = _einsum("gecd,gtec->gtd", ye, combine)
+        y = einsum("gecd,gtec->gtd", ye, combine)
         y = shard(y, "batch", None, None)
     return y, lb, z
 
@@ -517,10 +487,32 @@ def apply_moe_ep(cfg: ModelConfig, p, x: torch.Tensor):
         in_grad_placements=(x_grad, part, w_grad(up), w_grad(up),
                             w_grad(downp)),
         device_mesh=mesh,
-    )(place(x.reshape(N, d), xp), place(p["router"], rep, mesh),
+    )(place(_flat_tokens(x), xp), place(p["router"], rep, mesh),
       place(p["w_gate"], up, mesh), place(p["w_up"], up, mesh),
       place(p["w_down"], downp, mesh))
-    return place(y, xp).reshape(B, S, d), lb, z
+    return _as_tokens(place(y, xp), B, S), lb, z
+
+
+def _flat_tokens(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) as (B·S, d), on each rank's rows (``view_rows``); a
+    DTensor's sequence gathered first, as both paths replicate the
+    tokens over "model"."""
+    B, S, d = x.shape
+    return view_rows(replicate_dims(x, 1), B * S, d)
+
+
+def _as_tokens(y: torch.Tensor, B: int, S: int) -> torch.Tensor:
+    """y (..., d) over the B·S tokens as (B, S, d), on each rank's rows
+    (``view_rows``).  A DTensor is placed first as the rules place the
+    batch of (B, S, d): its group or token shards may outnumber B (16
+    rows over ("pod", "data") = 32)."""
+    d = y.shape[-1]
+    rules = current_rules()
+    if isinstance(y, DTensor) and rules is not None:
+        want = rules.placements(("batch", "seq", "d_model"), (B, S, d))
+        y = place(y, tuple(q if q == Shard(0) else Replicate()
+                           for q in want))
+    return view_rows(y, B, S, d)
 
 
 # ---------------------------------------------------------------------------
@@ -540,9 +532,9 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
         dt = cfg.cdtype
         sp = p["shared"]
         xd = x.to(dt)
-        hs = F.silu(xd @ sp["gate"].to(dt)) * (xd @ sp["up"].to(dt))
+        hs = F.silu(mm(xd, sp["gate"].to(dt))) * mm(xd, sp["up"].to(dt))
         hs = shard(hs, "batch", None, "mlp")
-        y = y + hs @ sp["down"].to(dt)
+        y = y + mm(hs, sp["down"].to(dt))
 
     aux = {
         "lb_loss": m.router_aux_weight * lb,
@@ -560,7 +552,7 @@ def _apply_moe_grouped(cfg: ModelConfig, p, x: torch.Tensor):
     B, S, d = x.shape
     N = B * S
     dp = _dp_size()
-    xf = x.reshape(N, d)
+    xf = _flat_tokens(x)
     group_fn = _GROUP_FNS[m.dispatch]
 
     if N % dp or (N // dp) < 4:
@@ -575,7 +567,7 @@ def _apply_moe_grouped(cfg: ModelConfig, p, x: torch.Tensor):
     C = expert_capacity(g_eff, cfg)
 
     # (N, d) -> (dp_g, n_iter, g_eff, d): shard-local contiguous rows
-    xg = xf.reshape(dp_g, n_iter, g_eff, d)
+    xg = view_rows(xf, dp_g, n_iter, g_eff, d)
     xg = shard(xg, "batch", None, None, None)
 
     if n_iter == 1:
@@ -592,5 +584,4 @@ def _apply_moe_grouped(cfg: ModelConfig, p, x: torch.Tensor):
         lb, z = lb / n_iter, z / n_iter
         y = torch.stack(ys, dim=1)   # (dp_g, n_iter, g_eff, d)
 
-    y = y.reshape(B, S, d)
-    return shard(y, "batch", None, "d_model"), lb, z
+    return shard(_as_tokens(y, B, S), "batch", None, "d_model"), lb, z

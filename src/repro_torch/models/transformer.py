@@ -42,6 +42,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -132,6 +133,9 @@ def fused_norm(cfg: ModelConfig, p, x: torch.Tensor, res: torch.Tensor):
     if cfg.norm == "layernorm":
         s = x + res.to(x.dtype)
         return apply_norm(cfg, p, s), s
+    if isinstance(x, DTensor):
+        # rows flattened per shard: a sharded batch and sequence may not merge
+        return rmsnorm_residual(x, res.to(x.dtype), p["scale"], cfg.norm_eps)
     shape, d = x.shape, x.shape[-1]
     h, s = rmsnorm_residual(x.reshape(-1, d).contiguous(),
                             res.to(x.dtype).reshape(-1, d).contiguous(),

@@ -74,9 +74,6 @@ import dataclasses
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
-from torch.distributed.tensor._utils import (
-    compute_local_shape_and_global_offset,
-)
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import (
@@ -104,6 +101,7 @@ from repro_torch.sharding.rules import (
     Sharding,
     axis_rules,
     into_region,
+    local_shape_and_offset,
     mesh_shape,
     param_shardings,
     place,
@@ -218,7 +216,9 @@ class _Wire:
         self.mesh = inner.region_mesh
         self.dtype = dtype
         self.placements = inner.placements(_BOUNDARY, shape)
-        self.local_shape, _ = compute_local_shape_and_global_offset(
+        # in Python: torch's form reads tensors, which a fake mode (the
+        # dry run's) cannot
+        self.local_shape, _ = local_shape_and_offset(
             shape, self.mesh, self.placements)
         self.out = None
         self.box = {}

@@ -147,7 +147,10 @@ def loss_and_grads(cfg: ModelConfig, run: RunConfig, params, batch):
     wrt = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss, metrics = M.loss_fn(cfg, wrt, batch, loss_chunk=run.loss_chunk,
                               remat=run.remat)
-    grads = torch.autograd.grad(loss, tree_leaves(wrt))
+    # a leaf the loss does not read (qwen2-vl's token table, its inputs
+    # being embeddings) gets zeros, as jax.grad gives it
+    grads = torch.autograd.grad(loss, tree_leaves(wrt), allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 

@@ -52,6 +52,7 @@ from typing import Any, Sequence
 import torch
 from torch.distributed.tensor import (
     DTensor,
+    Partial,
     Replicate,
     Shard,
     distribute_tensor,
@@ -430,6 +431,18 @@ def out_of_region(x: DTensor, rules: AxisRules) -> DTensor:
                               shape=x.shape, stride=x.stride())
 
 
+def shard_count(x: torch.Tensor, dim: int) -> int:
+    """The number of shards tensor dim ``dim`` of x is cut into: the
+    product of the mesh dims that shard it (1 on a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    n = 1
+    for j, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim:
+            n *= x.device_mesh.size(j)
+    return n
+
+
 def replicate_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     """x with its shards of tensor dims ``dims`` gathered (``Replicate()``
     there), for an op that has no DTensor strategy over them; a plain
@@ -506,6 +519,129 @@ def local_along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
     return local_map(fn, out_placements=list(want), in_placements=(want,),
                      in_grad_placements=(want,),
                      device_mesh=x.device_mesh)(x)
+
+
+def contract(fn, x: torch.Tensor, w: torch.Tensor, k: int = 1):
+    """``fn(x, w)``, a product of x (..., K1..Kk) and w (K1..Kk, O...)
+    over x's last k dims and w's first k, giving (..., O...).  A plain x
+    goes to ``fn`` as it is.  A DTensor x runs ``fn`` on local shards
+    through ``local_map``, so that the views ``fn`` takes (a matmul
+    folds x's rows into one dim) see no sharded dim: torch refuses a
+    view that merges two sharded dims (a batch and a sequence) or splits
+    one across a head.  Each mesh dim keeps one sharding of the product:
+
+    * x's row shard (batch, sequence), the weight gathered there;
+    * the weight's shard of an output dim (tensor parallelism), x
+      gathered there (its sequence, as Megatron-SP gathers it);
+    * a shard of a contracted dim in x or the weight (the other sliced
+      to match), the product a partial sum there.
+
+    Where x's rows and the weight are both sharded, a shard of x's first
+    dim (the batch) stays and the weight is gathered (FSDP); any other
+    row shard is gathered (the sequence).  Gradients: a replicated
+    operand's is a partial sum where the other splits the work."""
+    if not isinstance(x, DTensor):
+        return fn(x, w)
+    mesh = x.device_mesh
+    xr = x.ndim - k
+    xp, wp, op, xg, wg = [], [], [], [], []
+    for j in range(mesh.ndim):
+        a = x.placements[j]
+        b = w.placements[j] if isinstance(w, DTensor) else Replicate()
+        ax = a.dim % x.ndim if isinstance(a, Shard) else None
+        bw = b.dim % w.ndim if isinstance(b, Shard) else None
+        if ax is not None and bw is not None and not (
+                ax >= xr and bw == ax - xr):
+            if ax == 0:
+                bw = None                  # the batch stays: w gathered
+            else:
+                ax = None                  # x gives way
+        if ax is not None and ax < xr:                   # x's rows
+            row = Shard(ax)
+            xp.append(row), wp.append(Replicate()), op.append(row)
+            xg.append(row), wg.append(Partial())
+        elif bw is not None and bw >= k:                 # w's outputs
+            col = Shard(bw)
+            xp.append(Replicate()), wp.append(col)
+            op.append(Shard(xr + bw - k)), xg.append(Partial())
+            wg.append(col)
+        elif ax is not None or bw is not None:           # contracted
+            c = ax - xr if ax is not None else bw
+            xp.append(Shard(xr + c)), wp.append(Shard(c))
+            op.append(Partial()), xg.append(Shard(xr + c))
+            wg.append(Shard(c))
+        else:
+            for t in (xp, wp, op, xg, wg):
+                t.append(Replicate())
+    return local_map(fn, out_placements=op, in_placements=(xp, wp),
+                     in_grad_placements=(tuple(xg), tuple(wg)),
+                     device_mesh=mesh)(place(x, xp), place(w, wp, mesh))
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of two operands.  On DTensors one
+    ``local_map`` region: each mesh dim that shards an index of either
+    operand (a's first) shards that index in both operands and in the
+    output; an operand without the index is replicated there and its
+    gradient partial, an output without it (a contracted index) is a
+    partial sum.  Mesh dims that shard neither are replicated."""
+    if not isinstance(a, DTensor):
+        return torch.einsum(eq, a, b)
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    mesh = a.device_mesh
+    index = []
+    for j in range(mesh.ndim):
+        found = None
+        for t, sub in ((a, sa), (b, sb)):
+            pl = t.placements[j] if isinstance(t, DTensor) else None
+            if found is None and isinstance(pl, Shard):
+                found = sub[pl.dim % t.ndim]
+        index.append(found)
+
+    def placements(sub, missing):
+        return tuple(Replicate() if i is None else Shard(sub.index(i))
+                     if i in sub else missing for i in index)
+
+    pa, pb = placements(sa, Replicate()), placements(sb, Replicate())
+    return local_map(
+        functools.partial(torch.einsum, eq),
+        out_placements=list(placements(so, Partial())),
+        in_placements=(pa, pb),
+        in_grad_placements=(placements(sa, Partial()),
+                            placements(sb, Partial())),
+        device_mesh=mesh)(place(a, pa), place(b, pb, mesh))
+
+
+def view_rows(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)`` where x's first dim and the result's hold the
+    same rows in the same order (a batch flattened with its sequence,
+    or back).  On a DTensor each rank reshapes its own rows through
+    ``local_map``: x placed with its first dim sharded where it is
+    already (when that count divides both first dims; else gathered)
+    and every other dim gathered, the result sharded the same.  A view
+    of the DTensor would merge or split the sharded dim with the next,
+    which torch refuses, forward or backward, once another mesh dim
+    shards either."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    p = tuple(q if isinstance(q, Shard) and q.dim % x.ndim == 0
+              else Replicate() for q in x.placements)
+    n = 1
+    for j, q in enumerate(p):
+        if q != Replicate():
+            n *= x.device_mesh.size(j)
+    if x.shape[0] % n or shape[0] % n:
+        p = (Replicate(),) * len(p)
+    rest = tuple(shape[1:])
+    return local_map(lambda t: t.reshape(-1, *rest), out_placements=list(p),
+                     in_placements=(p,), in_grad_placements=(p,),
+                     device_mesh=x.device_mesh)(place(x, p))
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D w, on local shards where x is a DTensor
+    (``contract``)."""
+    return contract(torch.matmul, x, w)
 
 
 # ---------------------------------------------------------------------------

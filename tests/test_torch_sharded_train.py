@@ -13,9 +13,15 @@ smoke DeepSeek-V2's dense and MoE layers (MLA, the expert-parallel MoE
 path; its MoE group set to the tokens a data rank holds in a
 microbatch, so that the single device's groups are the ranks' token
 sets and lb is the same function; its config's 8-bit AdamW, whose int8
-blocks gather a sharded last dim), and a 2-layer cut of the smoke Jamba
+blocks gather a sharded last dim), a 2-layer cut of the smoke Jamba
 period, (mamba, moe) and (attn, dense) (the grouped MoE path cut into
-shard-local groups).  Each case steps with its config's optimizer.
+shard-local groups), the same cut with the residual stream's sequence
+over "model" (``seq_shard``, the dry run's Megatron-SP rule: the norm on
+a batch and a sequence both sharded, the MoE's tokens flattened per
+rank), and the smoke whisper (one decoder layer over its two encoder
+layers, ``flat_dp``: the batch over "data" and "model", the token table
+replicated; layernorm, so no norm kernel).  Each case steps with its
+config's optimizer.
 
 * the sharded loss is within 5e-4 of the JAX package's single-device
   loss (``loss_fn`` averaged over the step's microbatches, as its
@@ -29,8 +35,11 @@ shard-local groups).  Each case steps with its config's optimizer.
   leaf by leaf;
 * GQA under head sharding: 4 q heads over 2 kv heads on a 4-way "model"
   axis (one q head a rank, kv replicated and sliced per rank), 12 over
-  6 (three q heads a rank over two kv heads, gathered per q head), and
-  8 over 4 on (2, 2) (kv heads sharded with the q heads);
+  6 (three q heads a rank over two kv heads, gathered per q head), 8
+  over 4 on (2, 2) (kv heads sharded with the q heads), and 6 over 3 on
+  (2, 2) (3 kv heads do not divide "model": replicated there, while
+  DTensor's matmul would shard the k/v product's last dim across a
+  head);
 * every kernel wrapper the arch runs took its ``local_map`` branch, and
   every MoE layer its path: expert parallelism under an
   ``ep_over_dp`` config, the grouped path otherwise.
@@ -66,8 +75,10 @@ RANK_TIMEOUT = 240
 LOSS_CHUNK = 16
 
 #: name -> (arch, layers, heads, kv heads, mesh, axes, microbatch, MoE
-#: group size); layers: every block repeated that often, or the indices
-#: of the one block's pattern to keep, or None for the smoke's blocks
+#: group size[, "seq_shard"]); layers: every block repeated that often,
+#: or the indices of the one block's pattern to keep, or None for the
+#: smoke's blocks; "seq_shard" puts the residual stream's sequence over
+#: "model" (Megatron-SP, the dry run's ``cell_rules``)
 CASES = {
     "yi-2x2": ("yi-6b", 2, None, None, (2, 2), ("data", "model"), 2, None),
     "mamba-2x2": ("mamba2-370m", 2, None, None, (2, 2), ("data", "model"),
@@ -84,15 +95,21 @@ CASES = {
                         ("data", "model"), 2, 64),
     "jamba-2x2": ("jamba-v0.1-52b", (3, 4), None, None, (2, 2),
                   ("data", "model"), None, None),
+    "jamba-sp-2x2": ("jamba-v0.1-52b", (3, 4), None, None, (2, 2),
+                     ("data", "model"), 2, None, "seq_shard"),
+    "gqa-6over3-2x2": ("yi-6b", 1, 6, 3, (2, 2), ("data", "model"), 2,
+                       None),
+    "whisper-2x2": ("whisper-large-v3", 1, None, None, (2, 2),
+                    ("data", "model"), None, None),
 }
 #: the spawned worlds, run side by side (each started as soon as its
 #: cases' parameters are drawn): (ranks, cases run in turn)
-WORLDS = ((4, ("mamba-2x2",)),
-          (4, ("jamba-2x2",)),
+WORLDS = ((4, ("mamba-2x2", "whisper-2x2")),
+          (4, ("jamba-2x2", "jamba-sp-2x2")),
           (4, ("deepseek-v2-2x2",)),
           (2, ("yi-2", "mamba-2")),
           (4, ("yi-2x2", "gqa-4over2-1x4", "gqa-12over6-1x4",
-               "gqa-8over4-2x2")))
+               "gqa-8over4-2x2", "gqa-6over3-2x2")))
 
 
 def _cut(cfg, block_def, layers, heads, kv, group):
@@ -152,19 +169,23 @@ def unflatten(flat):
     return out
 
 
-for name, (arch, layers, heads, kv, mesh_shape, axes, mb, group) in \
-        cases.items():
+for name, (arch, layers, heads, kv, mesh_shape, axes, mb, group,
+           *opts) in cases.items():
     cfg = _cut(smoke_config(get_config(arch)), BlockDef, layers, heads, kv,
                group)
     data = np.load(f"{work}/{name}.npz")
     params = params_from_numpy(
         cfg, unflatten({k[2:]: data[k] for k in data if k[:2] == "p/"}),
         "cpu", train=True)
-    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "loss_mask")}
-    run = RunConfig(loss_chunk=$CHUNK, microbatch=mb)
+    batch = {k: torch.from_numpy(data[k]) for k in data if k[:2] != "p/"}
+    run = RunConfig(loss_chunk=$CHUNK, microbatch=mb,
+                    seq_shard="seq_shard" in opts)
     opt = make_optimizer(cfg.optimizer, constant(1e-3))
     mesh = make_mesh(tuple(mesh_shape), tuple(axes), "cpu")
-    rules = make_rules(mesh, "train")
+    rules = make_rules(mesh, "train", flat_dp=cfg.flat_dp)
+    if run.seq_shard:
+        rules = dataclasses.replace(
+            rules, rules={**rules.rules, "seq_res": (("model",),)})
     sch = TS.state_schema(cfg, run, opt)
     sh = TS.state_shardings(sch, rules, run)
     state = TS.new_state(params, opt)
@@ -257,9 +278,11 @@ def runs(tmp_path_factory):
                 jp = jinit_params(JM.schema(jc), jax.random.key(0))
                 batch = {k: np.asarray(v) for k, v in JPipeline(
                     jc, JSMOKE_SHAPES["train_4k"]).batch_at(0).items()}
+                # bf16 embeddings kept exactly as f32 for the ranks
                 np.savez(work / f"{name}.npz",
                          **{f"p/{k}": v for k, v in _flat(jp).items()},
-                         **batch)
+                         **{k: v.astype(np.float32) if v.dtype == jnp.bfloat16
+                            else v for k, v in batch.items()})
                 inputs[name] = (jc, jp, batch)
             procs += _spawn(world, names, work)
         jax_loss = {name: _jax_loss(name, *inputs[name]) for name in CASES}
@@ -308,7 +331,8 @@ def _kinds(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_each_kernel_took_its_local_map_branch(runs, name):
     mixers = {mixer for mixer, _ in _kinds(name)}
-    want = {"rmsnorm_residual"} | (
+    want = ({"rmsnorm_residual"} if _cfgs(name).norm == "rmsnorm"
+            else set()) | (
         {"ssd_chunk"} if "mamba" in mixers else set()) | (
         {"flash_attention"} if mixers & {"attn", "mla"} else set())
     calls = runs[name]["calls"]

@@ -445,6 +445,20 @@ def test_rmsnorm_function_backward_is_the_plain_gradient():
         assert torch.equal(g, w)
 
 
+def test_rmsnorm_function_backward_where_only_the_scale_needs_grad():
+    """qwen2-vl's first layer: x the input embeddings and res zeros, so
+    the residual-sum output reaches no input that needs a gradient; the
+    scale's gradient is still the plain one."""
+    rng = np.random.default_rng(3)
+    x, r = (_f64(rng, 6, 16).detach() for _ in range(2))
+    s = _f64(rng, 16)
+    h, _ = ro.RMSNormResidual.apply(x, r, s, 1e-5, rmsnorm_residual_ref)
+    got, = torch.autograd.grad((h.square().sum(),), (s,))
+    want, = torch.autograd.grad(
+        rmsnorm_residual_ref(x, r, s)[0].square().sum(), (s,))
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_function_backward_is_the_plain_gradient(causal):
     rng = np.random.default_rng(1)
