@@ -270,8 +270,10 @@ Phases, each printing one JSON line:
     gradients, the losses are finite and each step launches what
     ``launches_per_pass`` predicts.  Prints the parameters, ``reduced``,
     the state's bytes (parameters, master, moments, scales), the
-    gradients' bytes, the pass's and the step's peaks, the update's own
-    bytes and the host ms of the pass, the update and the second step.
+    gradients' bytes, the pass's and the step's peaks, the second step's
+    rise over what is allocated before it (``launch_cost`` holds the
+    dry run's against it), the update's own bytes and the host ms of
+    the pass, the update and the second step.
 22d. ``pipeline_train``: the ``train`` cell (AdamW at a constant 1e-4,
     no loss mask) through ``runtime/pipeline.py``'s GPipe step with its
     stages in one process and its state donated (as ``launch/perf.py``
@@ -327,7 +329,16 @@ Phases, each printing one JSON line:
     of each kind (Jamba and V2 on (16, 16) in two microbatches), the
     cut its ``reduced``; fails unless every cell is ``ok`` (no view of a
     DTensor refused), and prints each one's trace seconds, peak GiB a
-    rank and dominant roofline term.
+    rank and dominant roofline term.  The peak is held to the card: the
+    ``HELD_STEPS`` (``moe_train``'s two donated steps, and one prefill
+    of Yi-6B at 4 x 512 under the serve rules on the one-rank NCCL mesh,
+    measured here after a warm-up) are traced in three more
+    subprocesses by ``dryrun.dryrun_step`` on a one-rank fake world;
+    fails unless each one's rise over its arguments
+    (``launch/live_bytes.py``'s peak less the arguments' bytes) is
+    within ``PEAK_TOL`` (5 %) of the card's (``max_memory_allocated``
+    less ``memory_allocated`` before the step), and prints both rises,
+    both peaks and the gap.
 22g. ``lint``: the port's lint suite (``repro_torch.analysis``) held to
     the card, last of the phases.  It lints the default paths and
     requires no finding; calls each library's shared-memory size query
@@ -891,7 +902,7 @@ def main() -> int:
     eburst = run_elastic_burst(dev, smi)
     emit(eburst)
     # 22f. the launch layer's cost tools
-    lcost = run_launch_cost(dev)
+    lcost = run_launch_cost(dev, moetrained)
     emit(lcost)
     # 22g. the lint suite, held to the card
     emit(run_lint(dev, smi))
@@ -5532,6 +5543,36 @@ def _check_update_sample(opt, sample, state) -> dict:
             "ranges_with_gradient": live, "moved": moved, "still": still}
 
 
+def moe_train_cells() -> list[tuple]:
+    """``moe_train``'s cells: (config, (B, S), ``reduced``)."""
+    from repro_torch.configs import get_config
+
+    return [
+        (_deepseek_cut(V2, 1, 1, "bfloat16"), MOE_TRAIN_V2,
+         _reduced(get_config(V2), (1, 1)) + "; B x S 2 x 2048 -> "
+         f"{MOE_TRAIN_V2[0]} x {MOE_TRAIN_V2[1]} (at 2 x 2048 the "
+         "gradient pass runs out of memory: tools/donate_probe.py)"),
+        (_jamba_cut(3, "bfloat16"), MOE_TRAIN_JAMBA,
+         "32 -> 3 layers ((mamba, dense), (mamba, moe), (attn, dense) of "
+         "the period)"),
+    ]
+
+
+def moe_train_run():
+    """``moe_train``'s run: remat "full", the loss in chunks of 512."""
+    from repro_torch.configs import RunConfig
+
+    return RunConfig(loss_chunk=512, remat="full")
+
+
+def moe_train_optimizer(cfg, run):
+    """``moe_train``'s optimizer: the config's at ``MOE_TRAIN_LR``."""
+    from repro_torch.optim import constant, make_optimizer
+
+    return make_optimizer(run.optimizer or cfg.optimizer,
+                          constant(MOE_TRAIN_LR))
+
+
 def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
     """2 steps of ``build_session``'s donated step on ``cfg``, the
     config's optimizer at ``MOE_TRAIN_LR``: the first as the step runs
@@ -5546,16 +5587,13 @@ def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.models.params import count_params
-    from repro_torch.optim import constant, make_optimizer
     from repro_torch.runtime import train_step as ts
     from repro_torch.sharding.rules import axis_rules
 
     mesh = make_host_mesh(device=dev)
     check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
     opt, sch, shardings, step_fn, rules = train_mod.build_session(
-        cfg, run, mesh, MOE_TRAIN_STEPS,
-        make_optimizer(run.optimizer or cfg.optimizer,
-                       constant(MOE_TRAIN_LR)))
+        cfg, run, mesh, MOE_TRAIN_STEPS, moe_train_optimizer(cfg, run))
     ush = ts.update_shardings(cfg, run, rules) if run.zero1 else None
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5568,6 +5606,7 @@ def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
                                device=dev)
     batches = [ts.distribute_batch(pipe.batch_at(i), rules)
                for i in range(MOE_TRAIN_STEPS)]
+    batch_bytes = _local_bytes(batches[1])
     per_pass = M.launches_per_pass(cfg, "train", remat=run.remat)
     losses, launches, host_ms = [], [], []
 
@@ -5613,6 +5652,7 @@ def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
     _counts_zero()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    step_base = torch.cuda.memory_allocated(dev)
     t0 = time.monotonic()
     out, m = step_fn(state, batches[1])
     losses.append(float(m["loss"]))
@@ -5639,6 +5679,9 @@ def _moe_train_cell(dev, smi, cfg, run, B, S, reduced):
             "state_bytes": sizes, "grad_bytes": grad_bytes,
             "state_init_s": init_s,
             "pass_peak_bytes": pass_peak, "step_peak_bytes": step_peak,
+            "step_base_bytes": step_base,
+            "step_rise_bytes": step_peak - step_base,
+            "step_argument_bytes": sizes["total"] + batch_bytes,
             "update_added_bytes": update_add,
             "update_limit_bytes": MOE_UPDATE_LIMIT,
             "host_ms_pass": pass_ms, "host_ms_update": update_ms,
@@ -5661,24 +5704,12 @@ def run_moe_train(dev, smi):
     int8 blocks along the last dim), each range with a gradient moved."""
     import torch.distributed as dist
 
-    from repro_torch.configs import RunConfig, get_config
-
     check(not dist.is_initialized(), "a process group is already running")
-    cells = (
-        (_deepseek_cut(V2, 1, 1, "bfloat16"), MOE_TRAIN_V2,
-         _reduced(get_config(V2), (1, 1)) + "; B x S 2 x 2048 -> "
-         f"{MOE_TRAIN_V2[0]} x {MOE_TRAIN_V2[1]} (at 2 x 2048 the "
-         "gradient pass runs out of memory: tools/donate_probe.py)"),
-        (_jamba_cut(3, "bfloat16"), MOE_TRAIN_JAMBA,
-         "32 -> 3 layers ((mamba, dense), (mamba, moe), (attn, dense) of "
-         "the period)"),
-    )
     out, launches = [], {}
     try:
-        for cfg, (B, S), reduced in cells:
-            rec = _moe_train_cell(dev, smi, cfg,
-                                  RunConfig(loss_chunk=512, remat="full"),
-                                  B, S, reduced)
+        for cfg, (B, S), reduced in moe_train_cells():
+            rec = _moe_train_cell(dev, smi, cfg, moe_train_run(), B, S,
+                                  reduced)
             for n in rec["launches_per_step"]:
                 for k, v in n.items():
                     launches[k] = launches.get(k, 0) + v
@@ -6566,13 +6597,117 @@ dr.dryrun_cell(arch, "train_4k", multi, Path(out), cfg=cut, run=cut_run,
 """
 
 
-def run_launch_cost(dev):
+#: launch_cost's prefill (Yi-6B whole, bf16): batch, prompt
+LAUNCH_COST_PREFILL = (4, 512)
+#: launch_cost's held steps: ``moe_train``'s donated step of each of its
+#: cells and one prefill of ``LAUNCH_COST_PREFILL`` under the serve
+#: rules, each traced by ``dryrun.dryrun_step`` in a subprocess
+HELD_STEPS = (V2, "jamba-v0.1-52b", "yi-6b-prefill")
+#: the dry run's rise over a held step's arguments against the card's
+#: allocator's (``max_memory_allocated`` less ``memory_allocated``
+#: before the step), as a share of the card's
+PEAK_TOL = 0.05
+
+_HELD_STEP = r"""
+import json, sys
+from pathlib import Path
+import chip_smoke
+
+name, out = sys.argv[1], Path(sys.argv[2])
+out.write_text(json.dumps(chip_smoke.held_dryrun(name)))
+"""
+
+
+def held_dryrun(name: str) -> dict:
+    """``dryrun.dryrun_step`` of the held step ``name`` (``HELD_STEPS``)
+    on a one-rank fake world and a (1, 1) mesh on ``cuda``: ``moe_train``'s
+    donated step of the cell of that arch (its config, B x S, run and
+    optimizer), or the serve rules' prefill of Yi-6B's bf16 weights at
+    ``LAUNCH_COST_PREFILL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+
+    if name == "yi-6b-prefill":
+        B, P = LAUNCH_COST_PREFILL
+        rec = dr.dryrun_step(get_config("yi-6b"),
+                             ShapeConfig(name, "prefill", P, B))
+    else:
+        cfg, (B, S), _ = next(c for c in moe_train_cells()
+                              if c[0].name == name)
+        run = moe_train_run()
+        rec = dr.dryrun_step(cfg, ShapeConfig("moe_train", "train", S, B),
+                             run, opt=moe_train_optimizer(cfg, run))
+    return {"memory": rec["memory"], "trace_s": rec["trace_s"]}
+
+
+def _held_prefill(dev, cfg, params, prompts) -> dict:
+    """The allocator's rise over one prefill of ``params`` (Yi-6B's bf16
+    weights) and ``prompts`` under the serve rules on the one-rank NCCL
+    mesh (a group started and closed here), after a warm-up, as
+    ``held_dryrun("yi-6b-prefill")`` traces it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import serve_step
+    from repro_torch.sharding.rules import make_rules
+
+    check(not dist.is_initialized(), "a process group is already running")
+    try:
+        mesh = make_host_mesh(device=dev)
+        check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+        rules = make_rules(mesh, "serve")
+        dparams = serve_step.place_params(cfg, params, rules)
+        inputs = serve_step.place_inputs(
+            {"tokens": prompts.to(torch.int32)}, rules)
+        prefill = serve_step.build_prefill(cfg, rules)
+        prefill(dparams, inputs)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = prefill(dparams, inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        del out
+        args = _local_bytes(dparams) + _local_bytes(inputs)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"step_base_bytes": base, "step_peak_bytes": peak,
+            "step_rise_bytes": peak - base, "step_argument_bytes": args}
+
+
+def held_peaks(card_steps: dict, dry: dict) -> list[dict]:
+    """Each held step's rise over its arguments on the card
+    (``card_steps``: the ``moe_train`` cells' and the prefill's records)
+    and in the dry run (``dry``: ``held_dryrun``'s), the absolute peaks
+    beside them, and the gap as a share of the card's rise."""
+    out = []
+    for name in HELD_STEPS:
+        c, mem = card_steps[name], dry[name]["memory"]
+        gap = mem["rise_bytes"] - c["step_rise_bytes"]
+        out.append({
+            "step": name, "card_rise_bytes": c["step_rise_bytes"],
+            "dryrun_rise_bytes": mem["rise_bytes"], "gap_bytes": gap,
+            "gap_share": gap / c["step_rise_bytes"],
+            "card_peak_bytes": c["step_peak_bytes"],
+            "dryrun_peak_bytes": mem["peak_bytes_per_device"],
+            "card_base_bytes": c["step_base_bytes"],
+            "card_argument_bytes": c["step_argument_bytes"],
+            "dryrun_argument_bytes": mem["argument_size_in_bytes"],
+            "dryrun_trace_s": dry[name]["trace_s"]})
+    return out
+
+
+def run_launch_cost(dev, moetrained):
     """The launch layer's cost tools on the card (module docstring,
     22f): Yi-6B whole under ``OpCostMode`` against the smoke's formulas,
     the registered ops against their ctypes calls, the norm's host cost
-    a call both ways, and on the host in subprocesses started first the
-    dry run of yi-6b × decode_32k and of the ``LAUNCH_COST_TRAIN``
-    cells."""
+    a call both ways, the held prefill's rise (``_held_prefill``), and
+    on the host in subprocesses started first the dry run of yi-6b ×
+    decode_32k, of the ``LAUNCH_COST_TRAIN`` cells and of the
+    ``HELD_STEPS``, each held step's rise against the card's
+    (``moetrained``: phase ``moe_train``'s record)."""
     import os
 
     t_start = time.monotonic()
@@ -6590,6 +6725,12 @@ def run_launch_cost(dev):
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
             for arch, multi, mb in LAUNCH_COST_TRAIN]
+        procs += [subprocess.Popen(
+            [sys.executable, "-c", _HELD_STEP, name,
+             str(Path(tmp) / f"held_{name}.json")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for name in HELD_STEPS]
         try:
             card = _launch_cost_card(dev)
             logs = [p.communicate(timeout=300)[0] for p in procs]
@@ -6606,6 +6747,8 @@ def run_launch_cost(dev):
         trains = [json.loads((Path(tmp) / ("multi" if multi else "single")
                               / arch / "train_4k.json").read_text())
                   for arch, multi, _ in LAUNCH_COST_TRAIN]
+        dry = {name: json.loads((Path(tmp) / f"held_{name}.json")
+                                .read_text()) for name in HELD_STEPS}
     check(rec["status"] == "ok", f"dry run cell: {rec.get('error')}")
     peak = rec["memory"]["peak_bytes_per_device"]
     card["dryrun"] = {
@@ -6630,6 +6773,12 @@ def run_launch_cost(dev):
             "dominant": t["roofline"]["dominant"],
             "hbm_budget_ok": t["hbm_budget_ok"],
             "useful_compute_ratio": t["useful_compute_ratio"]})
+    steps = {c["arch"]: c for c in moetrained["cells"]}
+    steps["yi-6b-prefill"] = card.pop("held_prefill")
+    held = held_peaks(steps, dry)
+    card["held_peaks"] = {"tolerance": PEAK_TOL, "steps": held}
+    check(all(abs(h["gap_share"]) <= PEAK_TOL for h in held),
+          f"dry-run rises against the card's: {held}")
     card["seconds"] = time.monotonic() - t_start
     return card
 
@@ -6931,7 +7080,7 @@ def _launch_cost_card(dev) -> dict:
     spec = spec_for(name)
     total_memory = torch.cuda.get_device_properties(dev).total_memory
     cfg = get_config("yi-6b")
-    B, P = 4, 512
+    B, P = LAUNCH_COST_PREFILL
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     params = serve.make_params(cfg, dev, seed=SEED)
@@ -6996,7 +7145,9 @@ def _launch_cost_card(dev) -> dict:
     check(abs(rl_dec["memory"] * 1e3 / dec_bound_ms - 1) <= COST_TOL,
           f"decode memory term {rl_dec['memory']} s vs {dec_bound_ms} ms")
     ops_check = _ops_vs_ctypes(dev)
-    del params, cache, cache2
+    del cache, cache2
+    held_prefill = _held_prefill(dev, cfg, params, prompts)
+    del params
     torch.cuda.empty_cache()
 
     # the norm at a decode row (B rows of d) through the registered op and
@@ -7046,6 +7197,7 @@ def _launch_cost_card(dev) -> dict:
                      for k in launches_pre},
         "launches_prefill": launches_pre, "launches_decode": launches_dec,
         "ops_vs_ctypes": ops_check,
+        "held_prefill": held_prefill,
         "norm_host_us": {"host_us_op": op_us, "host_us_ctypes": ct_us,
                          "host_us_op_rounds": via_op,
                          "host_us_ctypes_rounds": via_ctypes,

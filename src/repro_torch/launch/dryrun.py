@@ -19,15 +19,24 @@ data:
   only the outputs: no nvcc, no launch, and no (B, H, S, S) score tensor
   that the flash kernel never holds;
 * ``launch/op_cost.py::OpCostMode`` tallies the rank's FLOPs, bytes and
-  collectives, and ``torch.distributed._tools.mem_tracker.MemTracker``
-  the peak of its live bytes (the state, the inputs and everything the
-  step makes; the train step donates its state, as the JAX package's
-  does, so the new state is written into the old one).
+  collectives, and ``launch/live_bytes.py::LiveBytesMode`` the peak of
+  its live bytes: the state, the inputs and every storage the step's
+  local ops make, each counted once and until it is freed, a CUDA one
+  in the caching allocator's 512-byte blocks (the train step donates
+  its state, as the JAX package's does, so the new state is written
+  into the old one and adds nothing).  The peak is a property of the
+  step, not of the torch that traced it: ``chip_smoke.py``'s
+  ``launch_cost`` phase holds the rise of the count over the arguments
+  against the card's allocator (``max_memory_allocated`` less
+  ``memory_allocated`` before the step) on three steps the smoke runs,
+  each traced here by ``dryrun_step`` on a one-rank fake world.
 
 Per cell a JSON record with the JAX package's keys: ``memory``
-(``peak_bytes_per_device`` against ``H100_SXM.hbm_bytes``), the
-``hlo_flops_per_dev`` and ``hlo_bytes_per_dev`` of ``OpCostMode`` (the
-names kept so the two records read side by side), ``collectives``,
+(``peak_bytes_per_device`` against ``H100_SXM.hbm_bytes``, and
+``argument_size_in_bytes``), the ``hlo_flops_per_dev`` and
+``hlo_bytes_per_dev`` of ``OpCostMode`` (the names kept so the two
+records read side by side; ``hlo_bytes_by_op`` splits the bytes by
+op), ``collectives``,
 ``roofline`` (``launch/roofline.py`` with ``H100_SXM``), the model
 FLOPs and the useful-compute ratio.  ``xla_cost_analysis_raw``,
 ``lower_s`` and ``compile_s`` have no counterpart; ``trace_s`` is the
@@ -74,9 +83,11 @@ from repro_torch.configs import ALL_ARCHS, RunConfig, get_config
 from repro_torch.configs.base import BlockDef
 from repro_torch.configs.shapes import SHAPES, cell_is_runnable, input_specs
 from repro_torch.launch.hw import H100_SXM
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.live_bytes import LiveBytesMode
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.op_cost import OpCostMode
 from repro_torch.launch.roofline import model_flops, roofline_terms
+from repro_torch.launch.train import build_session
 from repro_torch.models import model as M
 from repro_torch.models.params import map_specs, tree_leaves, tree_zip
 from repro_torch.optim import make_optimizer, warmup_cosine
@@ -408,21 +419,57 @@ def run_cell(fn, args, mesh, warm=None) -> tuple[dict, dict, float]:
     fill DTensor's sharding-propagation cache (its first sight of an op
     runs it on fake tensors of the global shapes, which no rank
     allocates), then ``fn(*args)`` once under ``OpCostMode`` and
-    ``MemTracker``: (cost, memory, seconds of the second run)."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
+    ``LiveBytesMode``, the arguments' local shards counted from the
+    start: (cost, memory, seconds of the second run)."""
     fn(*(args if warm is None else warm))
-    mt = MemTracker()
-    mt.track_external(*[t.to_local() for t in _leaves(args)
-                        if isinstance(t, DTensor)])
+    live = LiveBytesMode()
+    live.track(*[t for t in _leaves(args) if isinstance(t, DTensor)])
     arg_bytes = _nbytes(args)
     t0 = time.time()
-    with mt, OpCostMode(mesh) as mode:
+    with live, OpCostMode(mesh) as mode:
         fn(*args)
     secs = time.time() - t0
-    peak = sum(v["Total"] for v in mt.get_tracker_snapshot("peak").values())
     return (mode.result(), {"argument_size_in_bytes": arg_bytes,
-                            "peak_bytes_per_device": int(peak)}, secs)
+                            "peak_bytes_per_device": live.peak}, secs)
+
+
+def dryrun_step(cfg, shape, run=None, *, opt=None, device="cuda") -> dict:
+    """The dry run of the step that the card runs on ``make_host_mesh``
+    (one rank, a (1, 1) ("data", "model") mesh), at ``shape``
+    (a ``ShapeConfig``: its batch and sequence), on a one-rank fake
+    world and a (1, 1) mesh on ``device``: for a train shape the train
+    CLI's donated step (``launch/train.py::build_session`` with ``run``
+    and ``opt``, the run's optimizer by default), for a prefill the
+    serve rules' prefill of ``cfg``'s serving weights.  Returns the cost,
+    the memory record with ``rise_bytes`` (the peak less the
+    arguments: what ``max_memory_allocated`` less ``memory_allocated``
+    before the step reads on the card) and the trace seconds."""
+    run = run_config(cfg, shape) if run is None else run
+    if shape.kind == "train":
+        check_trainable(device)
+    specs = input_specs(cfg, shape)
+    with fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        with fake_cuda():
+            if shape.kind == "train":
+                _, sch, shardings, fn, rules = build_session(
+                    cfg, run, mesh, 1, opt)
+                args = (placed_fakes(sch, shardings), placed_fakes(
+                    specs, ts.batch_shardings(specs, rules)))
+            elif shape.kind == "prefill":
+                rules = make_rules(mesh, "serve")
+                sch = M.schema(cfg)
+                fn = serve_step.build_prefill(cfg, rules)
+                args = (placed_fakes(sch, param_shardings(sch, rules)),
+                        placed_fakes(specs, serve_step.serve_input_shardings(
+                            specs, rules)))
+            else:
+                raise ValueError(f"dryrun_step runs train and prefill "
+                                 f"steps, not {shape.kind}")
+            cost, mem, secs = run_cell(fn, args, mesh)
+    mem["rise_bytes"] = mem["peak_bytes_per_device"] \
+        - mem["argument_size_in_bytes"]
+    return {"cost": cost, "memory": mem, "trace_s": secs}
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -489,6 +536,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         "trace_s": round(trace_s, 2),
         "hlo_flops_per_dev": flops,
         "hlo_bytes_per_dev": bytes_acc,
+        "hlo_bytes_by_op": hc["bytes_by_op"],
         "input_read_bytes_per_dev": hc["input_read_bytes"],
         "collectives": {
             "total_bytes": hc["collective_bytes"],

@@ -168,9 +168,19 @@ def _group_of(arg):
     return dist.ProcessGroup.unbox(arg)
 
 
+def on_shards(types) -> bool:
+    """Whether an op's tensor types are all plain or fake tensors: a
+    ``DTensor``'s op is handed on to DTensor's dispatch instead
+    (``NotImplemented``), which runs the rank's local ops."""
+    return all(t is torch.Tensor
+               or issubclass(t, torch._subclasses.FakeTensor)
+               for t in types)
+
+
 class _Propagation:
-    """While any ``OpCostMode`` is entered, DTensor's shape propagation
-    runs with ``depth`` raised, so the modes pass its ops through."""
+    """While any ``OpCostMode`` or ``live_bytes.LiveBytesMode`` is
+    entered, DTensor's shape propagation runs with ``depth`` raised, so
+    the modes pass its ops through."""
 
     depth = 0
     entered = 0
@@ -296,8 +306,7 @@ class OpCostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if any(t is not torch.Tensor and not issubclass(
-                t, torch._subclasses.FakeTensor) for t in types):
+        if not on_shards(types):
             return NotImplemented
         out = func(*args, **kwargs)
         if _Propagation.depth:

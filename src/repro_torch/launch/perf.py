@@ -5,7 +5,8 @@ Each experiment = (cell, variant): a named transform over the
 ModelConfig / RunConfig of one (arch × shape × mesh) cell.  The harness
 runs the variant as the dry run runs a cell (``launch/dryrun.py``: fake
 tensors at their placements over a fake process group of 256 or 512
-ranks, ``OpCostMode`` and ``MemTracker``), and writes
+ranks, ``OpCostMode`` and ``LiveBytesMode``, the peak the port's own
+count of live bytes), and writes
 ``artifacts/torch_perf/<arch>.<shape>.<mesh>/<variant>.json`` so every
 hypothesis -> change -> measure step is recorded next to its baseline.
 

@@ -14,14 +14,20 @@ source with ``ast``.
   single pod (256 fake ranks) writes a record with the JAX package's
   keys, less the ones that have no counterpart (``lower_s``,
   ``compile_s``, ``analyze_s``, ``xla_cost_analysis_raw``) and with
-  ``trace_s``, ``input_read_bytes_per_dev`` and ``chip``; its argument
+  ``trace_s``, ``input_read_bytes_per_dev``, ``chip`` and
+  ``hlo_bytes_by_op`` (summing to ``hlo_bytes_per_dev``); its argument
   bytes are the shard shapes of the port's placements (held to JAX's
   in ``test_torch_sharding.py``); prefill's peak holds no (B, H, S, S)
   score tensor; long_500k skips dense archs and runs mamba2; the
   parameters and AdamW state of the yi-6b train cell on (16, 16) are
-  the placements' shard shapes (rank 0's);
+  the placements' shard shapes (rank 0's); ``dryrun_step`` on a
+  one-rank world counts Yi-6B's prefill of 4 x 512 as its weights and
+  tokens plus a rise that holds the cache and one MLP's activations,
+  and its donated train step at one layer as the state and the batch
+  plus a rise that holds the gradients but no second state;
 * a registered kernel under the fake mode allocates only its output
-  (``MemTracker``), where the CPU's plain version holds the scores;
+  (``launch/live_bytes.py::LiveBytesMode``), where the CPU's plain
+  version holds the scores;
 * ``perf --list`` lists the JAX package's 15 experiments, each on its
   cell.
 """
@@ -55,7 +61,7 @@ JAX_DRYRUN = ROOT / "src" / "repro" / "launch" / "dryrun.py"
 JAX_PERF = ROOT / "src" / "repro" / "launch" / "perf.py"
 #: the JAX record's keys with no counterpart in an eager run
 DROPPED = {"lower_s", "compile_s", "analyze_s", "xla_cost_analysis_raw"}
-ADDED = {"trace_s", "input_read_bytes_per_dev", "chip"}
+ADDED = {"trace_s", "input_read_bytes_per_dev", "chip", "hlo_bytes_by_op"}
 
 
 def _module_literal(path: Path, name: str):
@@ -187,6 +193,15 @@ with dr.fake_world(256):
         recs["train_state"] = [
             [list(t.shape), list(t.to_local().shape), str(t.dtype)]
             for t in tree_leaves(state)]
+# one step on a one-rank world: Yi-6B's prefill of 4 x 512 (fake CUDA),
+# and its donated train step at one layer, 1 x 512 (fake CPU)
+from repro_torch.configs import RunConfig
+from repro_torch.configs.shapes import ShapeConfig
+recs["step_prefill"] = dr.dryrun_step(
+    cfg, ShapeConfig("p", "prefill", 512, 4))["memory"]
+recs["step_train"] = dr.dryrun_step(
+    dr.cut_depth(cfg), ShapeConfig("t", "train", 512, 1),
+    RunConfig(loss_chunk=512, remat="full"), device="cpu")["memory"]
 print(json.dumps(recs))
 """
 
@@ -209,6 +224,8 @@ def test_record_keys_are_jax_s(cells):
     assert set(rec) == (_jax_record_keys() - DROPPED) | ADDED
     assert rec["chips"] == 256 and rec["chip"] == H100_SXM.name
     assert rec["while_trips"] == []
+    assert sum(rec["hlo_bytes_by_op"].values()) == pytest.approx(
+        rec["hlo_bytes_per_dev"])
     for k in ("compute", "memory", "collective", "dominant",
               "step_time_lower_bound_s", "roofline_fraction"):
         assert k in rec["roofline"]
@@ -285,6 +302,53 @@ def test_long_context_skips_dense_archs(cells):
     assert ssm["hlo_flops_per_dev"] > 0
 
 
+def _schema_bytes(sch) -> int:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype)
+               .element_size() for s in tree_leaves(sch))
+
+
+def test_dryrun_step_prefill_counts_the_rise(cells):
+    from repro_torch.models import model as M
+
+    recs, _ = cells
+    mem = recs["step_prefill"]
+    cfg = get_config("yi-6b")
+    # one rank holds every weight (bf16 serving schema) and the tokens;
+    # CUDA storages in 512-byte blocks count the same for these sizes
+    args = _schema_bytes(M.schema(cfg)) + 4 * 512 * 4
+    assert mem["argument_size_in_bytes"] == args
+    assert mem["rise_bytes"] == mem["peak_bytes_per_device"] - args
+    # the peak falls in a layer's MLP: the cache the prefill fills (k
+    # and v of every layer), the three (B, P, d_ff) bf16 activations and
+    # a few (B, P, d) ones
+    cache = _schema_bytes(M.cache_schema(cfg, 4, 512))
+    mlp = 3 * 4 * 512 * cfg.d_ff * 2
+    row = 4 * 512 * cfg.d_model * 2
+    assert cache + mlp < mem["rise_bytes"] < cache + mlp + 16 * row
+
+
+def test_dryrun_step_train_counts_the_donated_state_once(cells):
+    from repro_torch.configs import RunConfig
+
+    recs, _ = cells
+    mem = recs["step_train"]
+    cfg = dr.cut_depth(get_config("yi-6b"))
+    run = RunConfig(loss_chunk=512, remat="full")
+    opt = make_optimizer(cfg.optimizer, warmup_cosine())
+    state = _schema_bytes(TS.state_schema(cfg, run, opt))
+    batch = 512 * (4 + 4)                    # int32 tokens, f32 mask
+    assert mem["argument_size_in_bytes"] == state + batch
+    # the f32 gradients are live until the update takes them; the new
+    # state is written into the old one and adds nothing
+    grads = _schema_bytes(TS.state_schema(cfg, run, opt)["params"]) \
+        // torch.empty((), dtype=torch.float32).element_size() * 4
+    assert grads <= mem["rise_bytes"] < grads + state
+    assert mem["rise_bytes"] == mem["peak_bytes_per_device"] \
+        - mem["argument_size_in_bytes"]
+
+
 def test_train_state_shards_are_the_placements(cells):
     from repro_torch.models.params import tree_leaves
     from repro_torch.sharding.rules import param_pspecs, zero1_pspecs
@@ -325,22 +389,20 @@ def test_train_state_shards_are_the_placements(cells):
 
 def _peak_of(device):
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed._tools.mem_tracker import MemTracker
 
     from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.launch.live_bytes import LiveBytesMode
 
     with FakeTensorMode():
         q = torch.empty((1, 32, 4096, 128), dtype=torch.bfloat16,
                         device=device)
         k = torch.empty((1, 4, 4096, 128), dtype=torch.bfloat16,
                         device=device)
-        mt = MemTracker()
-        mt.track_external(q, k)
-        with mt:
+        live = LiveBytesMode()
+        live.track(q, k)
+        with live:
             out = fo.attention(q, k, k, causal=True)
-        peak = sum(v["Total"] for v in
-                   mt.get_tracker_snapshot("peak").values())
-    return peak, out
+    return live.peak, out
 
 
 def test_registered_kernel_allocates_only_its_output():
