@@ -290,7 +290,6 @@ def make_block_runner(cfg: FWIConfig, *, k: int | None = None,
     return run
 
 
-@functools.lru_cache(maxsize=16)
 def make_shot_parallel_runner(cfg: FWIConfig, n_devices: int, *,
                               k: int | None = None,
                               collect_traces: bool = True, tile=None,
@@ -307,16 +306,23 @@ def make_shot_parallel_runner(cfg: FWIConfig, n_devices: int, *,
     the padded shots propagate as throwaway copies and every output is
     sliced back to ``n_shots``.  ``place`` and ``run`` take padded or
     unpadded fields.  Each shot's arithmetic does not depend on its
-    batch, so the result is bitwise equal to ``make_block_runner``'s."""
+    batch, so the result is bitwise equal to ``make_block_runner``'s.
+    Memoized on the resolved devices, so a list of them is taken too."""
     if devices is None or isinstance(devices, (str, torch.device)):
-        devs = [resolve_device("cuda" if devices is None else devices)] \
+        devs = (resolve_device("cuda" if devices is None else devices),) \
             * n_devices
     else:
-        devs = [resolve_device(d) for d in devices][:n_devices]
+        devs = tuple(resolve_device(d) for d in devices)[:n_devices]
         if len(devs) < n_devices:
             raise ValueError(f"{n_devices} shards on {len(devs)} devices")
-    if k is None:
-        k = pick_k(cfg.nz)
+    return _shot_parallel_runner(cfg, devs, pick_k(cfg.nz) if k is None
+                                 else k, collect_traces, tile)
+
+
+@functools.lru_cache(maxsize=16)
+def _shot_parallel_runner(cfg: FWIConfig, devs: tuple, k: int,
+                          collect_traces: bool, tile):
+    n_devices = len(devs)
     pad = (-cfg.n_shots) % n_devices
     per = (cfg.n_shots + pad) // n_devices
     pos = cfg.shot_positions()

@@ -15,6 +15,7 @@ import subprocess
 import sys
 import textwrap
 import time
+import types
 
 import pytest
 
@@ -801,9 +802,23 @@ def _cli(*args, cwd=ROOT):
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
 
 
-def test_cli_clean_tree_and_json_schema(tmp_path):
+def _main(capsys, *args):
+    """The CLI's ``main(argv)`` in this process, answered as ``_cli``'s
+    subprocess is: ``returncode``, ``stdout``, ``stderr``."""
+    from repro_torch.analysis.__main__ import main
+
+    try:
+        rc = main(list(args))
+    except SystemExit as exc:          # argparse refuses the arguments
+        rc = exc.code
+    out = capsys.readouterr()
+    return types.SimpleNamespace(returncode=rc, stdout=out.out,
+                                 stderr=out.err)
+
+
+def test_cli_clean_tree_and_json_schema(tmp_path, capsys):
     out = tmp_path / "lint.json"
-    proc = _cli("--ci", "--json", str(out))
+    proc = _main(capsys, "--ci", "--json", str(out))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "repro-lint (port):" in proc.stdout
     doc = json.loads(out.read_text())
@@ -811,12 +826,12 @@ def test_cli_clean_tree_and_json_schema(tmp_path):
     assert doc["findings"] == [] and set(doc["rules"]) == RULE_IDS
 
 
-def test_cli_fails_on_an_injected_violation(tmp_path):
+def test_cli_fails_on_an_injected_violation(tmp_path, capsys):
     bad = tmp_path / "sim"
     bad.mkdir()
     (bad / "toy.py").write_text("import random\n")
-    proc = _cli("--rules", "sim-determinism", str(bad), "--json",
-                str(tmp_path / "out.json"))
+    proc = _main(capsys, "--rules", "sim-determinism", str(bad), "--json",
+                 str(tmp_path / "out.json"))
     assert proc.returncode == 1
     assert "sim-determinism" in proc.stdout
     doc = json.loads((tmp_path / "out.json").read_text())
@@ -825,11 +840,13 @@ def test_cli_fails_on_an_injected_violation(tmp_path):
                                        "message"}
 
 
-def test_cli_list_rules_and_unknown_rule():
+def test_cli_list_rules_and_unknown_rule(capsys):
+    # the one run through ``python -m``: the module's entry point
     proc = _cli("--list-rules")
     assert proc.returncode == 0
     assert {ln.split()[0] for ln in proc.stdout.splitlines()} == RULE_IDS
-    proc = _cli("--rules", "bogus")
+    assert _main(capsys, "--list-rules").stdout == proc.stdout
+    proc = _main(capsys, "--rules", "bogus")
     assert proc.returncode == 2 and "unknown rule" in proc.stderr
 
 
