@@ -93,11 +93,20 @@ Phases, each printing one JSON line:
     whisper's encoder (8, 20, 20, 1500, 64, not causal), its
     cross-attention (Sq = 128 queries against Sk = 1500 frames), a
     ragged Sq = 7 against Sk = 65 and qwen2-vl's causal (4, 64, 8, 2048,
-    128), f32 and bf16): atol 2e-5 in f32, 3e-2 in bf16.
+    128), f32 and bf16): atol 2e-5 in f32, 3e-2 in bf16.  Then with the
+    logit soft-cap (``SOFTCAP_CASES``: Yi-6B's prefill and a non-causal
+    case in the model's layout, ragged S=300, S=1, one query against 512
+    keys, whisper's encoder and cross-attention, MLA's pair at S=65; q
+    scaled by 8; f32 and bf16; caps 50 and 5), each within the same
+    tolerance, and at cap 5 each case whose queries see more than one
+    key more than 100 tolerances from the uncapped kernel.
 14. ``serve_vs_cpu``: Yi-6B at full width, 2 layers, f32 (no TF32):
     the same weights serve on the card (kernels) and on the CPU (plain
     versions), B=2, prompt 128, 4 greedy steps: logits within
-    1e-3·max|logit|, identical tokens, the predicted launch counts.
+    1e-3·max|logit|, identical tokens, the predicted launch counts; then
+    the same with the logit soft-cap at 50 (Gemma 2's), whose CPU run
+    records each layer's largest score (above the cap at both), and
+    its distance from the uncapped run.
 15. ``serve``: Yi-6B at full width and depth in bf16 through
     ``launch/serve.py``'s functions: 4 requests of 512 prompt tokens and
     32 greedy tokens each, with prefill and decode times, peak memory,
@@ -108,7 +117,11 @@ Phases, each printing one JSON line:
     invariant (full prefill against prefill(S-1) + one decode step) is
     held at all 32 layers in bf16 within 5e-2·max|logit|, with the
     attention projections drawn at the fan-in of their contraction
-    (``well_conditioned``).
+    (``well_conditioned``).  Then the same model at a logit soft-cap of
+    50 on the same params: one prefill and 4 decode steps (finite
+    logits, 32 flash launches a prefill, the predicted launches) and the
+    invariant within 5e-2·max|logit| on the served params themselves
+    (the cap keeps the init rule's scores within ±50).
 16. ``ssd_vs_plain``: the SSD chunk kernel against its plain version
     on ``SSD_CASES`` (the shapes of ``tests/test_kernels.py`` in f32 and
     bf16, a ragged Q=96, the largest N and P, mamba2-370m's served
@@ -225,8 +238,9 @@ Phases, each printing one JSON line:
     the plain version on the same inputs and output gradients: Yi-6B's
     (2048, 4096) bf16 norm rows and (4, 32, 4, 512, 128) bf16 attention
     in the model's layout, mamba2's bf16 SSD shape with stride-0 B and C,
-    and one f32 case each, within the forwards' tolerances; the
-    Function's forward must launch its kernel once.
+    and one f32 case each (attention also an f32 case soft-capped at 5),
+    within the forwards' tolerances; the Function's forward must launch
+    its kernel once.
 20. ``train_vs_cpu``: Yi-6B and mamba2-370m at full width, 2 layers, f32
     (no TF32), B=2, S=256: loss and every gradient leaf on the card
     (kernels through their Functions, remat "full") against the CPU
@@ -371,8 +385,9 @@ Phases, each printing one JSON line:
     each shape first held bitwise to the plain version) and its
     ``design``);
     flash attention also at a long prompt (``ms_long``,
-    ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)) and
-    its bf16 ``design``; the SSD kernel also with per-head B and C
+    ``library_ms_long``, ``bound_ms_long`` at (1, 32, 4, 4096, 128)),
+    with the soft-cap at Yi-6B's shape (``ms_softcap``,
+    ``plain_ms_softcap``) and its bf16 ``design``; the SSD kernel also with per-head B and C
     (``ms_per_head``, ``bound_ms_per_head``), the heads a CTA took at
     the served shape (``heads_per_cta``) and its ``design``; each LM
     kernel also its launches in ``train`` and ``mamba_train``
@@ -437,6 +452,24 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 #: prompt, (B, H, KH, S, D), causal, where the work is compute-bound
 FLASH_SHAPE = (4, 32, 4, 512, 128)
 FLASH_SHAPE_LONG = (1, 32, 4, 4096, 128)
+#: the attention logit soft-cap (``attn_logit_softcap``): no config of
+#: the repository sets one, so the full-width path takes Gemma 2's
+#: published ``attn_logit_softcapping`` (arXiv:2408.00118) on Yi-6B, and
+#: the kernel cases also a cap of 5.  Capped kernel cases scale q by
+#: SOFTCAP_GAIN (exact in bf16), so the scaled scores have a std of 8
+#: and both caps bite; at cap 5 each case must move the kernel's output
+#: by more than SOFTCAP_BITE tolerances from the uncapped kernel's.
+#: Such scores make a row's weights near one-hot, so an output is near
+#: one of v's values: v is drawn uniform within ±SOFTCAP_V, and every
+#: output stays below 4, where a bf16 step is 2^-6 and the two versions'
+#: roundings part by one step at most.  (Unit-normal v reaches 5, where a
+#: step, 2^-5, is above ATTN_TOL: a capped bf16 case at Yi-6B's shape
+#: read 0.03125 so.)
+SOFTCAP = 50.0
+SOFTCAP_CASE_CAPS = (50.0, 5.0)
+SOFTCAP_GAIN = 8.0
+SOFTCAP_V = 3.5
+SOFTCAP_BITE = 100
 #: serve_vs_cpu: f32 logits on the card within this share of max|logit|
 SERVE_F32_TOL = 1e-3
 #: flash attention on the served model's activations: |got - want| <=
@@ -2406,9 +2439,79 @@ def run_attention_vs_plain(dev, rng):
         check(ok, f"attention kernel vs plain {label} {dtype}: {err} > "
                   f"{ATTN_TOL[dtype]}")
         del q, k, v, want, got
+    capped, worst_cap = capped_attention_cases(dev, rng)
     return {"phase": "attention_vs_plain", "tolerance": {
         "float32": ATTN_TOL[f32], "bfloat16": ATTN_TOL[bf16]},
-        "max_abs_err": worst, "cases": cases}
+        "max_abs_err": max(worst, worst_cap), "cases": cases,
+        "softcap_cases": capped, "softcap_gain": SOFTCAP_GAIN,
+        "softcap_bite": SOFTCAP_BITE}
+
+
+#: capped attention_vs_plain cases: (label, (B, H, KH, Sq, D[, Sk]),
+#: causal, layout) in f32 and bf16 at each of SOFTCAP_CASE_CAPS
+SOFTCAP_CASES = [
+    ("Yi-6B prefill, model layout", FLASH_SHAPE, True, True),
+    ("non-causal, model layout", (2, 32, 4, 300, 128), False, True),
+    ("ragged S=300", (1, 8, 2, 300, 128), True, False),
+    ("S=1", (2, 4, 2, 1, 128), True, False),
+    ("S=1 against Sk=512", (8, 32, 4, 1, 128, 512), False, False),
+    ("whisper encoder, model layout", (*FLASH_WHISPER_ENC[0], None), False,
+     True),
+    ("whisper cross-attention, model layout", (*FLASH_CROSS[0], 1500),
+     False, True),
+    ("MLA 192/128 S=65", (2, 128, 128, 65, 192), True, "mla"),
+]
+
+
+def capped_attention_cases(dev, rng) -> tuple[list[dict], float]:
+    """``SOFTCAP_CASES`` through the kernel with a soft-cap against the
+    plain version, each within ATTN_TOL; at cap 5 each where a query
+    sees more than one key must also part from the uncapped kernel by
+    more than SOFTCAP_BITE tolerances (a single key takes all the
+    weight whatever its score).  Returns the cases and the worst
+    error."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    cases, worst = [], 0.0
+    for label, shape, causal, layout in SOFTCAP_CASES:
+        b, h, kh, s, d = shape[:5]
+        sk = shape[5] if len(shape) > 5 and shape[5] else s
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(rng, dev, dtype, b, h, kh, s, d, layout,
+                                   sk)
+            q.mul_(SOFTCAP_GAIN)
+            v.copy_(torch.from_numpy(rng.uniform(
+                -SOFTCAP_V, SOFTCAP_V, v.shape).astype(np.float32)))
+            tol = ATTN_TOL[dtype]
+            for cap in SOFTCAP_CASE_CAPS:
+                want = ref.attention_ref(q, k, v, causal=causal, softcap=cap)
+                got = kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                                  softcap=cap)
+                torch.cuda.synchronize()
+                err, ok = _close([got], [want], tol)
+                worst = max(worst, err)
+                row = {"case": label, "B": b, "H": h, "KH": kh, "S": s,
+                       "Sk": sk, "D": d, "Dv": v.shape[-1],
+                       "dtype": str(dtype).split(".")[-1], "causal": causal,
+                       "softcap": cap, "max_abs_diff": err}
+                check(ok, f"capped attention kernel vs plain {label} "
+                          f"{dtype} cap {cap}: {err} > {tol}")
+                if cap == min(SOFTCAP_CASE_CAPS):
+                    free = kernel.flash_attention_cuda(q, k, v,
+                                                       causal=causal)
+                    row["moved_from_uncapped"] = float(
+                        (got.float() - free.float()).abs().max())
+                    one_key = sk == 1 or (causal and s == 1)
+                    check(one_key or row["moved_from_uncapped"]
+                          > SOFTCAP_BITE * tol,
+                          f"cap {cap} moves {label} {dtype} by "
+                          f"{row['moved_from_uncapped']} only")
+                    del free
+                cases.append(row)
+                del want, got
+            del q, k, v
+    torch.cuda.empty_cache()
+    return cases, worst
 
 
 def _counts_zero():
@@ -2467,6 +2570,8 @@ def run_serve_vs_cpu(dev, arch="yi-6b"):
           f"launches {got.launches}, predicted prefill {pre} decode {dec}")
     check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
           f"counted launches {launches}")
+    capped = capped_serve_vs_cpu(cfg, params, cpu_params, prompts, steps,
+                                 got, dev)
     return {"phase": "serve_vs_cpu", "arch": cfg.name, "layers": 2,
             "d_model": cfg.d_model, "d_ff": cfg.d_ff,
             "mlp_act": cfg.mlp_act, "vocab": cfg.vocab_size,
@@ -2475,7 +2580,91 @@ def run_serve_vs_cpu(dev, arch="yi-6b"):
             "max_abs_logit": scale, "logit_max_abs_diff": errs,
             "tolerance": SERVE_F32_TOL * scale,
             "tokens_equal": True, "launches": got.launches,
-            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s}
+            "card_prefill_s": got.prefill_s, "cpu_s": cpu_s,
+            "softcap": capped}
+
+
+class ScoreRecorder:
+    """Within its ``with``, each attention call of the model's prefill
+    (``models/attention.py``'s ``attention``) also records its largest
+    |scaled score| q·kᵀ·D^-½ before any cap, computed beside the call:
+    where it exceeds the cap, the cap moves that score by at least
+    (1 - tanh 1)·cap, a quarter of the cap."""
+
+    def __init__(self):
+        self.max_abs_scores: list[float] = []
+
+    def __enter__(self):
+        from repro_torch.models import attention as am
+
+        self._mod, self._fn = am, am.attention
+
+        def recorded(q, k, v, **kw):
+            rep = q.shape[1] // k.shape[1]
+            kk = k.repeat_interleave(rep, dim=1).float()
+            s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) \
+                * q.shape[-1] ** -0.5
+            self.max_abs_scores.append(float(s.abs().max()))
+            del s, kk
+            return self._fn(q, k, v, **kw)
+
+        am.attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.attention = self._fn
+
+
+def capped_serve_vs_cpu(cfg, params, cpu_params, prompts, steps, free, dev):
+    """serve_vs_cpu's second serve, on the same params and prompts, with
+    ``attn_logit_softcap = SOFTCAP``: the card within
+    SERVE_F32_TOL·max|logit| of the CPU, the same tokens, the predicted
+    launches; the CPU's prefill records each layer's largest score,
+    which must exceed the cap at both layers (the cap bites at each)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    capped = dataclasses.replace(cfg, attn_logit_softcap=SOFTCAP)
+    _counts_zero()
+    got = serve.serve(capped, params, prompts.to(dev), steps + 1)
+    launches = _counts()
+    with ScoreRecorder() as rec:
+        want = serve.serve(capped, cpu_params, prompts, steps + 1)
+    scale = float(want.first_logits.abs().max())
+    errs = [float((g.cpu() - w).abs().max()) for g, w in (
+        (got.first_logits, want.first_logits),
+        (got.last_logits, want.last_logits))]
+    pre = M.launches_per_pass(capped, "prefill")
+    dec = {k: steps * v
+           for k, v in M.launches_per_pass(capped, "decode").items()}
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        got.first_logits, got.last_logits)),
+          "non-finite capped logits on the card")
+    check(max(errs) <= SERVE_F32_TOL * scale,
+          f"capped card vs CPU logits: {errs} > {SERVE_F32_TOL} * {scale}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"capped greedy tokens differ: {got.tokens.tolist()} vs "
+          f"{want.tokens.tolist()}")
+    check(got.launches == {"prefill": pre, "decode": dec},
+          f"capped launches {got.launches}, predicted prefill {pre} "
+          f"decode {dec}")
+    check(launches == {k: pre.get(k, 0) + dec.get(k, 0) for k in launches},
+          f"capped counted launches {launches}")
+    layer_scores = rec.max_abs_scores[:cfg.num_layers]
+    check(len(layer_scores) == cfg.num_layers
+          and min(layer_scores) > SOFTCAP,
+          f"the cap {SOFTCAP} does not bite at every layer: largest "
+          f"scores {layer_scores}")
+    return {"cap": SOFTCAP, "max_abs_logit": scale,
+            "logit_max_abs_diff": errs, "tolerance": SERVE_F32_TOL * scale,
+            "tokens_equal": True, "launches": got.launches,
+            "layer_max_abs_score": layer_scores,
+            "from_uncapped_first_logits_max_abs_diff": float(
+                (got.first_logits - free.first_logits).abs().max()),
+            "from_uncapped_tokens_equal": bool(torch.equal(
+                got.tokens, free.tokens))}
 
 
 def _category(name: str) -> str:
@@ -2573,29 +2762,13 @@ def run_serve(dev):
     # the serving invariant: full prefill vs prefill(S-1) + one decode
     # step, all 32 layers, bf16, well-conditioned attention weights
     wc = well_conditioned(cfg, params)
-    lf, cf = serve_step.build_prefill(cfg)(wc, {"tokens": prompts})
-    _, cache = serve_step.build_prefill(cfg, max_seq=P)(
-        wc, {"tokens": prompts[:, :P - 1]})
-    ld, cache = serve_step.build_decode(cfg)(
-        wc, cache, {"token": prompts[:, P - 1], "pos": P - 1})
-    kf = cf["b0"]["l0"]["mixer"]["k"].float()
-    kd = cache["b0"]["l0"]["mixer"]["k"].float()
-    inv = {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
-           "max_abs_diff": float((lf - ld).abs().max()),
-           "max_abs_logit": float(lf.abs().max()),
-           "tolerance_share": SERVE_INV_TOL,
-           "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
-                                     .float().mean()),
-           "cache_prefix_max_abs_diff": float(
-               (kf[:, :, :P - 1] - kd[:, :, :P - 1]).abs().max()),
-           "k_new_max_abs_diff_by_layer": (
-               kf[:, :, P - 1] - kd[:, :, P - 1]).abs().amax(
-                   dim=(1, 2, 3)).tolist()}
-    del wc, cf, cache, kf, kd
+    inv = serve_invariant(cfg, wc, prompts)
+    del wc
     torch.cuda.empty_cache()
     check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
           f"bf16 prefill vs prefill+decode at {cfg.num_layers} layers: "
           f"{inv}")
+    capped = capped_serve(cfg, params, prompts)
     decode = serve_step.build_decode(cfg)
 
     # where the time goes
@@ -2626,10 +2799,82 @@ def run_serve(dev):
         "launches": launches,
         "kernels_on_activations": on_acts,
         "invariant": inv,
+        "softcap": capped,
         "profile_prefill": prof_prefill,
         "profile_decode_step": prof_decode,
         "sample_ids": res.tokens[0, :12].tolist(),
     }
+
+
+def serve_invariant(cfg, weights, prompts) -> dict:
+    """Full prefill of ``prompts`` (B, P) against prefill(P-1) + one
+    decode step of the last token, all layers: the logits' largest
+    difference beside max|logit|, their argmax agreement, and the first
+    layer's cached k (its prefix and the new position by layer)."""
+    from repro_torch.runtime import serve_step
+
+    P = prompts.shape[1]
+    lf, cf = serve_step.build_prefill(cfg)(weights, {"tokens": prompts})
+    _, cache = serve_step.build_prefill(cfg, max_seq=P)(
+        weights, {"tokens": prompts[:, :P - 1]})
+    ld, cache = serve_step.build_decode(cfg)(
+        weights, cache, {"token": prompts[:, P - 1], "pos": P - 1})
+    kf = cf["b0"]["l0"]["mixer"]["k"].float()
+    kd = cache["b0"]["l0"]["mixer"]["k"].float()
+    inv = {"layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
+           "max_abs_diff": float((lf - ld).abs().max()),
+           "max_abs_logit": float(lf.abs().max()),
+           "tolerance_share": SERVE_INV_TOL,
+           "argmax_agreement": float((lf.argmax(-1) == ld.argmax(-1))
+                                     .float().mean()),
+           "cache_prefix_max_abs_diff": float(
+               (kf[:, :, :P - 1] - kd[:, :, :P - 1]).abs().max()),
+           "k_new_max_abs_diff_by_layer": (
+               kf[:, :, P - 1] - kd[:, :, P - 1]).abs().amax(
+                   dim=(1, 2, 3)).tolist()}
+    del cf, cache, kf, kd
+    torch.cuda.empty_cache()
+    return inv
+
+
+#: serve's soft-capped run: one prefill and this many decode steps
+SOFTCAP_SERVE_STEPS = 4
+
+
+def capped_serve(cfg, params, prompts) -> dict:
+    """The served model at ``attn_logit_softcap = SOFTCAP`` on the same
+    params and prompts: one prefill and SOFTCAP_SERVE_STEPS decode
+    steps (finite logits, the predicted launches: one flash call per
+    layer in the prefill, none in a step), and the bf16 invariant held
+    within SERVE_INV_TOL·max|logit| on the served params themselves.
+    Their scores reach ~2000 under the init rule; the uncapped
+    invariant needs ``well_conditioned`` weights (its one-hot rows
+    multiply a rounding at each layer), the capped one does not (every
+    score within ±50)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+
+    capped = dataclasses.replace(cfg, attn_logit_softcap=SOFTCAP)
+    B = prompts.shape[0]
+    G = SOFTCAP_SERVE_STEPS + 1
+    _counts_zero()
+    res = serve.serve(capped, params, prompts, G)
+    per_step = _check_served(capped, res, _counts(), B, G)
+    check(res.launches["prefill"]["flash_attention"] == cfg.num_layers,
+          f"capped prefill flash launches {res.launches['prefill']}")
+    inv = serve_invariant(capped, params, prompts)
+    check(inv["max_abs_diff"] <= SERVE_INV_TOL * inv["max_abs_logit"],
+          f"capped bf16 prefill vs prefill+decode at {cfg.num_layers} "
+          f"layers: {inv}")
+    return {"cap": SOFTCAP, "invariant_weights": "init rule",
+            "decode_steps": res.decode_steps,
+            "prefill_ms": res.prefill_s * 1e3,
+            "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+            "launches_per_prefill": res.launches["prefill"],
+            "launches_per_decode_step": per_step,
+            "max_abs_first_logit": float(res.first_logits.abs().max()),
+            "sample_ids": res.tokens[0].tolist(), "invariant": inv}
 
 
 def well_conditioned(cfg, params):
@@ -2693,12 +2938,13 @@ def kernels_on_activations(cfg, params, prompts, phase, inputs=None):
     # (error, within tolerance, extra figures) per call
     seen = {name: [] for name in pre}
 
-    def attention(q, k, v, *, causal=True):
-        out = attn0(q, k, v, causal=causal)
+    def attention(q, k, v, *, causal=True, softcap=0.0):
+        out = attn0(q, k, v, causal=causal, softcap=softcap)
         # the plain version a request at a time: at MLA's 128 heads one
         # (B, H, S, S) f32 score tensor is 8.6 GB at B=4, S=2048
         want = torch.cat([fr.attention_ref(q[i:i + 1], k[i:i + 1],
-                                           v[i:i + 1], causal=causal)
+                                           v[i:i + 1], causal=causal,
+                                           softcap=softcap)
                           for i in range(q.shape[0])])
         vmax = float(v.abs().max())
         err, ok = _close([out], [want], ATTN_ACT_SHARE * vmax)
@@ -2771,14 +3017,17 @@ def kernels_on_activations(cfg, params, prompts, phase, inputs=None):
             for name, calls in seen.items()} | {"tolerance": out["tolerance"]}
 
 
-def flash_timing(dev, shape, bw, peak, g, causal=True, sk=None) -> dict:
+def flash_timing(dev, shape, bw, peak, g, causal=True, sk=None,
+                 softcap=0.0) -> dict:
     """The bf16 flash kernel at ``shape`` = (B, H, KH, S, D) or (B, H,
     KH, S, D, Dv), causal or not, S queries against ``sk`` keys (default
     S), on the model's (B, S, H, D) views from ``g`` (with a Dv, v the
-    last Dv columns of a (B, S, KH, 128 + Dv) tensor, as MLA passes it):
-    held to its plain version within ATTN_TOL, its device ms, the plain
-    version's, SDPA's (the yardstick, never called by the port) and the
-    bound."""
+    last Dv columns of a (B, S, KH, 128 + Dv) tensor, as MLA passes it),
+    its scores capped by ``softcap`` (0: none): held to its plain
+    version within ATTN_TOL, its device ms, the plain version's, SDPA's
+    (the yardstick, never called by the port; None with a cap, which no
+    single PyTorch call applies) and the bound (the same with a cap:
+    products and bytes only)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2799,19 +3048,23 @@ def flash_timing(dev, shape, bw, peak, g, causal=True, sk=None) -> dict:
     else:
         v = torch.randn((B, Sk, KH, MLA_NOPE + Dv), generator=g,
                         device=dev).to(bt)[..., MLA_NOPE:].transpose(1, 2)
-    want = fr.attention_ref(q, k, v, causal=causal)
-    err, ok = _close([fk.flash_attention_cuda(q, k, v, causal=causal)],
+    want = fr.attention_ref(q, k, v, causal=causal, softcap=softcap)
+    err, ok = _close([fk.flash_attention_cuda(q, k, v, causal=causal,
+                                              softcap=softcap)],
                      [want], ATTN_TOL[bt])
-    check(ok, f"flash at {shape}, Sk={Sk}: {err} > {ATTN_TOL[bt]}")
+    check(ok, f"flash at {shape}, Sk={Sk}, cap {softcap}: {err} > "
+              f"{ATTN_TOL[bt]}")
     del want
     reps = max(5, 50 * 512 // S)
     ms = device_time_ms(
-        lambda: fk.flash_attention_cuda(q, k, v, causal=causal), reps)
+        lambda: fk.flash_attention_cuda(q, k, v, causal=causal,
+                                        softcap=softcap), reps)
     plain_ms = device_time_ms(
-        lambda: fr.attention_ref(q, k, v, causal=causal),
+        lambda: fr.attention_ref(q, k, v, causal=causal, softcap=softcap),
         10 if S <= 512 else 3)
-    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), reps)
+    lib_ms = None if softcap else device_time_ms(
+        lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), reps)
     fb, fby = bound_ms(fk.attention_bytes(B, H, KH, S, D, 2, Dv, Sk),
                        fk.attention_flops(B, H, S, D, causal, Dv, Sk), bw,
                        peak)
@@ -2831,6 +3084,7 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
     B, H, KH, S, D = FLASH_SHAPE
     bt = torch.bfloat16
     main = flash_timing(dev, FLASH_SHAPE, bw, bf16, g)
+    capped = flash_timing(dev, FLASH_SHAPE, bw, bf16, g, softcap=SOFTCAP)
     long = flash_timing(dev, FLASH_SHAPE_LONG, bw, bf16, g)
     flash = {
         "name": "flash_attention", "route": "cuda",
@@ -2839,8 +3093,10 @@ def lm_kernel_entries(dev, bw, f32, bf16, rms, att, served):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": served["launches"]["flash_attention"],
         "max_abs_err": max(att["max_abs_err"], main["max_abs_err"],
-                           long["max_abs_err"]),
+                           capped["max_abs_err"], long["max_abs_err"]),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "ms_softcap": capped["ms"], "plain_ms_softcap": capped["plain_ms"],
+        "softcap": SOFTCAP,
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library": "F.scaled_dot_product_attention(is_causal=True, "
@@ -4654,6 +4910,16 @@ def run_train_grad_vs_plain(dev):
         cases.append(_grad_case(
             f"attention {shape} {dtype}", fo.attention, attention_ref,
             (q, k, v), {"causal": True}, (ATTN_TOL[dtype], 0.0), 2))
+    # the soft-capped forward and the capped plain backward, f32, the
+    # scores spread so that cap 5 bites
+    q, k, v = _attn_inputs(rng, dev, f32, 2, 8, 2, 256, 64,
+                           model_layout=True)
+    q.mul_(SOFTCAP_GAIN)
+    cases.append(_grad_case(
+        f"attention (2, 8, 2, 256, 64) {f32}, softcap 5", fo.attention,
+        attention_ref, (q, k, v), {"causal": True, "softcap": 5.0},
+        (ATTN_TOL[f32], 0.0), 2))
+    del q, k, v
     for shape, dtype in ((SSD_SERVED, bf16), ((4, 2, 64, 32, 64), f32)):
         xdt, b, c, csum = _ssd_inputs(rng, dev, dtype, *shape,
                                       layout="model")

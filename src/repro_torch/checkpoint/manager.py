@@ -376,7 +376,10 @@ class CheckpointManager:
         ``runtime/train_step.py::state_shardings`` gives it) puts each
         leaf onto the *current* mesh as a DTensor at its placements, on
         the mesh's device — restoring under a different mesh than the
-        save is the supported path (that is the burst).  Every rank
+        save is the supported path (that is the burst).  A leaf the tree
+        has no sharding for (``None``, or absent) comes back as without
+        `shardings`, a CPU tensor, as the JAX package's restore gives
+        such a leaf as a plain array.  Every rank
         reads the files and ``distribute_tensor``s each leaf in turn, so
         the ranks agree whichever rank a torch version takes the data
         from.  The files are read once: their bytes are verified and
@@ -425,8 +428,8 @@ class CheckpointManager:
         for key in [k for k in manifest["leaves"] if k in flat_target]:
             arr = _npy_array(data.pop(key))
             out[key] = _from_host(arr, manifest["leaves"][key]["dtype"], key)
-            if shardings is not None:
-                sh = flat_shardings[key]
+            sh = flat_shardings.get(key)
+            if sh is not None:
                 out[key] = distribute_tensor(
                     out[key].to(sh.mesh.device_type), sh.mesh, sh.placements)
         missing = set(flat_target) - set(out)

@@ -8,7 +8,10 @@
 //   o[b,h,i] = softmax_j(q[b,h,i] . k[b,h/rep,j] * scale) . v[b,h/rep,j]
 // over j <= i when causal (then Sk == Sq, which the wrapper checks), all
 // j < Sk otherwise; rep = H / KH; q and k have DQK columns, v and o DV,
-// and the wrapper passes scale = DQK^-1/2.  Sk != Sq is cross-attention
+// and the wrapper passes scale = DQK^-1/2.  With softcap > 0 each scaled
+// score x becomes softcap * tanh(x / softcap) before the mask (the logit
+// soft-cap of the JAX model's chunked_attention); 0 leaves it as it is.
+// Sk != Sq is cross-attention
 // (models/attention.py::apply_cross_attn: decoder queries against the
 // encoder's frames).  The scores, the running max m, the running sum l and the accumulator are
 // f32; q, k, v and o are f32 or bf16.  Tensors come with strides (the
@@ -65,6 +68,12 @@
 //     - Roundings: P is rounded to bf16 before P V and O is divided by
 //       l (times 1/l) once at the end, as before; exp is ex2.approx.ftz
 //       of a fused scale-and-subtract in log2 units.
+//     - Soft-cap: the kernel branches once, on softcap > 0, into one of
+//       two compiled key loops (flash_fwd_bf16_cta<.., CAP>); the capped
+//       one takes tanhf of every score of every tile before the mask.
+//       At Yi-6B's prefill the capped loop takes 0.064 ms against the
+//       uncapped 0.038 (H100 80GB HBM3, 700 W, tools/flash_bench.py); a
+//       branch a tile took 0.053 capped but cost the uncapped loop 2-4 %.
 //     - Resources at D = 128: 80 KB of tiles (Q 16 KB + 2 x (K 16 KB +
 //       V 16 KB)) + 1 KB of alignment slack + 40 bytes of barriers, 138
 //       registers a thread (ptxas; 106 at D = 64, 90 at D = 32), so 2
@@ -90,6 +99,7 @@
                            // encoder comes from cudaGetDriverEntryPoint)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -137,7 +147,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int Sq,
-                  int Sk, int rep, Strides st, float scale, int causal)
+                  int Sk, int rep, Strides st, float scale, int causal,
+                  float softcap)
 {
     // thread (ty, tx) owns output columns g * 16 * VW + tx * VW + j
     constexpr int VW = DV >= 64 ? 4 : 2;
@@ -207,6 +218,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int j = 0; j < 4; ++j) {
                 const int kj = k0 + tx * 4 + j;
                 float x = s[i][j] * scale;
+                if (softcap > 0.f) x = softcap * tanhf(x / softcap);
                 if (kj >= Sk || (causal && kj > qi)) x = NEG_INF;
                 s[i][j] = x;
                 mx = fmaxf(mx, x);
@@ -568,16 +580,26 @@ __device__ __forceinline__ float ex2(float x)
 
 // The online softmax of one score tile in wgmma's accumulator layout:
 // s[4 * n8 + e] is row r0 (e = 0, 1) or r0 + 8 (e = 2, 3) of the
-// thread's warp, key k0 + n8 * 8 + 2 * t4 + (e & 1).  Masks the keys
-// >= Sk and, when causal, above the diagonal; leaves P in s, updates m
-// and l (m in log2 units: scores times sl2 = scale log2 e), and gives
+// thread's warp, key k0 + n8 * 8 + 2 * t4 + (e & 1).  With a soft-cap
+// (CAP) every score of every tile first becomes cap tanh(s sc), sc =
+// scale / cap, before any mask: a masked key must stay at -1e30, not
+// come back as -cap.  Masks the keys >= Sk and, when causal, above the
+// diagonal; leaves P in s, updates m and l (m in log2 units: scores
+// times sl2, which is scale log2 e, or log2 e once capped), and gives
 // alpha, the factor for O.
+template <bool CAP>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
     int k0, int q0, int Sk, int causal, const int (&qrow)[2], int t4,
-    float sl2)
+    float sl2, float cap, float sc)
 {
     const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    if (CAP) {
+        // tanhf, not tanh.approx.f32: the approximation's 2^-11
+        // relative error is ~0.025 of a score at cap 50
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] = cap * tanhf(s[i] * sc);
+    }
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -622,17 +644,19 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
             pf[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                      int rep, Strides st, float scale, int causal)
+// One CTA of flash_fwd_bf16_kernel, with the soft-cap (CAP) or without:
+// the kernel picks one of the two for the whole CTA, so the key loop
+// without a cap holds none of the cap's instructions.  smem_raw is the
+// dynamic shared memory, bars the kernel's 5 barriers.
+template <int DQK, int DV, bool CAP>
+__device__ __forceinline__ void flash_fwd_bf16_cta(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int rep,
+    const Strides& st, float scale, int causal, float softcap,
+    unsigned char* smem_raw, uint64_t* bars)
 {
     constexpr uint32_t QK_BYTES = TileShape<DQK>::BYTES;
     constexpr uint32_t V_BYTES = TileShape<DV>::BYTES;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t base =
         ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
     // Q, then the K ring, then the V ring; tile t sits in stage t & 1
@@ -645,7 +669,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
     // full barriers: Q, K stages 0-1, V stages 0-1; the n-th use of a
     // stage completes phase n, so key tile t waits on parity (t >> 1) & 1
-    __shared__ __align__(8) uint64_t bars[5];
     const uint32_t bq = (uint32_t)__cvta_generic_to_shared(bars);
     auto kbar = [&](int t) { return bq + 8 * (1 + (t & 1)); };
     auto vbar = [&](int t) { return bq + 8 * (3 + (t & 1)); };
@@ -659,7 +682,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // this thread's rows of the warp's 16: r0 and r0 + 8
     const int r0 = warp * 16 + (lane >> 2);
     const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-    const float sl2 = scale * LOG2E;   // scores in log2 units
+    // scores in log2 units: capped scores are already scaled
+    const float sl2 = CAP ? LOG2E : scale * LOG2E;
+    const float sc = CAP ? scale / softcap : 0.f;
     const int nt = key_tiles(Sk, q0, causal);
 
     // thread 0 issues every copy: Q, K0, K1 and V0 now, then K(t+1) and
@@ -688,7 +713,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     issue_qk<DQK>(s, Qs, kst(0));
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, m, l, alpha, 0, q0, Sk, causal, qrow, t4, sl2);
+    softmax_tile<CAP>(s, m, l, alpha, 0, q0, Sk, causal, qrow, t4, sl2,
+                      softcap, sc);
     pack_p(s, pf);
 
     // iteration t: S(t) and P V(t-1) are in flight together, and the
@@ -709,8 +735,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         issue_pv<DV>(acc, pf, vst(t - 1));
         wgmma_wait<1>();             // S(t)
         fence_regs(s);
-        softmax_tile(s, m, l, alpha, t * BK, q0, Sk, causal, qrow, t4,
-                     sl2);
+        softmax_tile<CAP>(s, m, l, alpha, t * BK, q0, Sk, causal, qrow,
+                          t4, sl2, softcap, sc);
         wgmma_wait<0>();             // P V(t-1)
         fence_regs(acc);
         pack_p(s, pf);
@@ -738,6 +764,29 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+template <int DQK, int DV>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+                      int rep, Strides st, float scale, int causal,
+                      float softcap)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t bars[5];
+    // one uniform branch for the CTA, not one a tile (the header's
+    // Soft-cap note)
+    if (softcap > 0.f)
+        flash_fwd_bf16_cta<DQK, DV, true>(tq, tk, tv, o, Sq, Sk, rep, st,
+                                          scale, causal, softcap, smem_raw,
+                                          bars);
+    else
+        flash_fwd_bf16_cta<DQK, DV, false>(tq, tk, tv, o, Sq, Sk, rep, st,
+                                           scale, causal, softcap,
+                                           smem_raw, bars);
+}
+
 // ---------------------------------------------------------------- launch
 
 template <typename K>
@@ -751,7 +800,7 @@ cudaError_t allow_smem(K kernel, size_t bytes)
 template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 dim3 grid, int Sq, int Sk, int rep, const Strides& st,
-                float scale, int causal, cudaStream_t stream)
+                float scale, int causal, float softcap, cudaStream_t stream)
 {
     constexpr size_t smem = simt_smem_bytes<DQK, DV>();
     static bool ready = false;
@@ -762,7 +811,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
     }
     flash_simt_kernel<DQK, DV><<<grid, SIMT_THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq,
-        Sk, rep, st, scale, causal);
+        Sk, rep, st, scale, causal, softcap);
     return (int)cudaGetLastError();
 }
 
@@ -821,7 +870,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
 template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 dim3 grid, int Sq, int Sk, int rep, const Strides& st,
-                float scale, int causal, cudaStream_t stream)
+                float scale, int causal, float softcap, cudaStream_t stream)
 {
     constexpr size_t smem = fa_smem_bytes<DQK, DV>();
     static bool ready = false;
@@ -837,20 +886,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
         !make_map<DV>(&tv, v, B, KH, Sk, st.vb, st.vh, st.vs))
         return (int)cudaErrorInvalidValue;
     flash_fwd_bf16_kernel<DQK, DV><<<grid, FA_THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)o, Sq, Sk, rep, st, scale, causal);
+        tq, tk, tv, (__nv_bfloat16*)o, Sq, Sk, rep, st, scale, causal,
+        softcap);
     return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              dim3 grid, int Sq, int Sk, int rep, const Strides& st,
-             float scale, int causal, int dtype, cudaStream_t stream)
+             float scale, int causal, float softcap, int dtype,
+             cudaStream_t stream)
 {
     if (dtype == 0)
         return launch_simt<DQK, DV>(q, k, v, o, grid, Sq, Sk, rep, st, scale,
-                                    causal, stream);
+                                    causal, softcap, stream);
     return launch_bf16<DQK, DV>(q, k, v, o, grid, Sq, Sk, rep, st, scale,
-                                causal, stream);
+                                causal, softcap, stream);
 }
 
 }  // namespace
@@ -860,7 +911,9 @@ extern "C" {
 // q (B, H, Sq, D), k (B, KH, Sk, D), v (B, KH, Sk, Dv), o (B, H, Sq,
 // Dv), each with element strides (b, h, s) and a contiguous last axis;
 // (D, Dv) is one of the pairs the switch below takes; causal needs
-// Sq == Sk.  dtype: 0 = f32
+// Sq == Sk; softcap > 0 caps the scaled scores at softcap tanh(. /
+// softcap), 0 leaves them (a negative or non-finite cap is refused).
+// dtype: 0 = f32
 // (the SIMT kernel), 1 = bf16 (the wgmma kernel).  Launches on `stream`;
 // returns the cudaError_t of the launch (0 = ok).
 int flash_attention_launch(
@@ -870,10 +923,11 @@ int flash_attention_launch(
     long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs,
     long long ob, long long oh, long long os,
-    float scale, int causal, int dtype, void* stream)
+    float scale, int causal, float softcap, int dtype, void* stream)
 {
     if (B <= 0 || H <= 0 || KH <= 0 || Sq <= 0 || Sk <= 0 || H % KH != 0 ||
-        (causal && Sq != Sk) || dtype < 0 || dtype > 1)
+        (causal && Sq != Sk) || dtype < 0 || dtype > 1 ||
+        !(softcap >= 0.f && softcap <= FLT_MAX))
         return (int)cudaErrorInvalidValue;
     const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
@@ -882,16 +936,16 @@ int flash_attention_launch(
     switch (D * 1000 + Dv) {
     case 32032:
         return launch_d<32, 32>(q, k, v, o, grid, Sq, Sk, rep, st,
-                                scale, causal, dtype, s);
+                                scale, causal, softcap, dtype, s);
     case 64064:
         return launch_d<64, 64>(q, k, v, o, grid, Sq, Sk, rep, st,
-                                scale, causal, dtype, s);
+                                scale, causal, softcap, dtype, s);
     case 128128:
         return launch_d<128, 128>(q, k, v, o, grid, Sq, Sk, rep, st,
-                                  scale, causal, dtype, s);
+                                  scale, causal, softcap, dtype, s);
     case 192128:
         return launch_d<192, 128>(q, k, v, o, grid, Sq, Sk, rep, st,
-                                  scale, causal, dtype, s);
+                                  scale, causal, softcap, dtype, s);
     default:
         return (int)cudaErrorInvalidValue;
     }

@@ -10,7 +10,9 @@ against encoder frames (``models/attention.py::apply_cross_attn``), and
 is not causal — a causal call with Sq ≠ Sk raises.  q·k and v head
 dims (D, Dv) are one of ``HEAD_DIM_PAIRS``: D = Dv ∈ {32, 64, 128}, or
 (192, 128), multi-head latent attention's prefill (``models/mla.py``).
-bf16 runs on
+A ``softcap`` above 0 caps every scaled score to ``cap·tanh(s/cap)``
+before the mask (the config's ``attn_logit_softcap``; 0, the default,
+leaves the scores as they are).  bf16 runs on
 Hopper's ``wgmma`` tensor-core products fed by a TMA ring of swizzled
 K/V tiles (``flash_smem_bytes``), f32 on the CUDA cores
 (``flash_simt_smem_bytes``); the library's ``flash_smem_query`` returns
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -61,7 +64,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
         [_VOIDP] * 4 + [_INT] * 7 + [_LL] * 12
-        + [ctypes.c_float, _INT, _INT, _VOIDP])
+        + [ctypes.c_float, _INT, ctypes.c_float, _INT, _VOIDP])
     lib.flash_attention_launch.restype = _INT
     lib.flash_attention_error_string.argtypes = [_INT]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -72,7 +75,9 @@ def attention_flops(b: int, h: int, s: int, d: int, causal: bool,
                     dv: int | None = None, sk: int | None = None) -> int:
     """Multiply-adds ×2 of q·kᵀ (over d) and p·v (over dv, default d)
     over the (query, key) pairs the mask keeps: S(S+1)/2 per head when
-    causal, Sq·Sk otherwise (``s`` queries, ``sk`` keys, default s)."""
+    causal, Sq·Sk otherwise (``s`` queries, ``sk`` keys, default s).
+    Products only: a soft-cap's tanh, like the softmax's exp, is not
+    counted, so the count is the same with a cap or without."""
     dv = d if dv is None else dv
     sk = s if sk is None else sk
     pairs = s * (s + 1) // 2 if causal else s * sk
@@ -117,14 +122,17 @@ def attention_bytes(b: int, h: int, kh: int, s: int, d: int,
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool) -> None:
-    """Raise unless the kernel takes (q, k, v, causal): CUDA tensors of
-    the shapes, dtypes and head dims it runs, each contiguous along its
-    last axis.  The registered op's fake implementation checks the
-    same; the wrapper checks the alignment of the data beside."""
+               causal: bool, softcap: float = 0.0) -> None:
+    """Raise unless the kernel takes (q, k, v, causal, softcap): CUDA
+    tensors of the shapes, dtypes and head dims it runs, each contiguous
+    along its last axis, and a cap that is finite and not negative.  The
+    registered op's fake implementation checks the same; the wrapper
+    checks the alignment of the data beside."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"softcap must be finite and >= 0, got {softcap}")
     if q.ndim != 4:
         raise ValueError(f"q must be (B, H, Sq, D), got {tuple(q.shape)}")
     B, H, S, D = q.shape
@@ -164,11 +172,13 @@ def flash_attention_cuda(
     v: torch.Tensor,   # (B, KH, Sk, Dv)
     *,
     causal: bool = True,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Attention on the card, scores scaled by D^-½; returns (B, H, Sq,
-    Dv) in q's dtype.  ``causal`` needs Sk == Sq."""
+    """Attention on the card, scores scaled by D^-½ and, with a
+    ``softcap`` above 0, capped to ``softcap·tanh(s/softcap)``; returns
+    (B, H, Sq, Dv) in q's dtype.  ``causal`` needs Sk == Sq."""
     check_no_grad("flash_attention_cuda", q, k, v)
-    check_args(q, k, v, causal)
+    check_args(q, k, v, causal, softcap)
     B, H, S, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -190,7 +200,7 @@ def flash_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KH, S, Sk, D, Dv, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], D ** -0.5, int(causal),
-            DTYPE_CODES[q.dtype], stream)
+            float(softcap), DTYPE_CODES[q.dtype], stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
@@ -209,23 +219,25 @@ flash_attention_cuda.launches = 0
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool) -> torch.Tensor:
+                       causal: bool, softcap: float = 0.0) -> torch.Tensor:
     """``flash_attention_cuda`` through PyTorch's dispatcher, so that a
     dispatch mode, the profiler and a fake tensor see it: the ctypes
     launch alone is invisible to them.  The dispatch (``ops.py``) calls
     this on CUDA tensors."""
-    return flash_attention_cuda(q, k, v, causal=causal)
+    return flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
 
 
 @flash_attention_op.register_fake
-def _fake(q, k, v, causal):
-    check_args(q, k, v, causal)
+def _fake(q, k, v, causal, softcap=0.0):
+    check_args(q, k, v, causal, softcap)
     B, H, S, _ = q.shape
     return q.new_empty((B, S, H, v.shape[-1])).transpose(1, 2)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """``attention_flops`` of the call: the two products only, with a
+    soft-cap or without (its tanh is not a product)."""
     B, H, S, D = q_shape
     return attention_flops(B, H, S, D, causal, dv=v_shape[-1],
                            sk=k_shape[2])

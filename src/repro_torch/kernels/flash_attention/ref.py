@@ -7,6 +7,9 @@ from q's and k's (MLA: 192 for q·k, 128 for v), and the keys' length
 from the queries' (cross-attention, not causal), as in the JAX model's
 ``chunked_attention``; the output takes v's head dim and q's length.
 A causal call with Sk ≠ Sq raises, as the kernel's wrapper does.
+A ``softcap`` above 0 caps each scaled score to ``cap·tanh(s/cap)``
+before the mask, in the order of the JAX model's ``chunked_attention``
+(``models/attention.py``): scale, cap, mask, softmax.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ def attention_ref(
     v: torch.Tensor,   # (B, KH, Sk, Dv)
     *,
     causal: bool = True,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     B, H, S, D = q.shape
     KH = k.shape[1]
@@ -33,6 +37,8 @@ def attention_ref(
         v = torch.repeat_interleave(v, rep, dim=1)
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (D ** -0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
     if causal:
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=q.device))

@@ -114,10 +114,11 @@ def _kv_for_heads(k: torch.Tensor, h0: int, hl: int, rep: int):
     return k[:, idx]
 
 
-def attention_local(attn: Callable, q: DTensor, k, v, causal: bool):
+def attention_local(attn: Callable, q: DTensor, k, v, causal: bool,
+                    softcap: float = 0.0):
     """``attn`` (the plain-tensor wrapper) on local shards: q (B, H, Sq,
     D) over batch and heads, k and v (B, KH, Sk, ·) over batch and,
-    where the groups line up, heads."""
+    where the groups line up, heads; each shard capped by ``softcap``."""
     mesh = q.device_mesh
     H, KH = q.shape[1], k.shape[1]
     qp = keep_shards(q, (0, 1))
@@ -138,7 +139,7 @@ def attention_local(attn: Callable, q: DTensor, k, v, causal: bool):
         if not aligned:
             hl = ql.shape[1]
             kl, vl = (_kv_for_heads(t, h0, hl, rep) for t in (kl, vl))
-        return attn(ql, kl, vl, causal=causal)
+        return attn(ql, kl, vl, causal=causal, softcap=softcap)
 
     # one output: its placements as a list (a tuple lists outputs)
     return run_local("flash_attention", fn, mesh, (q, k, v),

@@ -141,7 +141,7 @@ def kernel_bytes() -> dict:
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
 
-    def flash(q, k, v, causal):
+    def flash(q, k, v, causal, softcap=0.0):
         B, H, S, D = q.shape
         return fk.attention_bytes(B, H, k.shape[1], S, D, q.element_size(),
                                   dv=v.shape[-1], sk=k.shape[2])

@@ -26,7 +26,10 @@ write_along``, the JAX package's ``dynamic_update_slice_in_dim``, whose
 buffer it donates for the same effect): prefill its first S positions,
 decode position ``pos``; on a DTensor cache whose sequence dim is
 sharded, only the rank that holds a position writes it.
-A logit soft-cap (``attn_logit_softcap > 0``) has no kernel and raises.
+A logit soft-cap (``attn_logit_softcap > 0``) caps every scaled score to
+``cap·tanh(s/cap)`` before the mask, as the JAX package's ``_softcap``:
+in the flash kernel (prefill, training, cross-attention's prefill) and
+in both decode compositions.
 """
 from __future__ import annotations
 
@@ -75,10 +78,11 @@ def attn_cache_schema(cfg: ModelConfig, batch: int, max_seq: int):
     }
 
 
-def _no_softcap(cfg: ModelConfig) -> None:
-    if cfg.attn_logit_softcap and cfg.attn_logit_softcap > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_logit_softcap has no kernel in the port")
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap·tanh(scores/cap)`` for a cap above 0, else the scores."""
+    if cap > 0:
+        return cap * torch.tanh(scores / cap)
+    return scores
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -115,7 +119,6 @@ def apply_attn_full(
 ):
     """Prefill attention over a full sequence.  When ``cache`` is given,
     this layer's k and v are written to its first S positions."""
-    _no_softcap(cfg)
     dt = cfg.cdtype
     x = x.to(dt)
     q = _project(x, p["wq"].to(dt))
@@ -126,7 +129,7 @@ def apply_attn_full(
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
         kk = apply_rope(kk, cos, sin)
-    out = _attend(q, kk, vv, causal)
+    out = _attend(q, kk, vv, causal, cfg.attn_logit_softcap)
     y = shard(_out(out, p["wo"].to(dt)), "batch", None, "d_model")
     if cache is not None:
         B, S = x.shape[:2]
@@ -138,15 +141,17 @@ def apply_attn_full(
     return y
 
 
-def _attend(q, k, v, causal: bool):
+def _attend(q, k, v, causal: bool, softcap: float):
     """The attention kernel on the model's (B, S, heads, D) tensors, as
-    (B, heads, S, D) views; under rules, k and v are placed on their kv
-    heads (the JAX package repeats them to H and places them on "heads":
-    the kernel's DTensor branch gives each rank the kv heads its q heads
-    use) and the output on "heads"."""
+    (B, heads, S, D) views, the scores capped by ``softcap``; under
+    rules, k and v are placed on their kv heads (the JAX package repeats
+    them to H and places them on "heads": the kernel's DTensor branch
+    gives each rank the kv heads its q heads use) and the output on
+    "heads"."""
     k = shard(k.transpose(1, 2), "batch", "kv_heads", None, None)
     v = shard(v.transpose(1, 2), "batch", "kv_heads", None, None)
-    out = attention(q.transpose(1, 2), k, v, causal=causal)
+    out = attention(q.transpose(1, 2), k, v, causal=causal,
+                    softcap=softcap)
     return shard(out, "batch", "heads", None, None).transpose(1, 2)
 
 
@@ -171,7 +176,6 @@ def apply_attn_decode(
     *,
     rope_cs=None,                 # cos/sin for the single position
 ):
-    _no_softcap(cfg)
     dt = cfg.cdtype
     B = x.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -194,6 +198,7 @@ def apply_attn_decode(
     scores = torch.einsum(
         "bgrd,bsgd->bgrs", qf.to(torch.float32), k.to(torch.float32)
     ) * (Dh ** -0.5)
+    scores = _softcap(scores, cfg.attn_logit_softcap)
     valid = torch.arange(Smax, device=x.device) <= pos
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dt)
@@ -230,20 +235,21 @@ def apply_cross_attn(
     x: torch.Tensor,              # (B, S, d) or (B, d)
     kv,                           # cross cache {"k","v"} (B, F, KH, Dh)
 ):
-    _no_softcap(cfg)
     dt = cfg.cdtype
     x = x.to(dt)
     q = _project(x, p["wq"].to(dt))
     k, v = kv["k"], kv["v"]
     if x.ndim == 3:                               # prefill: the kernel
         q = shard(q, "batch", None, "heads", None)
-        return _out(_attend(q, k, v, False), p["wo"].to(dt))
+        return _out(_attend(q, k, v, False, cfg.attn_logit_softcap),
+                    p["wo"].to(dt))
     B, H, Dh = q.shape                            # decode: one query
     KH = k.shape[2]
     qf = _kv_groups(q, KH)
     scores = torch.einsum(
         "bgrd,bfgd->bgrf", qf.to(torch.float32), k.to(torch.float32)
     ) * (Dh ** -0.5)
+    scores = _softcap(scores, cfg.attn_logit_softcap)
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bgrf,bfgd->bgrd", probs, v).reshape(B, H, Dh)
     return _out(ctx, p["wo"].to(dt))

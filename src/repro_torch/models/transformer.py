@@ -1,6 +1,6 @@
 """Decoder stack: attention, multi-head latent attention (MLA) and
 Mamba-2 layers, each with a dense MLP, a mixture-of-experts MLP or
-(Mamba) none, in any pattern of the config's blocks, and with
+none, in any pattern of the config's blocks, and with
 cross-attention to an encoder's output between the mixer and the MLP
 where the config has it (whisper's decoder).
 
@@ -66,9 +66,8 @@ from repro_torch.sharding.rules import placement_context, shard
 
 
 #: the (mixer, mlp) layer kinds the port serves
-LAYER_KINDS = (("attn", "dense"), ("attn", "moe"), ("mla", "dense"),
-               ("mla", "moe"), ("mamba", "none"), ("mamba", "dense"),
-               ("mamba", "moe"))
+LAYER_KINDS = tuple((mixer, mlp) for mixer in ("attn", "mla", "mamba")
+                    for mlp in ("none", "dense", "moe"))
 
 #: each mixer's schema
 _MIXER_SCHEMAS = {"attn": attn.attn_schema, "mla": mla_mod.mla_schema,

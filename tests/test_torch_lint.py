@@ -646,10 +646,16 @@ INJECTIONS = [
      '"memory");\n        mbar_expect(b0, ncb * BLK);',
      "        mbar_expect(b0, ncb * BLK);",
      "async-pairing", "no fence.mbarrier_init"),
-    ("models/attention.py",
-     "    out = _attend(q, kk, vv, causal)",
-     "    out = _attend(q, kk, vv, causal) * x.sum().item()",
-     "host-sync", "`.item()` in hot `apply_attn_full`"),
+    # the id the case had before the call took the soft-cap
+    pytest.param(
+        "models/attention.py",
+        "    out = _attend(q, kk, vv, causal, cfg.attn_logit_softcap)",
+        "    out = _attend(q, kk, vv, causal, cfg.attn_logit_softcap)"
+        " * x.sum().item()",
+        "host-sync", "`.item()` in hot `apply_attn_full`",
+        id="models/attention.py-    out = _attend(q, kk, vv, causal)-    "
+           "out = _attend(q, kk, vv, causal) * x.sum().item()-host-sync-"
+           "`.item()` in hot `apply_attn_full`"),
     ("kernels/rmsnorm/csrc/rmsnorm_residual.cu",
      "    rmsnorm_residual_kernel<T, VEC, NV><<<grid, block, smem, "
      "a.stream>>>(",

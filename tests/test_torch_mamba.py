@@ -375,17 +375,24 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 def test_unported_configs_raise():
     t = smoke_config(get_config(ARCH))
-    # a logit soft-cap on an attention layer beside the mamba layer: no
-    # kernel takes it
-    capped = dataclasses.replace(
-        t, attn_logit_softcap=30.0, num_heads=4, num_kv_heads=2,
-        head_dim=16, d_ff=128, num_layers=2, blocks=(
-            BlockDef(pattern=(("mamba", "none"), ("attn", "dense")),
-                     repeat=1),))
-    params = serve.make_params(capped, "cpu")
-    with pytest.raises(NotImplementedError, match="softcap"):
-        M.prefill(capped, params, {"tokens": torch.zeros((1, 4),
-                                                         dtype=torch.long)})
+    j = jsmoke_config(jget_config(ARCH))
+    toks = np.random.default_rng(5).integers(0, t.vocab_size, (B, 8))
+    # a logit soft-cap on an attention layer beside the mamba layer, and
+    # an attention layer without an MLP: once refused, now served, the
+    # prefill the JAX package's on the same parameters
+    hybrid = dict(attn_logit_softcap=30.0, num_heads=4, num_kv_heads=2,
+                  head_dim=16, d_ff=128, num_layers=2)
+    for pattern in ((("mamba", "none"), ("attn", "dense")),
+                    (("mamba", "none"), ("attn", "none"))):
+        jc = dataclasses.replace(j, **hybrid, blocks=(
+            JBlockDef(pattern=pattern, repeat=1),))
+        tc = dataclasses.replace(t, **hybrid, blocks=(
+            BlockDef(pattern=pattern, repeat=1),))
+        jp = jinit_params(JM.schema(jc), jax.random.key(0))
+        tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), "cpu")
+        want, _ = JM.prefill(jc, jp, {"tokens": jnp.asarray(toks)})
+        got, _ = M.prefill(tc, tp, {"tokens": torch.from_numpy(toks)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     # a MoE layer with no MoE config, an MLA layer with no MLA config
     with pytest.raises(ValueError, match="needs cfg.moe"):
         M.schema(dataclasses.replace(t, blocks=(
@@ -393,10 +400,6 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError, match="needs cfg.mla"):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("mla", "dense"),), repeat=1),)))
-    # a layer kind the port does not serve
-    with pytest.raises(NotImplementedError):
-        M.schema(dataclasses.replace(t, blocks=(
-            BlockDef(pattern=(("attn", "none"),), repeat=1),)))
     assert get_config("whisper-large-v3").encoder_layers == 32
 
 

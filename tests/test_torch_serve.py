@@ -256,19 +256,29 @@ def test_weights_in_compute_dtype_equal_jax_casts(models):
 
 
 def test_unported_configs_raise():
-    """What the port still refuses: a logit soft-cap (no kernel takes
-    it), a layer kind it does not serve, and a MoE or MLA layer without
-    its config.  Whisper's encoder, qwen2-vl's embedding inputs and
-    M-RoPE and layernorm are served, and both archs resolve."""
+    """What the port refuses: a MoE or MLA layer without its config.  A
+    logit soft-cap and a layer kind without an MLP, once refused, are
+    served and match the JAX package's prefill on the same parameters.
+    Whisper's encoder, qwen2-vl's embedding inputs and M-RoPE and
+    layernorm are served, and both archs resolve."""
+    from repro.configs.base import BlockDef as JBlockDef
+
     t = smoke_config(get_config("yi-6b"))
-    capped = dataclasses.replace(t, attn_logit_softcap=30.0)
-    params = serve.make_params(capped, "cpu")
-    with pytest.raises(NotImplementedError, match="softcap"):
-        M.prefill(capped, params, {"tokens": torch.zeros((1, 4),
-                                                         dtype=torch.long)})
-    with pytest.raises(NotImplementedError):
-        M.schema(dataclasses.replace(t, blocks=(
-            BlockDef(pattern=(("attn", "none"),), repeat=1),)))
+    j = jsmoke_config(jget_config("yi-6b"))
+    toks = _prompts(t.vocab_size, 8)
+    no_mlp = ((("attn", "none"), ("attn", "dense")),)
+    for jc, tc in (
+            (dataclasses.replace(j, attn_logit_softcap=30.0),
+             dataclasses.replace(t, attn_logit_softcap=30.0)),
+            (dataclasses.replace(j, num_layers=2, blocks=tuple(
+                JBlockDef(p, 1) for p in no_mlp)),
+             dataclasses.replace(t, num_layers=2, blocks=tuple(
+                 BlockDef(p, 1) for p in no_mlp)))):
+        jp = jinit_params(JM.schema(jc), jax.random.key(0))
+        tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), "cpu")
+        want, _ = JM.prefill(jc, jp, {"tokens": jnp.asarray(toks)})
+        got, _ = M.prefill(tc, tp, {"tokens": torch.from_numpy(toks)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     with pytest.raises(ValueError, match="needs cfg.moe"):
         M.schema(dataclasses.replace(t, blocks=(
             BlockDef(pattern=(("attn", "moe"),), repeat=1),)))

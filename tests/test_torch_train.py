@@ -201,19 +201,30 @@ def test_pipeline_batches_are_bitwise_jax(arch):
 
 
 def test_unported_configs_raise_in_training():
-    """What the port still refuses to train: a logit soft-cap, a layer
-    kind it does not serve, a MoE or MLA layer without its config.
-    whisper's and qwen2-vl's batches (frame embeddings, patch
-    embeddings, M-RoPE positions) are drawn and trained."""
+    """What the port refuses to train: a MoE or MLA layer without its
+    config.  A logit soft-cap and an attention layer without an MLP,
+    once refused, train: their loss is the JAX package's on the same
+    parameters and batch.  whisper's and qwen2-vl's batches (frame
+    embeddings, patch embeddings, M-RoPE positions) are drawn and
+    trained."""
     t = smoke_config(get_config("yi-6b"))
+    j = jsmoke_config(jget_config("yi-6b"))
     batch = SyntheticLMPipeline(t, SHAPE).batch_at(0)
-    capped = dataclasses.replace(t, attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        M.loss_fn(capped, init_params(M.train_schema(capped),
-                                      torch.Generator().manual_seed(0),
-                                      "cpu"), batch)
-    for pattern, err in (((("attn", "none"),), NotImplementedError),
-                         ((("attn", "moe"),), ValueError),
+    no_mlp = (("attn", "none"), ("attn", "dense"))
+    for jc, tc in (
+            (dataclasses.replace(j, attn_logit_softcap=30.0),
+             dataclasses.replace(t, attn_logit_softcap=30.0)),
+            (dataclasses.replace(j, num_layers=2, blocks=(
+                JBlockDef(no_mlp, 1),)),
+             dataclasses.replace(t, num_layers=2, blocks=(
+                 BlockDef(no_mlp, 1),)))):
+        jp = jinit_params(JM.schema(jc), jax.random.key(0))
+        tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), "cpu",
+                               train=True)
+        jl, _ = JM.loss_fn(jc, jp, _jbatch(batch), loss_chunk=LOSS_CHUNK)
+        tl, _ = M.loss_fn(tc, tp, batch, loss_chunk=LOSS_CHUNK)
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=LOSS_RTOL)
+    for pattern, err in (((("attn", "moe"),), ValueError),
                          ((("mla", "dense"),), ValueError)):
         bad = dataclasses.replace(t, blocks=(BlockDef(pattern=pattern,
                                                       repeat=1),))
